@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (krakenuniq_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure:
+  1. card and build: the card's name and power limit; build every kernel of
+     csrc/ from source (one nvcc per file, in parallel);
+  2. each kernel against its plain PyTorch version on the card, integer for
+     integer (tolerance 0: every output is an integer or a bool);
+  3. the golden fixture on the card: Classifier(device="cuda") reproduces the
+     reference binaries' kraken output and report byte for byte, for the
+     single database and for the hierarchical db_bact + db_viral pair;
+  4. the main path at full size: a synthetic database at the JAX bench's
+     default shape (400 species x 25 kbp, BALLAST = 101M ballast keys, a
+     2.4M-node taxonomy, k=31, nt=12) under krakenuniq_tpu_torch/_build/,
+     loaded by Classifier(device="cuda"), classifying N_READS zipf-1.5
+     150 bp reads through
+     Classifier.run and write_report with every launch counter reset just
+     before and read just after; the calls are checked against each read's
+     true species, and one full work unit is held against the same step
+     forced to the plain versions.
+Progress goes to stderr; stdout carries one JSON line per kernel check, the
+phase-4 summary, the kernel table, the card line and, last, the device line.
+Exits non-zero without a result when no CUDA device (or no port) is present.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden", "data")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# Every kernel here does integer work (compares, shifts, adds), which issues
+# at 64 per SM per clock on compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): 132 SMs x 64 x 1.98 GHz boost.
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+
+# Phase 4: the JAX bench's default database (bench.py:225-230) and a fifth
+# of its 1M reads, to bound the run time.
+N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST = 400, 25_000, 2_400_000, 101_000_000
+N_READS = 200_000
+
+T0 = time.time()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.time() - T0:7.1f}s] {msg}", file=sys.stderr, flush=True)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device milliseconds of fn() over `reps` CUDA-event pairs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def max_abs_err(got, want) -> float:
+    """0.0 when every tensor pair is equal, else the largest difference."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = max(err, float((g.double() - w.double()).abs().max()), 1.0)
+    return err
+
+
+def check_kernel(name, shape, kernel, plain, reps, bound=None):
+    """Run the kernel and its plain version on the same inputs, require
+    equality, time both; returns the record. `launches` counts this check's
+    launches of the kernel (the run, warm-up and timed calls)."""
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+
+    kname = name.split()[0]
+    before = _kernels.LAUNCHES[kname]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name} {shape}: kernel differs from plain (max_abs_err {err})")
+    rec = {
+        "check": name,
+        "shape": list(shape),
+        "max_abs_err": err,
+        "ms": time_ms(kernel, reps),
+        "plain_ms": time_ms(plain, max(3, reps // 4)),
+        "launches": _kernels.LAUNCHES[kname] - before,
+    }
+    if bound is not None:
+        rec.update(bound)
+    emit(rec)
+    return rec
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    """Least time on the card: the larger of bytes over the memory rate and
+    integer operations over the card's integer issue rate."""
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = ops / INT_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+    }
+
+
+def scores_bound(hit, w: int) -> dict:
+    """Per row, every hit lane i is compared with every hit lane j (two
+    compares and an add); tins, touts in and scores out, 4 bytes each."""
+    n_hit = hit.sum(dim=1).double()
+    pairs = float((n_hit * n_hit).sum())
+    return bound(3 * 4 * hit.numel(), 3 * pairs)
+
+
+def front_bound(b: int, lb: int, k: int) -> dict:
+    """Codes and flags in (1 byte each per base); hash, enc, ambiguity out
+    (8 + 4 + 1 bytes per lane); ~2k + 48 integer operations per lane."""
+    lanes = b * (lb - k + 1)
+    return bound(2 * b * lb + 13 * lanes, (2 * k + 48) * lanes)
+
+
+def probe_bound(valid) -> dict:
+    """Hash (8 B) and valid (1 B) in, value (4 B) out per query; per valid
+    query one 4 B displacement word and one 16 B row; ~24 operations."""
+    n, nv = valid.numel(), float(valid.sum())
+    return bound(13 * n + 20 * nv, 24 * nv)
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def score_inputs(b, w, seed, all_miss=False):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tins = rng.integers(0, 5000, size=(b, w)).astype(np.int32)
+    touts = (tins + rng.integers(1, 2500, size=(b, w))).astype(np.int32)
+    hit = np.zeros((b, w), bool) if all_miss else rng.random((b, w)) < 0.7
+    t = lambda a: torch.from_numpy(a).cuda()
+    return t(tins), t(touts), t(hit)
+
+
+def front_inputs(b, lb, seed):
+    """Random bases, ~1% N, and per-row lengths from 0 to lb (some below k);
+    padding positions ambiguous with code 0, as encode_batch lays them out."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(b, lb), dtype=np.uint8)
+    ambig = rng.random((b, lb)) < 0.01
+    lengths = rng.integers(0, lb + 1, size=b)
+    lengths[: b // 2] = 150
+    pad = np.arange(lb)[None, :] >= lengths[:, None]
+    codes[pad] = 0
+    ambig |= pad
+    codes[ambig] = 0
+    return torch.from_numpy(codes).cuda(), torch.from_numpy(ambig).cuda()
+
+
+def phase_kernels(k: int):
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front, kmer_front_plain
+    from krakenuniq_tpu_torch.taxonomy.resolve import _scores_plain, scores
+
+    for i, (b, w, miss) in enumerate(
+        [(4096, 130, False), (65536, 130, False), (64, 482, False), (5, 7, False),
+         (64, 130, True), (16, 2018, False)]  # W > 1024: the j-tiled path
+    ):
+        tins, touts, hit = score_inputs(b, w, i, all_miss=miss)
+        check_kernel(
+            "scores" + (" all-miss" if miss else ""), (b, w),
+            lambda: (scores(tins, touts, hit),),
+            lambda: (_scores_plain(tins, touts, hit),),
+            reps=20, bound=scores_bound(hit, w),
+        )
+    b, lb = 65536, 160
+    codes, ambig = front_inputs(b, lb, 7)
+    check_kernel(
+        "kmer_front", (b, lb),
+        lambda: kmer_front(codes, ambig, k, 12),
+        lambda: kmer_front_plain(codes, ambig, k, 12),
+        reps=20, bound=front_bound(b, lb, k),
+    )
+
+
+def probe_check(db, keys, n_queries=8_500_000, seed=5):
+    """chd_probe on the full-size table: half hits (random DB keys), half
+    junk, ~1% invalid lanes; kernel == plain, and every valid hit finds its
+    key's stored value."""
+    import torch
+
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+    from krakenuniq_tpu_torch.utils.bits import murmur3_finalizer
+
+    rng = np.random.default_rng(seed)
+    half = n_queries // 2
+    pick = rng.integers(0, len(keys), size=half)
+    junk = rng.integers(0, 1 << 62, size=n_queries - half, dtype=np.uint64)
+    q = np.concatenate([np.asarray(keys[pick]), junk])
+    h = torch.from_numpy(murmur3_finalizer(q).view(np.int64)).cuda()
+    valid = torch.from_numpy(rng.random(n_queries) >= 0.01).cuda()
+    planes = db.hash_table
+    rec = check_kernel(
+        "chd_probe", (n_queries,),
+        lambda: (hash_lookup_kmers(planes, h, valid),),
+        lambda: (hash_lookup_plain(planes, h, valid),),
+        reps=10, bound=probe_bound(valid),
+    )
+    got = hash_lookup_kmers(planes, h, valid)[:half].cpu().numpy()
+    vd = db.vals_dense[pick]
+    want = db.pool.pool_index(vd) if db.pool is not None else vd
+    ok = valid[:half].cpu().numpy()
+    if not np.array_equal(got[ok], want[ok]) or (got[~ok] != 0).any():
+        raise AssertionError("chd_probe: a stored key did not return its value")
+    return rec
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def phase_goldens():
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    for dbs, kraken_name, report_name in (
+        (["."], "kraken.out", "report.tsv"),
+        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv"),
+    ):
+        c = Classifier(
+            [os.path.join(GOLDEN, d) for d in dbs],
+            ClassifyOptions(print_progress=False, device="cuda"),
+        )
+        kraken, report = io.StringIO(), io.StringIO()
+        c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
+        c.write_report(report)
+        for got, name in ((kraken.getvalue(), kraken_name), (report.getvalue(), report_name)):
+            with open(os.path.join(GOLDEN, name)) as f:
+                if got != f.read():
+                    raise AssertionError(f"golden {name} differs on the card")
+        log(f"golden {kraken_name} + {report_name}: byte-equal")
+    emit({"check": "goldens", "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"], "equal": True})
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def ensure_db_dir(n_species, genome_len, k, nt, pad_nodes, ballast, seed=7):
+    """Build-or-reuse the synthetic reference-layout database directory."""
+    from krakenuniq_tpu_torch.formats import write_index, write_kdb
+    from krakenuniq_tpu_torch.utils.demo import make_demo_db
+
+    db_dir = os.path.join(
+        ROOT, "krakenuniq_tpu_torch", "_build",
+        f"demo_db_{n_species}_{genome_len}_{k}_{nt}_{pad_nodes}_{ballast}_{seed}",
+    )
+    genomes_npz = os.path.join(db_dir, "genomes.npz")
+    if os.path.exists(genomes_npz):
+        z = np.load(genomes_npz, allow_pickle=True)
+        log(f"database reused: {db_dir}")
+        return db_dir, z["genomes"].item(), 0.0
+    t = time.time()
+    os.makedirs(db_dir, exist_ok=True)
+    keys, vals, offsets, tax, genomes = make_demo_db(
+        n_species=n_species, genome_len=genome_len, k=k, nt=nt, seed=seed,
+        species_base=10_000_000, pad_nodes=pad_nodes, ballast_keys=ballast,
+    )
+    log(f"database generated: {len(keys)} keys in {time.time() - t:.1f}s")
+    write_kdb(os.path.join(db_dir, "database.kdb"), keys, vals, k=k)
+    write_index(os.path.join(db_dir, "database.idx"), nt, np.asarray(offsets, dtype=np.uint64))
+    tax.write_taxdb(os.path.join(db_dir, "taxDB"))
+    np.savez(genomes_npz + ".tmp.npz", genomes=np.array(genomes, dtype=object))
+    os.replace(genomes_npz + ".tmp.npz", genomes_npz)
+    synth_s = time.time() - t
+    log(f"database synthesised and written in {synth_s:.1f}s")
+    return db_dir, genomes, synth_s
+
+
+def write_reads(path, genomes, n_reads, read_len=150, seed=3):
+    """zipf-1.5 species abundance, as the JAX bench draws it; each read id
+    carries its true species."""
+    rng = np.random.default_rng(seed)
+    sids = list(genomes)
+    wts = 1.0 / np.arange(1, len(sids) + 1, dtype=np.float64) ** 1.5
+    gsel = np.searchsorted(np.cumsum(wts) / wts.sum(), rng.random(n_reads))
+    glen = len(genomes[sids[0]])
+    starts = rng.integers(0, glen - read_len, size=n_reads)
+    with open(path, "w") as f:
+        for i in range(n_reads):
+            sid = sids[gsel[i]]
+            s = starts[i]
+            f.write(f">r{i}_{sid}\n{genomes[sid][s:s + read_len]}\n")
+
+
+def phase_main(reps: int):
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front, kmer_front_plain
+    from krakenuniq_tpu_torch.formats import read_kdb
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+    from krakenuniq_tpu_torch.taxonomy.resolve import _scores_plain, scores
+
+    k, nt = 31, 12
+    db_dir, genomes, synth_s = ensure_db_dir(N_SPECIES, GENOME_LEN, k, nt, PAD_NODES, BALLAST)
+    reads_path = os.path.join(db_dir, f"reads_{N_READS}.fa")
+    if not os.path.exists(reads_path):
+        write_reads(reads_path + ".tmp", genomes, N_READS)
+        os.replace(reads_path + ".tmp", reads_path)
+
+    t = time.time()
+    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
+    load_s = time.time() - t
+    db = c.dbs[0]
+    log(f"loaded in {load_s:.1f}s {db.timings}; lr={db.hash_lb}, {db.table_bytes / 1e9:.3f} GB table")
+    _, keys, _ = read_kdb(os.path.join(db_dir, "database.kdb"))
+    probe_rec = probe_check(db, keys)
+    del keys
+
+    out_path = os.path.join(db_dir, "kraken.out")
+    report_path = os.path.join(db_dir, "report.tsv")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t = time.time()
+    with open(out_path, "w") as kf:
+        c.run([reads_path], kraken_fh=kf)
+    with open(report_path, "w") as rf:
+        c.write_report(rf)
+    torch.cuda.synchronize()
+    run_s = time.time() - t
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
+    missing = [n for n, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path launched no {missing} kernel")
+
+    # outputs: one line per read, calls against each read's true species
+    n_lines = n_right = n_class = 0
+    with open(out_path) as f:
+        for line in f:
+            st, rid, call = line.split("\t", 3)[:3]
+            n_lines += 1
+            n_class += st == "C"
+            n_right += int(call) == int(rid.rsplit("_", 1)[1])
+    with open(report_path) as f:
+        report_rows = sum(1 for _ in f)
+    if n_lines != N_READS or n_right < 0.99 * N_READS or report_rows < 3:
+        raise AssertionError(
+            f"main path output wrong: {n_lines} lines, {n_right} right calls, {report_rows} report rows"
+        )
+
+    # one full work unit: kernels vs the same step forced to the plain versions
+    unit = next(c._work_units(reads_path))[0]
+    enc = c._encode_unit(unit)
+    out_k = c._device_step(enc.codes, enc.ambig, enc.lengths)
+    out_p = c._device_step(enc.codes, enc.ambig, enc.lengths, plain=True)
+    torch.cuda.synchronize()
+    for key in out_p:
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"work unit: kernel step differs from plain step in {key!r}")
+    b, lb = enc.codes.shape
+    log(f"work unit [{b}, {lb}] ({len(unit)} reads): kernel step == plain step")
+
+    # each kernel at this unit's main-path inputs
+    codes = torch.from_numpy(enc.codes).cuda()
+    ambig = torch.from_numpy(enc.ambig).cuda()
+    front = check_kernel(
+        "kmer_front", (b, lb),
+        lambda: kmer_front(codes, ambig, k, c._cfg.hll_p),
+        lambda: kmer_front_plain(codes, ambig, k, c._cfg.hll_p),
+        reps=reps, bound=front_bound(b, lb, k),
+    )
+    hashes, _, kmer_ambig = kmer_front(codes, ambig, k, c._cfg.hll_p)
+    w = lb - k + 1
+    lengths = torch.from_numpy(enc.lengths).cuda()
+    valid = torch.arange(w, device=codes.device)[None, :] < (lengths - (k - 1))[:, None]
+    search = valid & ~kmer_ambig
+    planes = c._db_planes[0]
+    probe = check_kernel(
+        "chd_probe", (b, w),
+        lambda: (hash_lookup_kmers(planes, hashes, search),),
+        lambda: (hash_lookup_plain(planes, hashes, search),),
+        reps=reps, bound=probe_bound(search),
+    )
+    t_dense = out_k["taxa_dense"].long()
+    hit = t_dense != 0
+    tins, touts = c._tin[t_dense], c._tout[t_dense]
+    score = check_kernel(
+        "scores", (b, w),
+        lambda: (scores(tins, touts, hit),),
+        lambda: (_scores_plain(tins, touts, hit),),
+        reps=reps, bound=scores_bound(hit, w),
+    )
+
+    n_units = max(c.n_units, 1)
+    emit({
+        "phase": "main_path",
+        "db_keys": int(db.key_ct),
+        "taxonomy_nodes": int(c.taxonomy.size),
+        "pool_ids": int(db.pool.size) if db.pool is not None else None,
+        "table_gb": db.table_bytes / 1e9,
+        "synth_s": synth_s,
+        "load_s": load_s,
+        "load_steps_s": db.timings,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "units": c.n_units,
+        "host_s_per_unit": c.host_seconds / n_units,
+        "device_step_s_per_unit": c.device_seconds / n_units,
+        "classified": n_class,
+        "calls_right": n_right,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+    })
+    return {"scores": score, "kmer_front": front, "chd_probe": probe}, launches, probe_rec
+
+
+# ------------------------------------------------------------------- driver
+
+
+KERNELS = {
+    "scores": ("krakenuniq_tpu_torch/csrc/scores.cu", "krakenuniq_tpu/taxonomy/resolve.py:67"),
+    "kmer_front": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/classify/device_step.py:154"),
+    "chd_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:104"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from krakenuniq_tpu_torch import _kernels
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 2
+
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t = time.time()
+    paths = _kernels.build()
+    log(f"kernels built in {time.time() - t:.1f}s: {sorted(paths)}")
+
+    phase_kernels(k=31)
+    phase_goldens()
+    recs, launches, _ = phase_main(reps=50)
+
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        r = recs[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    emit({"kernels": rows})
+    print(card)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }})
+    log("done")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

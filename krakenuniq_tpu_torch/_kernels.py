@@ -1,0 +1,131 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` is compiled on first use by `nvcc` for sm_90a into a
+shared library with a plain C interface (`kuniq_<name>`, returning the
+`cudaGetLastError()` of its launch) and loaded with ctypes. The libraries go
+to `_build/`, named by a hash of their source, so an edited source rebuilds
+and an unchanged one is reused. `build()` compiles every source at once, one
+`nvcc` process each.
+
+`LAUNCHES[name]` counts the kernel launches made through `launch`: the
+wrappers (device_step.kmer_front, hash_lookup.hash_lookup_kmers,
+resolve.scores) call it exactly where they launch, so a run can show that
+its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signature of each kernel's entry point (pointers and the stream as
+# c_void_p: a bare Python int would be passed as a 32-bit int)
+SIGNATURES = {
+    # tins, touts, out, B, W, stream
+    "scores": (_P, _P, _P, _I, _I, _P),
+    # codes, ambig, hash, enc, kmer_ambig, B, LB, k, p, stream
+    "kmer_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # disp, rows, hashes, valid, out, n, lr, lg, stream
+    "chd_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+}
+
+LAUNCHES = {name: 0 for name in SIGNATURES}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one nvcc process per source, all started together. Returns name -> path
+    of the shared library; raises with nvcc's output if any build fails."""
+    names = list(SIGNATURES if names is None else names)
+    paths = {n: _lib_path(n) for n in names}
+    todo = [n for n in names if not os.path.exists(paths[n])]
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = f"{paths[n]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu:\n{out}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build([name])[name])
+        fn = getattr(lib, f"kuniq_{name}")
+        fn.argtypes = list(SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors on one CUDA device and contiguous; returns the device."""
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {dev}")
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    return dev
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream; tensors in `args`
+    are passed by data pointer. Raises on a refused launch."""
+    fn = getattr(_lib(name), f"kuniq_{name}")
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*c_args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,150 @@
+"""`krakenuniq-tpu-torch` -- the classifier CLI of the PyTorch/CUDA port.
+
+Flag-compatible with the reference `krakenuniq` wrapper
+(scripts/krakenuniq:76-100) for the options this port serves; run it as
+`python -m krakenuniq_tpu_torch.cli.main --db DIR reads.fa`. `--device cpu`
+runs the plain PyTorch versions of the kernels on the CPU; the default
+`cuda` needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import shlex
+import sys
+import tempfile
+
+from .. import __version__
+from .dblib import find_db
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="krakenuniq-tpu-torch",
+        description="Taxonomic sequence classifier with unique k-mer counting (PyTorch/CUDA)",
+    )
+    p.add_argument("--db", action="append", default=[], help="database directory (repeatable: hierarchical lookup)")
+    p.add_argument("--fasta-input", action="store_true", help="(format is auto-detected)")
+    p.add_argument("--fastq-input", action="store_true", help="(format is auto-detected)")
+    p.add_argument("--gzip-compressed", action="store_true", help="(auto-detected)")
+    p.add_argument("--bzip2-compressed", action="store_true", help="(auto-detected)")
+    p.add_argument("--quick", action="store_true", help="stop after the first hit(s)")
+    p.add_argument("--min-hits", type=int, default=1, help="hits required in quick mode")
+    p.add_argument("--unclassified-out", metavar="FILENAME")
+    p.add_argument("--classified-out", metavar="FILENAME")
+    p.add_argument("-o", "--output", metavar="FILENAME", help="kraken output ('off' to suppress)")
+    p.add_argument("--report-file", metavar="FILENAME", help="report output ('off' to suppress)")
+    p.add_argument("--paired", action="store_true", help="two input files are mate pairs")
+    p.add_argument("--check-names", action="store_true")
+    p.add_argument("--hll-precision", type=int, default=12)
+    p.add_argument("--only-classified-output", action="store_true")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the tables live and the step runs (default: cuda)")
+    p.add_argument("--version", action="version", version=f"KrakenUniq-TPU-torch version {__version__}")
+    p.add_argument("files", nargs="*", help="FASTA/FASTQ input files (gz/bz2/xz ok)")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    args = build_parser().parse_args(argv)
+
+    from ..classify import Classifier, ClassifyOptions
+    from ..formats.seqio import merge_paired, open_output
+
+    if not args.db:
+        print("Need to specify a database with --db!", file=sys.stderr)
+        return 1
+    if not args.files:
+        print("Need to specify input filenames!", file=sys.stderr)
+        return 1
+    if args.min_hits > 1 and not args.quick:
+        print("--min-hits requires --quick to be specified", file=sys.stderr)
+        return 1
+    if args.paired and len(args.files) != 2:
+        print("--paired requires exactly two filenames", file=sys.stderr)
+        return 1
+    if args.gzip_compressed or args.bzip2_compressed:
+        print("NOTE: compression is detected automatically.", file=sys.stderr)
+    if args.fasta_input or args.fastq_input:
+        print("NOTE: input format is detected automatically.", file=sys.stderr)
+
+    try:
+        db_dirs = [find_db(d) for d in args.db]
+    except ValueError as e:
+        print(f"krakenuniq-tpu-torch: {e}", file=sys.stderr)
+        return 1
+    if not os.path.exists(os.path.join(db_dirs[0], "taxDB")):
+        print(f"{os.path.join(db_dirs[0], 'taxDB')} missing", file=sys.stderr)
+        return 1
+
+    opts = ClassifyOptions(
+        quick=args.quick,
+        min_hits=args.min_hits,
+        hll_precision=args.hll_precision,
+        only_classified_output=args.only_classified_output,
+        device=args.device,
+    )
+
+    inputs = list(args.files)
+    tmp_merged = None
+    if args.paired:
+        fd, tmp_merged = tempfile.mkstemp(suffix=".merged.fa")
+        with os.fdopen(fd, "w") as fh:
+            merge_paired(inputs[0], inputs[1], fh, check_names=args.check_names)
+        inputs = [tmp_merged]
+
+    # report provenance header (scripts/krakenuniq:242-247)
+    if args.report_file and args.report_file != "off":
+        date = datetime.datetime.now(datetime.timezone.utc).strftime("%Y-%m-%dT%H:%M:%SZ")
+        db_size = os.path.getsize(os.path.join(db_dirs[0], "database.kdb"))
+        cl = " ".join([sys.argv[0]] + [shlex.quote(a) for a in argv])
+        os.makedirs(os.path.dirname(os.path.abspath(args.report_file)), exist_ok=True)
+        with open(args.report_file, "w") as rf:
+            rf.write(
+                f"# KrakenUniq-TPU-torch v{__version__} DATE:{date} DB:{' '.join(db_dirs)} "
+                f"DB_SIZE:{db_size} WD:{os.getcwd()}\n# CL:{cl}\n"
+            )
+
+    close_fhs = []
+    try:
+        classifier = Classifier(db_dirs, options=opts)
+        kraken_fh = None
+        if args.output != "off":
+            if args.output in (None, "-"):
+                kraken_fh = sys.stdout
+            else:
+                kraken_fh = open_output(args.output)
+                close_fhs.append(kraken_fh)
+                print(f"Writing Kraken output to {args.output}", file=sys.stderr)
+        classified_fh = unclassified_fh = None
+        if args.classified_out:
+            classified_fh = open_output(args.classified_out)
+            close_fhs.append(classified_fh)
+        if args.unclassified_out:
+            unclassified_fh = open_output(args.unclassified_out)
+            close_fhs.append(unclassified_fh)
+        classifier.run(
+            inputs,
+            kraken_fh=kraken_fh,
+            classified_fh=classified_fh,
+            unclassified_fh=unclassified_fh,
+        )
+        classifier.report_stats()
+        if args.report_file and args.report_file != "off":
+            print(f"Writing report file to {args.report_file}  ..", file=sys.stderr)
+            with open(args.report_file, "a") as rf:
+                classifier.write_report(rf)
+    finally:
+        for fh in close_fhs:
+            fh.close()
+        if tmp_merged:
+            os.unlink(tmp_merged)
+    print("Finishing up ...", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

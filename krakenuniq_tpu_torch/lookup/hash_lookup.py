@@ -1,0 +1,100 @@
+"""Device-side CHD hash-table k-mer lookup.
+
+The table (db/hash_table.py) is a displacement plane `disp4` int32
+[2^(lg-2), 4] and a row plane `rows` int32 [2^lr, 4], both holding uint32
+bit patterns. A query is the murmur hash of its canonical k-mer (int64
+holding uint64 bits); the probe reads one displacement word, then one 16-byte
+row, and compares both slots against the query's remainder -- an exact
+lookup (see krakenuniq_tpu/lookup/hash_lookup.py and the kernel's note in
+csrc/chd_probe.cu).
+
+`hash_lookup_kmers` launches the `chd_probe` CUDA kernel on CUDA tensors and
+runs `probe_chd_plain`, the plain PyTorch version, on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _kernels
+from ..db.hash_table import C2, GOLDEN
+from ..ints import i32_to_u32, lsr, s64
+
+_GOLDEN = s64(int(GOLDEN))
+_C2 = s64(int(C2))
+
+
+def _chd_widths(disp4: torch.Tensor, rows: torch.Tensor) -> tuple[int, int]:
+    """(lr, lg) from the plane shapes; raises on anything but the CHD layout."""
+    if disp4.dim() != 2 or disp4.shape[1] != 4 or rows.dim() != 2 or rows.shape[1] != 4:
+        raise NotImplementedError(
+            "only the CHD (disp4, rows) table layout is ported; the fused and "
+            "two-level layouts belong to a later slice of the port"
+        )
+    lr = int(rows.shape[0]).bit_length() - 1
+    lg = int(math.log2(disp4.shape[0] * 4))
+    return lr, lg
+
+
+def probe_chd_plain(disp4, rows, h, lr: int):
+    """Plain PyTorch CHD probe (krakenuniq_tpu.lookup.hash_lookup._probe_chd):
+    returns (found bool [n], value int64 [n]) for int64 query hashes `h`."""
+    lg = int(math.log2(disp4.shape[0] * 4))
+    p = lsr(h, 64 - lr)
+    r = h & ((1 << (64 - lr)) - 1)
+    g = lsr(r * _GOLDEN, 64 - lg)
+    q = lsr(r * _C2, 64 - lr)
+    d = i32_to_u32(disp4.reshape(-1)[g])
+    row = (p + (d & 0xFFFF) + (d >> 16) * q) & ((1 << lr) - 1)
+    rw = i32_to_u32(rows[row])  # [n, 4]
+    v_mask = (1 << lr) - 1
+    hi_mask = 0xFFFFFFFF & ~v_mask
+    e_hi = r >> (32 - lr)
+    e_lo = (r & ((1 << (32 - lr)) - 1)) << lr
+    m0 = (rw[:, 0] == e_hi) & ((rw[:, 1] & hi_mask) == e_lo)
+    m1 = (rw[:, 2] == e_hi) & ((rw[:, 3] & hi_mask) == e_lo)
+    # exactness: at most one REAL slot matches; empty slots match only
+    # r == 0 queries and contribute value 0 = miss, so max-combine is safe
+    zero = torch.zeros_like(r)
+    val = torch.maximum(
+        torch.where(m0, rw[:, 1] & v_mask, zero), torch.where(m1, rw[:, 3] & v_mask, zero)
+    )
+    return m0 | m1, val
+
+
+def hash_lookup_plain(planes, hashes, valid):
+    """Plain version of `hash_lookup_kmers`: value word per lane (int32), 0
+    where missing or invalid."""
+    disp4, rows = planes
+    lr, _ = _chd_widths(disp4, rows)
+    ok, val = probe_chd_plain(disp4, rows, hashes.reshape(-1), lr)
+    ok = ok & valid.reshape(-1)
+    return torch.where(ok, val, torch.zeros_like(val)).to(torch.int32).reshape(hashes.shape)
+
+
+def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The stored value per lane (int32; pool ids fit 30 bits), 0 where
+    missing or invalid. `planes` = (disp4, rows); `hashes` int64 and `valid`
+    bool of one shape. CUDA tensors launch the `chd_probe` kernel."""
+    if hashes.device.type == "cpu":
+        return hash_lookup_plain(planes, hashes, valid)
+    disp4, rows = planes
+    lr, lg = _chd_widths(disp4, rows)
+    dev = _kernels.check_cuda(
+        "chd_probe", disp4=disp4, rows=rows, hashes=hashes, valid=valid
+    )
+    if hashes.dtype != torch.int64 or valid.dtype != torch.bool:
+        raise TypeError("chd_probe: hashes must be int64 and valid bool")
+    if disp4.dtype != torch.int32 or rows.dtype != torch.int32:
+        raise TypeError("chd_probe: table planes must be int32")
+    if hashes.shape != valid.shape:
+        raise ValueError(f"chd_probe: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
+    if not 4 <= lr <= 30 or rows.shape[0] != 1 << lr or rows.data_ptr() % 16:
+        raise ValueError("chd_probe: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
+    out = torch.empty(hashes.shape, dtype=torch.int32, device=dev)
+    _kernels.launch(
+        "chd_probe", dev, disp4, rows, hashes, valid, out, hashes.numel(), lr, lg
+    )
+    return out

@@ -1,0 +1,102 @@
+"""The port's CHD table: its host build (krakenuniq_tpu_torch.db.hash_table)
+answers every key with its value and misses junk, and its plain probe equals
+the JAX package's `_probe_chd` on the JAX package's own host planes,
+loaded through `device_db_from_host`."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from krakenuniq_tpu.db.hash_table import build_hash_table as jax_build_hash_table
+from krakenuniq_tpu.lookup.hash_lookup import _probe_chd as jax_probe_chd
+from krakenuniq_tpu_torch.db.device_db import device_db_from_host, load_database_dir
+from krakenuniq_tpu_torch.db.hash_table import build_hash_table
+from krakenuniq_tpu_torch.formats import read_kdb
+from krakenuniq_tpu_torch.lookup.hash_lookup import (
+    hash_lookup_kmers,
+    probe_chd_plain,
+)
+from krakenuniq_tpu_torch.utils.bits import murmur3_finalizer
+
+DATA = os.path.join(os.path.dirname(__file__), "golden", "data")
+
+
+def _lookup(db, keys, valid=None):
+    h = torch.from_numpy(murmur3_finalizer(keys).view(np.int64))
+    v = torch.ones(len(keys), dtype=torch.bool) if valid is None else torch.from_numpy(valid)
+    return hash_lookup_kmers(db.hash_table, h, v).numpy()
+
+
+def _junk(rng, keys, n=2000):
+    j = rng.integers(0, 1 << 62, size=n, dtype=np.uint64)
+    return j[~np.isin(j, keys)]
+
+
+@pytest.mark.parametrize("n", [10, 1000, 50000])
+def test_port_build_random_keys(rng, n):
+    keys = np.unique(rng.integers(0, 1 << 62, size=n, dtype=np.uint64))
+    vals = rng.integers(1, 1 << 16, size=len(keys)).astype(np.int32)
+    host, lr = build_hash_table(keys, vals)
+    assert host[1].shape == (1 << lr, 4) and host[0].shape[1] == 4
+    db = device_db_from_host(host, lr, None, k=31, nt=12, device="cpu")
+    np.testing.assert_array_equal(_lookup(db, keys), vals)
+    assert (_lookup(db, _junk(rng, keys)) == 0).all()
+    assert (_lookup(db, keys, np.zeros(len(keys), bool)) == 0).all()
+
+
+def test_port_build_golden_db(rng):
+    db, tax = load_database_dir(DATA, device="cpu")
+    _, keys, vals = read_kdb(os.path.join(DATA, "database.kdb"))
+    want = db.pool.pool_index(tax.dense_index(vals))
+    np.testing.assert_array_equal(_lookup(db, keys), want)
+    assert (_lookup(db, _junk(rng, keys)) == 0).all()
+
+
+@pytest.mark.parametrize("n", [1000, 30000])
+def test_probe_matches_jax_on_jax_planes(rng, n):
+    keys = np.unique(rng.integers(0, 1 << 62, size=n, dtype=np.uint64))
+    vals_dense = rng.integers(1, 1 << 16, size=len(keys)).astype(np.int32)
+    _, lr, host = jax_build_hash_table(
+        keys, vals_dense.astype(np.uint32), vals_dense, to_device=False, keep_host=True
+    )
+    db = device_db_from_host(host, lr, None, k=31, nt=12, device="cpu")
+    h = murmur3_finalizer(np.concatenate([keys, _junk(rng, keys)]))
+    # r == 0 queries (low 64-lr hash bits zero) match empty all-zero slots
+    r0 = rng.integers(0, 1 << lr, size=64, dtype=np.uint64) << np.uint64(64 - lr)
+    h = np.concatenate([h, r0, np.zeros(1, np.uint64)])
+    found, val = probe_chd_plain(*db.hash_table, torch.from_numpy(h.view(np.int64)), lr)
+    j_found, j_val = jax_probe_chd(jnp.asarray(host[0]), jnp.asarray(host[1]), jnp.asarray(h), lr)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(j_found))
+    np.testing.assert_array_equal(val.numpy(), np.asarray(j_val).astype(np.int64))
+    np.testing.assert_array_equal(val.numpy()[: len(keys)], vals_dense)
+    # the r == 0 queries hit empty slots (found) with value 0 (a miss)
+    assert found.numpy()[-65:].any() and (val.numpy()[-65:] == 0).all()
+
+
+def test_lookup_refuses_other_layouts():
+    fused = torch.zeros((16, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        hash_lookup_kmers((fused, fused), torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool))
+
+
+def test_demo_db_matches_jax_and_probes():
+    """The port's synthetic database (utils/demo.py, which dedups ballast
+    by sort instead of np.unique) equals the JAX package's, and its CHD
+    table answers every key."""
+    from krakenuniq_tpu.utils.demo import make_demo_db as jax_make_demo_db
+    from krakenuniq_tpu_torch.utils.demo import make_demo_db
+
+    kw = dict(n_species=6, genome_len=600, k=31, nt=9, pad_nodes=50, ballast_keys=5000)
+    keys, vals, offsets, tax, genomes = make_demo_db(**kw)
+    j_keys, j_vals, j_offsets, j_tax, j_genomes = jax_make_demo_db(**kw)
+    np.testing.assert_array_equal(keys, j_keys)
+    np.testing.assert_array_equal(vals, j_vals)
+    np.testing.assert_array_equal(offsets, j_offsets)
+    np.testing.assert_array_equal(tax.taxids, j_tax.taxids)
+    assert genomes == j_genomes
+    host, lr = build_hash_table(keys, vals.astype(np.int32))
+    db = device_db_from_host(host, lr, None, k=31, nt=9, device="cpu")
+    np.testing.assert_array_equal(_lookup(db, keys), vals.astype(np.int32))

@@ -1,0 +1,92 @@
+"""The port stands alone: krakenuniq_tpu_torch and chip_smoke.py import
+neither jax nor anything of krakenuniq_tpu, and a CUDA run without a card
+raises instead of falling back to the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import krakenuniq_tpu_torch
+from krakenuniq_tpu_torch import _kernels
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "krakenuniq_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "krakenuniq_tpu")
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(krakenuniq_tpu_torch.__path__, "krakenuniq_tpu_torch.")
+    )
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d != "_build"]  # kernel builds, scratch data
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_every_module_imports_without_jax():
+    mods = _port_modules()
+    assert "krakenuniq_tpu_torch.classify.pipeline" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'krakenuniq_tpu' or m.startswith('krakenuniq_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the card-less behaviour")
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    data = os.path.join(ROOT, "tests", "golden", "data")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Classifier([data], ClassifyOptions(print_progress=False, device="cuda"))
+
+
+def test_kernel_wrappers_refuse_cpu_launch():
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _kernels.check_cuda("scores", tins=x, touts=x)
+    with pytest.raises(ValueError, match="several devices"):
+        _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
+    assert set(_kernels.LAUNCHES) == {"scores", "kmer_front", "chd_probe"}
