@@ -7,10 +7,12 @@ Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
      csrc/ from source (one nvcc per file, in parallel);
   2. each kernel against its plain PyTorch version on the card, integer for
-     integer (tolerance 0: every output is an integer or a bool);
+     integer (tolerance 0: every output is an integer or a bool), at the
+     span shapes and the shapes of the JAX package's kernel tools;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
-     single database and for the hierarchical db_bact + db_viral pair;
+     single database and for the hierarchical db_bact + db_viral pair, with
+     host counters and with --device-counters;
   4. the main path at full size: a synthetic database at the JAX bench's
      default shape (400 species x 25 kbp, BALLAST = 101M ballast keys, a
      2.4M-node taxonomy, k=31, nt=12) under krakenuniq_tpu_torch/_build/,
@@ -19,9 +21,20 @@ Phases, each raising on failure:
      Classifier.run and write_report with every launch counter reset just
      before and read just after; the calls are checked against each read's
      true species, and one full work unit is held against the same step
-     forced to the plain versions.
+     forced to the plain versions;
+  5. the --device-counters path on the same loaded database:
+     Classifier.with_shared_db(..., device_counters=True) classifies the same
+     reads with every launch counter reset just before and read just after;
+     its kraken output and report must be byte-equal to phase 4's, with
+     taxon_counts launched twice and hll_regmax once per work unit and no
+     sparse-buffer overflow; one full unit's counter update is held against
+     the same update forced to the plain versions;
+  6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
+     the sweep over copies in flight at 16- and 512-byte rows, with the
+     launch counters reset just before and read just after.
 Progress goes to stderr; stdout carries one JSON line per kernel check, the
-phase-4 summary, the kernel table, the card line and, last, the device line.
+phase-4 and phase-5 summaries, one line per probe setting, the kernel table,
+the card line and, last, the device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
 
@@ -92,10 +105,11 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def check_kernel(name, shape, kernel, plain, reps, bound=None):
+def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, extra=None):
     """Run the kernel and its plain version on the same inputs, require
-    equality, time both; returns the record. `launches` counts this check's
-    launches of the kernel (the run, warm-up and timed calls)."""
+    equality, time both (and `library`, one PyTorch call computing the same
+    function, where there is one); returns the record. `launches` counts
+    this check's launches of the kernel (the run, warm-up and timed calls)."""
     import torch
 
     from krakenuniq_tpu_torch import _kernels
@@ -115,8 +129,10 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None):
         "plain_ms": time_ms(plain, max(3, reps // 4)),
         "launches": _kernels.LAUNCHES[kname] - before,
     }
-    if bound is not None:
-        rec.update(bound)
+    if library is not None:
+        rec["library_ms"] = time_ms(library, max(3, reps // 4))
+    rec.update(bound or {})
+    rec.update(extra or {})
     emit(rec)
     return rec
 
@@ -152,6 +168,39 @@ def probe_bound(valid) -> dict:
     query one 4 B displacement word and one 16 B row; ~24 operations."""
     n, nv = valid.numel(), float(valid.sum())
     return bound(13 * n + 20 * nv, 24 * nv)
+
+
+def counts_bound(n: int, t: int) -> dict:
+    """An id (4 B) and a mask byte in per lane; the int64 accumulator read
+    and written once; ~4 operations per lane."""
+    return bound(5 * n + 16 * t, 4 * n)
+
+
+def regmax_bound(lanes, reg) -> dict:
+    """A taxon, an encoding (4 B each) and a lane byte in per lane; the u8
+    register plane read and written once; ~16 operations per counted lane
+    (rank decode, slot, compare)."""
+    return bound(9 * lanes.numel() + 2 * reg.numel(), 16 * float(lanes.sum()))
+
+
+def gather_bound(n: int, row_bytes: int) -> dict:
+    """A 4 B index in, one row read and one row written per query."""
+    return bound(n * (4 + 2 * row_bytes), 0)
+
+
+def sort_boundary_ms(ids, mask, t: int, reps: int) -> float:
+    """The JAX package's count form (an id sort plus t+1 boundary probes,
+    classify/device_counters.py:79-87), timed on the same inputs."""
+    import torch
+
+    probes = torch.arange(t + 1, dtype=torch.int32, device=ids.device)
+
+    def run():
+        st = torch.sort(torch.where(mask, ids, t).reshape(-1)).values
+        edges = torch.searchsorted(st, probes)
+        return edges[1:] - edges[:-1]
+
+    return time_ms(run, reps)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -219,6 +268,93 @@ def phase_kernels(k: int):
         lambda: kmer_front_plain(codes, ambig, k, 12),
         reps=20, bound=front_bound(b, lb, k),
     )
+    phase_counter_kernels()
+    return phase_gather_kernel()
+
+
+def counts_check(ids, mask, t: int, reps: int, label: str = ""):
+    """taxon_counts on (ids, mask) into a zero int64 [t] accumulator."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_counters import taxon_counts, taxon_counts_plain
+
+    acc0 = torch.zeros(t, dtype=torch.int64, device=ids.device)
+    return check_kernel(
+        "taxon_counts" + label, (ids.numel(), t),
+        lambda: (taxon_counts(acc0.clone(), ids, mask),),
+        lambda: (taxon_counts_plain(acc0.clone(), ids, mask),),
+        reps=reps, bound=counts_bound(ids.numel(), t),
+        library=lambda: torch.bincount(ids[mask], minlength=t),
+        extra={"sort_boundary_ms": sort_boundary_ms(ids, mask, t, reps)},
+    )
+
+
+def regmax_check(reg0, taxa, enc, lanes, lut, p: int, reps: int, label: str = ""):
+    """hll_regmax into a copy of reg0 (the copy is part of both timings)."""
+    from krakenuniq_tpu_torch.classify.device_counters import hll_regmax, hll_regmax_plain
+
+    return check_kernel(
+        "hll_regmax" + label, (taxa.numel(), reg0.shape[0], reg0.shape[1]),
+        lambda: (hll_regmax(reg0.clone(), taxa, enc, lanes, lut, p),),
+        lambda: (hll_regmax_plain(reg0.clone(), taxa, enc, lanes, lut, p),),
+        reps=reps, bound=regmax_bound(lanes, reg0),
+    )
+
+
+def phase_counter_kernels(p: int = 12):
+    """taxon_counts at one unit's lanes over the 503-id pool, at
+    counts_mxu_exp's shape (8,520,000 zipf-1.5 ids, T = 504) and over the
+    dense 2,400,503-id space; hll_regmax at one unit's planes and at 8.5M
+    lanes (P = 503, m = 4096), as rows = ids and through a lut."""
+    import torch
+
+    from krakenuniq_tpu_torch.utils.bits import encode_hash_32
+
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.from_numpy(a).cuda()
+    for n, n_ids, zipf in ((4096 * 130, 503, True), (8_520_000, 504, True),
+                           (8_520_000, PAD_NODES + 503, False), (4096, 503, False)):
+        ids = (rng.zipf(1.5, size=n) % n_ids) if zipf else rng.integers(0, n_ids, size=n)
+        counts_check(t(ids.astype(np.int32)), t(rng.random(n) < 0.9), n_ids, reps=20)
+    pool = 503
+    for n in (4096 * 130, 8_520_000):
+        taxa = t((rng.zipf(1.5, size=n) % pool).astype(np.int32))
+        enc = t(encode_hash_32(rng.integers(0, 1 << 64, size=n, dtype=np.uint64), p).view(np.int32))
+        lanes = t(rng.random(n) < 0.9)
+        reg0 = torch.zeros((pool, 1 << p), dtype=torch.uint8, device="cuda")
+        regmax_check(reg0, taxa, enc, lanes, None, p, reps=20)
+    # through a lut: the pool's rows spread over a 2.4M-id space
+    ids = np.sort(rng.choice(PAD_NODES + 503, pool, replace=False))
+    ids[0] = 0
+    lut = np.zeros(PAD_NODES + 503, np.int32)
+    lut[ids] = np.arange(pool, dtype=np.int32)
+    taxa = t(ids[rng.zipf(1.5, size=4096 * 130) % pool].astype(np.int32))
+    regmax_check(reg0, taxa, enc[: 4096 * 130], lanes[: 4096 * 130], t(lut), p, reps=20, label=" lut")
+
+
+def phase_gather_kernel(depth: int = 16):
+    """row_gather at the probe tool's defaults (a 1 GiB table, 8,519,680
+    random queries) for 16-byte rows (the CHD row) and 512-byte rows;
+    returns the 16-byte record."""
+    import torch
+
+    from krakenuniq_tpu_torch.tools.probe_gather import row_gather, row_gather_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flat = torch.randint(-(1 << 31), 1 << 31, ((1 << 26) * 4,), dtype=torch.int32, device="cuda", generator=gen)
+    n = 8_519_680
+    recs = {}
+    for rb in (16, 512):
+        table = flat.view(-1, rb // 4)
+        q = torch.randint(0, table.shape[0], (n,), dtype=torch.int32, device="cuda", generator=gen)
+        recs[rb] = check_kernel(
+            f"row_gather {rb}B", (n, rb // 4),
+            lambda: (row_gather(table, q, depth),),
+            lambda: (row_gather_plain(table, q),),
+            reps=10, bound=gather_bound(n, rb),
+            library=lambda: table.index_select(0, q), extra={"depth": depth},
+        )
+    return recs[16]
 
 
 def probe_check(db, keys, n_queries=8_500_000, seed=5):
@@ -259,13 +395,15 @@ def probe_check(db, keys, n_queries=8_500_000, seed=5):
 def phase_goldens():
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
-    for dbs, kraken_name, report_name in (
-        (["."], "kraken.out", "report.tsv"),
-        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv"),
+    for dbs, kraken_name, report_name, dc in (
+        (["."], "kraken.out", "report.tsv", False),
+        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv", False),
+        (["."], "kraken.out", "report.tsv", True),
+        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv", True),
     ):
         c = Classifier(
             [os.path.join(GOLDEN, d) for d in dbs],
-            ClassifyOptions(print_progress=False, device="cuda"),
+            ClassifyOptions(print_progress=False, device="cuda", device_counters=dc),
         )
         kraken, report = io.StringIO(), io.StringIO()
         c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
@@ -273,9 +411,12 @@ def phase_goldens():
         for got, name in ((kraken.getvalue(), kraken_name), (report.getvalue(), report_name)):
             with open(os.path.join(GOLDEN, name)) as f:
                 if got != f.read():
-                    raise AssertionError(f"golden {name} differs on the card")
-        log(f"golden {kraken_name} + {report_name}: byte-equal")
-    emit({"check": "goldens", "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"], "equal": True})
+                    raise AssertionError(f"golden {name} differs on the card (device_counters={dc})")
+        if dc and c.dev_counters.tracker.overflows:
+            raise AssertionError("golden run overflowed the sparse buffer")
+        log(f"golden {kraken_name} + {report_name} (device_counters={dc}): byte-equal")
+    emit({"check": "goldens", "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"],
+          "device_counters": [False, True], "equal": True})
 
 
 # ------------------------------------------------------------------ phase 4
@@ -351,7 +492,7 @@ def phase_main(reps: int):
     db = c.dbs[0]
     log(f"loaded in {load_s:.1f}s {db.timings}; lr={db.hash_lb}, {db.table_bytes / 1e9:.3f} GB table")
     _, keys, _ = read_kdb(os.path.join(db_dir, "database.kdb"))
-    probe_rec = probe_check(db, keys)
+    probe_check(db, keys)
     del keys
 
     out_path = os.path.join(db_dir, "kraken.out")
@@ -362,6 +503,7 @@ def phase_main(reps: int):
     t = time.time()
     with open(out_path, "w") as kf:
         c.run([reads_path], kraken_fh=kf)
+    classify_s = time.time() - t
     with open(report_path, "w") as rf:
         c.write_report(rf)
     torch.cuda.synchronize()
@@ -369,7 +511,7 @@ def phase_main(reps: int):
     launches = dict(_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
-    missing = [n for n, v in launches.items() if v == 0]
+    missing = [n for n in ("scores", "kmer_front", "chd_probe") if launches[n] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
 
@@ -444,6 +586,8 @@ def phase_main(reps: int):
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
+        # run_s = classify_s (c.run: parse, units) + the report (write_report)
+        "classify_s": classify_s,
         "units": c.n_units,
         "host_s_per_unit": c.host_seconds / n_units,
         "device_step_s_per_unit": c.device_seconds / n_units,
@@ -452,7 +596,129 @@ def phase_main(reps: int):
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
     })
-    return {"scores": score, "kmer_front": front, "chd_probe": probe}, launches, probe_rec
+    run = {"c": c, "reads": reads_path, "kraken": out_path, "report": report_path,
+           "reads_per_s": c.total_sequences / run_s}
+    return {"scores": score, "kmer_front": front, "chd_probe": probe}, launches, run
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def phase_counters(run4, reps: int):
+    """--device-counters on phase 4's loaded database and reads."""
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import Classifier
+    from krakenuniq_tpu_torch.classify.device_counters import update_core
+    from krakenuniq_tpu_torch.classify.sparse_exact import sparse_stats_core
+
+    c = Classifier.with_shared_db(run4["c"], device_counters=True)
+    dc = c.dev_counters
+    if dc.host_stats or dc.sparse_cap == 0 or dc.lut is not None:
+        raise AssertionError("phase 5 should run the pool layout with device sparse stats")
+    db_dir = os.path.dirname(run4["kraken"])
+    out_path = os.path.join(db_dir, "kraken_dc.out")
+    report_path = os.path.join(db_dir, "report_dc.tsv")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t = time.time()
+    with open(out_path, "w") as kf:
+        c.run([run4["reads"]], kraken_fh=kf)
+    classify_s = time.time() - t
+    with open(report_path, "w") as rf:
+        c.write_report(rf)
+    torch.cuda.synchronize()
+    run_s = time.time() - t
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"device counters: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
+    units = c.n_units
+    want = {"taxon_counts": 2 * units, "hll_regmax": units, "scores": units,
+            "kmer_front": units, "chd_probe": units}
+    if any(launches[k] != v for k, v in want.items()) or units == 0:
+        raise AssertionError(f"device-counters path launches {launches}, want {want}")
+    if dc.tracker.overflows:
+        raise AssertionError(f"{dc.tracker.overflows} sparse-buffer overflows: host fallback taken")
+    for a, b in ((out_path, run4["kraken"]), (report_path, run4["report"])):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{os.path.basename(a)} differs from phase 4's {os.path.basename(b)}")
+    log("device-counters kraken output and report: byte-equal to phase 4's")
+
+    # one full unit's update: kernels vs the same update forced to plain
+    unit = next(c._work_units(run4["reads"]))[0]
+    enc = c._encode_unit(unit)
+    out = c._device_step(enc.codes, enc.ambig, enc.lengths)
+    b, w = out["taxa_dense"].shape
+    row_valid = torch.zeros(b, dtype=torch.bool, device="cuda")
+    row_valid[: len(unit)] = True
+    unit_id = torch.zeros(b, dtype=torch.int64, device="cuda")
+    args = (dc.lut, out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"],
+            row_valid, dc.p, unit_id, dc.sparse_cap)
+    state = lambda: (dc.reg.clone(), dc.kmer_counts.clone(), dc.read_counts.clone())
+    got = update_core(*state(), *args)
+    ref = update_core(*state(), *args, plain=True)
+    torch.cuda.synchronize()
+    names = ("registers", "kmer_counts", "read_counts", "sparse buf", "n_pairs", "n_events")
+    for name, g, r in zip(names, got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"work unit: kernel update differs from plain update in {name}")
+    n_used = int(got[4]) + int(got[5])
+    log(f"work unit [{b}, {w}]: kernel update == plain update ({n_used} sparse-buffer entries)")
+
+    taxa, lanes = out["taxa_dense"], out["hll_lanes"]
+    counts = counts_check(taxa, lanes, dc.n_taxa, reps)
+    regmax = regmax_check(dc.reg, taxa, out["enc"], lanes, None, dc.p, reps)
+    # the rest of the unit's update: the plain-torch sparse stats, and the
+    # host's fetch-and-fold of the report (finalize: one state fetch)
+    stats_ms = time_ms(
+        lambda: sparse_stats_core(taxa, out["enc"], lanes, unit_id, dc.p, dc.sparse_cap), reps
+    )
+    t = time.time()
+    c.finalized_counts()
+    finalize_s = time.time() - t
+
+    n_units = max(units, 1)
+    emit({
+        "phase": "device_counters",
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "classify_s": classify_s,
+        "finalize_s": finalize_s,
+        "sparse_stats_ms_unit0": stats_ms,
+        "units": units,
+        "host_s_per_unit": c.host_seconds / n_units,
+        "device_step_s_per_unit": c.device_seconds / n_units,
+        "sparse_overflows": dc.tracker.overflows,
+        "sparse_entries_unit0": n_used,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+    })
+    return {"taxon_counts": counts, "hll_regmax": regmax}, launches
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+def phase_probe():
+    """The probe tool's sweep through its entry point's function."""
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.tools.probe_gather import sweep
+
+    _kernels.reset_launches()
+    recs = sweep(emit=lambda line: print(line, flush=True))
+    launches = dict(_kernels.LAUNCHES)
+    if launches["row_gather"] == 0:
+        raise AssertionError("the probe sweep launched no row_gather kernel")
+    best = max((r for r in recs if r["probe"] == "row_gather" and r["row_bytes"] == 16),
+               key=lambda r: r["m_rows_per_s"])
+    log(f"probe sweep: {len(recs)} settings, best 16 B rate {best['m_rows_per_s']:.0f} M rows/s at S={best['depth']}")
+    return launches
 
 
 # ------------------------------------------------------------------- driver
@@ -462,6 +728,9 @@ KERNELS = {
     "scores": ("krakenuniq_tpu_torch/csrc/scores.cu", "krakenuniq_tpu/taxonomy/resolve.py:67"),
     "kmer_front": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/classify/device_step.py:154"),
     "chd_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:104"),
+    "taxon_counts": ("krakenuniq_tpu_torch/csrc/taxon_counts.cu", "tools/counts_mxu_exp.py:35"),
+    "hll_regmax": ("krakenuniq_tpu_torch/csrc/hll_regmax.cu", "krakenuniq_tpu/classify/device_counters.py:109"),
+    "row_gather": ("krakenuniq_tpu_torch/csrc/row_gather.cu", "tools/probe_dma_exp.py:42"),
 }
 
 
@@ -483,9 +752,16 @@ def main() -> int:
     paths = _kernels.build()
     log(f"kernels built in {time.time() - t:.1f}s: {sorted(paths)}")
 
-    phase_kernels(k=31)
+    gather_rec = phase_kernels(k=31)
     phase_goldens()
-    recs, launches, _ = phase_main(reps=50)
+    recs, launches, main_run = phase_main(reps=50)
+    dc_recs, dc_launches = phase_counters(main_run, reps=50)
+    probe_launches = phase_probe()
+    recs.update(dc_recs)
+    recs["row_gather"] = gather_rec
+    # each kernel's launches come from the run of the path it serves
+    launches = {**launches, "taxon_counts": dc_launches["taxon_counts"],
+                "hll_regmax": dc_launches["hll_regmax"], "row_gather": probe_launches["row_gather"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -494,7 +770,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
     emit({"kernels": rows})
     print(card)

@@ -9,8 +9,9 @@ and an unchanged one is reused. `build()` compiles every source at once, one
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front, hash_lookup.hash_lookup_kmers,
-resolve.scores) call it exactly where they launch, so a run can show that
-its main path went through the kernels.
+resolve.scores, device_counters.taxon_counts, device_counters.hll_regmax,
+tools.probe_gather.row_gather) call it exactly where they launch, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ SIGNATURES = {
     "kmer_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # disp, rows, hashes, valid, out, n, lr, lg, stream
     "chd_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # ids, mask, acc, n, t, stream
+    "taxon_counts": (_P, _P, _P, _L, _I, _P),
+    # reg, taxa, enc, lanes, lut (NULL: rows are ids), n, n_ids, n_rows, p, stream
+    "hll_regmax": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # table, q, out, n, n_rows, row_words, depth, loads_per_lane, stream
+    "row_gather": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

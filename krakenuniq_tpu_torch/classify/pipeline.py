@@ -5,8 +5,10 @@ single-device, CHD-hash path: reads stream in work units (greedy >=
 500 kbp, the deterministic partition of classify.cpp:511-521); each
 unit is padded into a bucketed (B, LB) batch, classified by one device step
 (classify/device_step.py) and formatted and accumulated on the host in
-Python. The native span parser, device RLE rows, long reads, out-of-core
-tables, meshes and device counters of the JAX package are later slices.
+Python. With `device_counters` the per-taxon counts and HLL registers
+stay on the device (classify/device_counters.py) and the host fetches them
+once, at the report. The native span parser, device RLE rows, long reads,
+out-of-core tables and meshes of the JAX package are later slices.
 """
 
 from __future__ import annotations
@@ -60,6 +62,18 @@ class ClassifyOptions:
     # torch device of the tables and the step; "cuda" raises when no card
     # is present rather than falling back
     device: str = "cuda"
+    # keep the entire taxon_counts state on the device and fetch it once at
+    # the end (see classify/device_counters.py)
+    device_counters: bool = False
+    # --device-counters sparse-exact buffer slots per work unit (u64 each):
+    # the sparse-regime tracking makes the mode BIT-IDENTICAL to the host
+    # fold (classify/sparse_exact.py); 0 opts out (estimate-level compat).
+    # Only the USED prefix is fetched. A unit overflowing the buffer redoes
+    # its stats on the host (counted in dev_counters.tracker.overflows).
+    sparse_cap: int = 1 << 21
+    # value pool (db/pool.py): index the device id space by the databases'
+    # LCA-closed value set when it fits u16; False forces dense taxonomy ids
+    value_pool: bool = True
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -108,17 +122,43 @@ def resolve_device(name: str) -> torch.device:
 
 
 class Classifier:
-    def __init__(self, db_dirs: list[str], options: ClassifyOptions | None = None):
+    def __init__(self, db_dirs: list[str], options: ClassifyOptions | None = None,
+                 _shared: "Classifier | None" = None):
         self.opts = options or ClassifyOptions()
         self.device = resolve_device(self.opts.device)
         self.db_dirs = [os.fspath(d) for d in db_dirs]
-        self.taxonomy = Taxonomy.from_taxdb_file(os.path.join(self.db_dirs[0], "taxDB"))
+        if _shared is not None:
+            self._adopt_loaded(_shared)
+        else:
+            self._load()
+        self._configure()
 
+    @classmethod
+    def with_shared_db(cls, other: "Classifier", options: ClassifyOptions | None = None,
+                       **changes) -> "Classifier":
+        """A new Classifier reusing `other`'s loaded databases (host arrays
+        AND the device tables) under other run options: `options`, or
+        `other`'s options with `changes` applied. The device tables are
+        GB-sized at reference scale; sharing them is the difference between
+        an option swap and a reload."""
+        opts = options or dataclasses.replace(other.opts, **changes)
+        if resolve_device(opts.device) != other.device:
+            raise ValueError(f"cannot share {other.device} tables on {opts.device}")
+        if opts.value_pool != other.opts.value_pool:
+            raise ValueError("cannot share tables across value_pool settings")
+        return cls(other.db_dirs, opts, _shared=other)
+
+    def _adopt_loaded(self, other: "Classifier") -> None:
+        for name in ("taxonomy", "dbs", "k", "nt", "_pool"):
+            setattr(self, name, getattr(other, name))
+
+    def _load(self) -> None:
+        self.taxonomy = Taxonomy.from_taxdb_file(os.path.join(self.db_dirs[0], "taxDB"))
         pre_vd: dict[str, np.ndarray] = {}
         # value pool (db/pool.py): device ids index the databases'
         # LCA-closed value set when it fits u16, else dense taxonomy ids
-        pool_arg = "auto"
-        if len(self.db_dirs) > 1:
+        pool_arg = "auto" if self.opts.value_pool else None
+        if len(self.db_dirs) > 1 and self.opts.value_pool:
             # hierarchical lookups merge into ONE taxon plane
             # (classify.cpp:927-936): every table speaks one joint id space
             for d in self.db_dirs:
@@ -141,7 +181,6 @@ class Classifier:
         self.k = self.dbs[0].k
         self.nt = self.dbs[0].nt
         self._pool = self.dbs[0].pool
-        self._configure()
 
     def _configure(self) -> None:
         tax, pool = self.taxonomy, self._pool
@@ -160,7 +199,8 @@ class Classifier:
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
-        self._taxid_table = put(np.asarray(taxids, dtype=np.uint32).view(np.int32), np.int32)
+        self._taxids_host = np.asarray(taxids, dtype=np.uint32)
+        self._taxid_table = put(self._taxids_host.view(np.int32), np.int32)
         self._tin = put(tin, np.int32)
         self._tout = put(tout, np.int32)
         self._parent = put(parent, np.int32)
@@ -172,12 +212,30 @@ class Classifier:
             quick=self.opts.quick,
             min_hits=self.opts.min_hits,
         )
+        # device-counters sparse tracking: ids past the device packing's
+        # 2^TAXON_BITS taxon field fall back to HOST-computed per-unit stats
+        # -- slower (three planes fetched) but still bit-exact
+        from . import sparse_exact
+
+        self._dc_host_stats = (
+            self.opts.device_counters
+            and self.opts.sparse_cap > 0
+            and pool is None
+            and tax.size >= (1 << sparse_exact.TAXON_BITS)
+        )
+        if self._dc_host_stats:
+            print(
+                "note: id space exceeds the device sparse-stats packing "
+                f"(2^{sparse_exact.TAXON_BITS}); sparse-regime tracking runs on "
+                "host (slower, still bit-exact)",
+                file=sys.stderr,
+            )
         self.reset_counters()
 
     def reset_counters(self) -> None:
         """Zero all accumulation state so the same loaded Classifier can run
         another input from scratch."""
-        self.counter = TaxonCounter(HLL_P)
+        self._init_counters()
         self.total_sequences = 0
         self.total_bases = 0
         self.total_classified = 0
@@ -186,6 +244,30 @@ class Classifier:
         self.device_seconds = 0.0
         self.host_seconds = 0.0
         self.n_units = 0
+
+    def _init_counters(self) -> None:
+        self.counter = TaxonCounter(HLL_P)
+        self.dev_counters = None
+        if not self.opts.device_counters:
+            return
+        from .device_counters import DeviceCounters
+
+        pool, tax = self._pool, self.taxonomy
+        if pool is not None:
+            # pool mode: the device id space IS the value closure --
+            # registers and counters are pool-width and rows are ids
+            self.dev_counters = DeviceCounters(
+                pool.size, HLL_P, sparse_cap=self.opts.sparse_cap, device=self.device
+            )
+        else:
+            # registers only ever accumulate under DB values: restrict the
+            # plane to the value set so it scales with the database, not the
+            # taxonomy (a 2.4M-node taxDB would otherwise cost 10 GB)
+            reg_pool = np.unique(np.concatenate([np.unique(db.vals_dense) for db in self.dbs]))
+            self.dev_counters = DeviceCounters(
+                tax.size, HLL_P, pool_dense=reg_pool, sparse_cap=self.opts.sparse_cap,
+                host_stats=self._dc_host_stats, device=self.device,
+            )
 
     # ------------------------------------------------------------ unit input
 
@@ -262,18 +344,28 @@ class Classifier:
         t_dev0 = time.perf_counter()
         out = self._device_step(enc.codes, enc.ambig, enc.lengths)
         n = len(unit)
+        if self.dev_counters is not None:
+            # per-taxon accumulation stays on the device; the encodings and
+            # counted lanes are never fetched
+            row_valid = torch.zeros(out["call_dense"].shape[0], dtype=torch.bool, device=self.device)
+            row_valid[:n] = True
+            self.dev_counters.update(
+                out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"], row_valid
+            )
         taxa = out["taxa"].cpu().numpy().view(np.uint32)
         ambig = out["ambig"].cpu().numpy()
-        enc_arr = out["enc"].cpu().numpy().view(np.uint32)
-        hll_lanes = out["hll_lanes"].cpu().numpy()
         calls = out["call"][:n].cpu().numpy().view(np.uint32).copy()
         hits = out["hits"][:n].cpu().numpy().astype(np.int64)
         n_kmers = out["n_kmers"][:n].cpu().numpy().astype(np.int64)
+        if self.dev_counters is None:
+            enc_arr = out["enc"].cpu().numpy().view(np.uint32)
+            hll_lanes = out["hll_lanes"].cpu().numpy()
         t_dev1 = time.perf_counter()
 
-        # per-taxon accumulation in read order (work-unit HLL semantics)
-        lanes = hll_lanes[:n]
-        self.counter.process_unit(taxa[:n][lanes], enc_arr[:n][lanes], calls)
+        if self.dev_counters is None:
+            # per-taxon accumulation in read order (work-unit HLL semantics)
+            lanes = hll_lanes[:n]
+            self.counter.process_unit(taxa[:n][lanes], enc_arr[:n][lanes], calls)
 
         for i, dna in enumerate(unit):
             call = int(calls[i])
@@ -359,8 +451,20 @@ class Classifier:
                 self.taxonomy.set_genome_sizes(read_counts_stream_bugcompat(path))
 
     def finalized_counts(self) -> dict:
-        """The final {taxid: ReadCounts} map, as fresh objects."""
-        return {tid: rc.copy() for tid, rc in self.counter.counts.items()}
+        """The final {taxid: ReadCounts} map, as fresh objects: the host
+        fold's state merged with the device counters' (if any)."""
+        counts = self.counter.counts
+        if self.dev_counters is None:
+            return {tid: rc.copy() for tid, rc in counts.items()}
+        dev_counts = self.dev_counters.finalize(self._taxids_host)
+        # whatever folded on the host merges in; ReadCounts.iadd handles the
+        # sparse-into-dense HLL merge
+        for tid, rc in counts.items():
+            if tid in dev_counts:
+                dev_counts[tid].iadd(rc)
+            else:
+                dev_counts[tid] = rc.copy()
+        return dev_counts
 
     def write_report(self, fh) -> None:
         self.ensure_counts_files()

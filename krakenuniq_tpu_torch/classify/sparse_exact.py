@@ -1,0 +1,239 @@
+"""Sparse-regime tracking that makes --device-counters BIT-IDENTICAL.
+
+Counterpart of krakenuniq_tpu/classify/sparse_exact.py. The reference HLL
+(src/hyperloglogplus.cpp) keeps each per-taxon counter in SPARSE mode (a set
+of 32-bit encodings at pPrime=25) until an insert would push the set past
+m/4 entries, then converts to dense registers (hyperloglogplus.cpp:496-498).
+The classifier builds a FRESH counter per taxon per work unit and merges
+unit counters into the global map (classify.cpp:525-543); merge keeps
+sparse∪sparse sparse with no size check (hyperloglogplus.cpp:586-665).
+
+So the final global state of a taxon is order-independent given the unit
+partition: it ends DENSE iff at least one unit-local counter went dense
+(registers = element-wise max over ALL its encodings, which the device
+register plane of device_counters.py accumulates), and SPARSE iff every
+unit stayed sparse (state = the union of the units' distinct encodings).
+Bit-exact device counting therefore needs, beyond the register plane, only
+a per-(unit, taxon) went-dense bit and the distinct (taxon, encoding) pairs
+of the units that stayed sparse.
+
+A unit-local counter goes dense iff d > m/4, or d == m/4 and the unit's
+LAST insert for the taxon is a duplicate (the one-at-a-time semantics of
+hll.HLL.insert_encodings): the encoding at the taxon's maximum stream
+position occurs more than once in the unit.
+
+`sparse_stats_core` computes that on the device in plain torch: one stable
+sort of the lanes by (unit, taxon, encoding) key, whose permutation is the
+stream position, segmented scans for per-pair and per-group statistics,
+then a second sort that compacts the distinct pairs of stayed-sparse groups
+and the went-dense taxon events into one buffer the host fetches (only its
+used prefix). Keys are uint64 bit patterns held in int64; both sorts flip
+the sign bit so that they order as unsigned (the pad key is all ones and
+the event tag is bit 63: both must sort LAST).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ints import lsr
+
+_PAD_INT = 0xFFFFFFFFFFFFFFFF
+_EVENT_TAG_INT = 1 << 63
+_PAD = -1  # _PAD_INT as int64 bits
+_SIGN = -(1 << 63)  # int64 sign bit; x ^ _SIGN orders uint64 bits as int64
+TAXON_BITS = 25  # dense ids must fit (NCBI is ~2.4M nodes; guard in pipeline)
+UNIT_BITS = 6  # work units per span (the span grouping caps them at 64)
+MAX_UNITS = 1 << UNIT_BITS
+
+
+def _usort(x: torch.Tensor, stable: bool = False):
+    """Sort int64 planes read as uint64: (sorted values, permutation)."""
+    s, perm = torch.sort(x ^ _SIGN, stable=stable)
+    return s ^ _SIGN, perm
+
+
+def _seg_cumsum(reset: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Segmented inclusive cumsum (vals >= 0): cumsum minus the running value
+    at the segment start, recovered with a plain cummax (the global cumsum is
+    nondecreasing, so the most recent reset holds the running max of
+    `S - vals` over reset lanes). int64 throughout: torch's cumsum of int32
+    widens anyway, and the values equal the JAX package's int32 ones."""
+    v = vals.to(torch.int64)
+    s = torch.cumsum(v, 0)
+    start = torch.cummax(torch.where(reset, s - v, torch.full_like(s, -1)), 0).values
+    return s - start
+
+
+def _seg_cummax(reset: torch.Tensor, vals: torch.Tensor, val_bits: int) -> torch.Tensor:
+    """Segmented inclusive cummax (vals >= -1, vals + 1 < 2^val_bits): pack
+    (segment_id, val) into one monotone-by-segment int64 key and take a plain
+    cummax. Segment ids are < 2^29 and val_bits <= 33 here, so the key fits."""
+    seg = torch.cumsum(reset.to(torch.int64), 0)
+    packed = (seg << val_bits) | (vals.to(torch.int64) + 1)
+    m = torch.cummax(packed, 0).values
+    return (m & ((1 << val_bits) - 1)) - 1
+
+
+def sparse_stats_core(
+    taxa_dense: torch.Tensor,  # int32 [B, W] (0 = miss, counted like any taxon)
+    enc: torch.Tensor,  # int32 [B, W]: uint32 HLL encodings as bit patterns
+    hll_lanes: torch.Tensor,  # bool [B, W] counted lanes
+    unit_id: torch.Tensor,  # integer [B]: work-unit index per row, < 64
+    p: int,
+    cap: int,
+):
+    """Returns (buf int64 [min(cap, B*W)], n_pairs int32, n_events int32),
+    buf holding uint64 bit patterns, all on the input's device.
+
+    buf[:n_pairs] holds pair keys unit<<57|taxon<<32|enc (distinct pairs of
+    groups that stayed sparse), buf[n_pairs:n_pairs+n_events] holds event
+    keys 1<<63|unit<<25|taxon (groups that went dense). If
+    n_pairs + n_events > cap the buffer is truncated and the caller must
+    fall back to host stats for the whole span."""
+    th = (1 << p) // 4
+    b, w = taxa_dense.shape
+    n = b * w
+    assert n < (1 << 29), "span lane count exceeds the scan packing"
+    unit = unit_id.to(torch.int64)[:, None]
+    key = (
+        (unit << (32 + TAXON_BITS))
+        | (taxa_dense.to(torch.int64) << 32)
+        | (enc.to(torch.int64) & 0xFFFFFFFF)
+    )
+    keyf = torch.where(hll_lanes, key, torch.full_like(key, _PAD)).reshape(-1)
+    # a STABLE sort keeps equal keys in stream order, so its permutation is
+    # each sorted lane's stream position (jax.lax.sort is stable by default)
+    ks, ps = _usort(keyf, stable=True)
+    valid = ks != _PAD
+
+    gk = lsr(ks, 32)  # (unit, taxon) group key
+    one = torch.ones(1, dtype=torch.bool, device=ks.device)
+    pb = torch.cat([one, ks[1:] != ks[:-1]]) & valid  # pair first
+    gb = torch.cat([one, gk[1:] != gk[:-1]]) & valid  # group first
+    pe = torch.cat([ks[1:] != ks[:-1], one]) & valid  # pair last
+    ge = torch.cat([gk[1:] != gk[:-1], one]) & valid  # group last
+
+    pos_bits = max(2, int(n - 1).bit_length() + 2)
+    # at a pair-end lane ps is the pair's max stream position and pb says the
+    # pair is a singleton; the group max of (maxpos << 1 | singleton) belongs
+    # to the pair holding the group's LAST stream position, and its low bit
+    # says that last insert was a first occurrence
+    v_pair = torch.where(pe, (ps << 1) | pb.to(torch.int64), torch.full_like(ps, -1))
+    edge_v = _seg_cummax(gb, v_pair, pos_bits + 1)
+    d_sofar = _seg_cumsum(gb, pb)  # distinct pairs so far in the group
+
+    stays_end = (d_sofar < th) | ((d_sofar == th) & ((edge_v & 1) == 1))
+    # broadcast the group-end decision to every lane of the group: reversed,
+    # each group starts at its end, which carries the decision
+    stays_rev = _seg_cummax(torch.flip(ge, (0,)), torch.flip(ge & stays_end, (0,)), 2)
+    stays_lane = torch.flip(stays_rev, (0,)) > 0
+
+    emit_pair = pb & stays_lane
+    emit_event = ge & ~stays_lane & valid
+    taxon_of = gk & ((1 << TAXON_BITS) - 1)
+    unit_of = lsr(gk, TAXON_BITS)
+    event_key = _SIGN | (unit_of << TAXON_BITS) | taxon_of
+    pad = torch.full_like(ks, _PAD)
+    out_key = torch.where(emit_pair, ks, torch.where(emit_event, event_key, pad))
+    packed = _usort(out_key)[0][:cap]
+    return (
+        packed,
+        emit_pair.sum(dtype=torch.int32),
+        emit_event.sum(dtype=torch.int32),
+    )
+
+
+def sparse_stats_host(
+    taxa_dense: np.ndarray,  # int32 [rows, W] or flat per-lane (with lanes mask)
+    enc: np.ndarray,  # uint32
+    hll_lanes: np.ndarray,
+    unit_bounds: list,
+    th: int,
+):
+    """Numpy mirror of the per-unit decision (the overflow/host-stats form).
+    Returns (pair_taxa i64, pair_encs u32, dense_taxa i64)."""
+    p_taxa, p_encs, d_taxa = [], [], []
+    for s, e in zip(unit_bounds[:-1], unit_bounds[1:]):
+        lanes = hll_lanes[s:e]
+        t = taxa_dense[s:e][lanes].astype(np.int64)
+        v = enc[s:e][lanes]
+        if len(t) == 0:
+            continue
+        order = np.argsort(t, kind="stable")  # stream order within taxon
+        ts, vs = t[order], v[order]
+        bounds = np.flatnonzero(np.diff(ts)) + 1
+        starts = np.concatenate([[0], bounds])
+        ends = np.concatenate([bounds, [len(ts)]])
+        for s_, e_ in zip(starts.tolist(), ends.tolist()):
+            encs = vs[s_:e_]
+            uniq, first_idx = np.unique(encs, return_index=True)
+            d, nn = len(uniq), e_ - s_
+            if d > th or (d == th and int(first_idx.max()) < nn - 1):
+                d_taxa.append(int(ts[s_]))
+            else:
+                p_taxa.append(np.full(d, ts[s_], np.int64))
+                p_encs.append(uniq)
+    return (
+        np.concatenate(p_taxa) if p_taxa else np.empty(0, np.int64),
+        np.concatenate(p_encs) if p_encs else np.empty(0, np.uint32),
+        np.asarray(d_taxa, np.int64),
+    )
+
+
+class SparseTracker:
+    """Host-side fold of the per-span sparse statistics.
+
+    State: the set of dense ids that ever went dense, and the union of
+    distinct (taxon, encoding) pairs of stayed-sparse groups as one sorted
+    u64 array (taxon << 32 | enc). Spans APPEND their pair keys to a pending
+    list; deduplication is amortized (compact when the appended volume
+    doubles the known union), so the fold stays O(U log U) overall."""
+
+    def __init__(self):
+        self.dense_ever: set[int] = set()
+        self._union = np.empty(0, np.uint64)
+        self._parts: list[np.ndarray] = []
+        self._n_pending = 0
+        self.overflows = 0
+
+    def add(self, pair_taxa: np.ndarray, pair_encs: np.ndarray, dense_taxa) -> None:
+        self.dense_ever.update(int(x) for x in np.unique(np.asarray(dense_taxa)))
+        if len(pair_taxa):
+            keys = (pair_taxa.astype(np.uint64) << np.uint64(32)) | pair_encs.astype(
+                np.uint64
+            )
+            self._parts.append(keys)
+            self._n_pending += len(keys)
+            if self._n_pending > max(1 << 22, 2 * len(self._union)):
+                self._compact()
+
+    def _compact(self) -> None:
+        if self._parts:
+            self._union = np.unique(np.concatenate([self._union] + self._parts))
+            self._parts = []
+            self._n_pending = 0
+
+    def consume_buffer(self, buf: np.ndarray, n_pairs: int, n_events: int) -> bool:
+        """Fold one device buffer (uint64); False = truncated (the caller must
+        fall back to host stats for the span)."""
+        if n_pairs + n_events > len(buf):
+            self.overflows += 1
+            return False
+        pairs = buf[:n_pairs]
+        taxa = ((pairs >> np.uint64(32)) & np.uint64((1 << TAXON_BITS) - 1)).astype(np.int64)
+        encs = (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        events = buf[n_pairs : n_pairs + n_events]
+        ev_taxa = (events & np.uint64((1 << TAXON_BITS) - 1)).astype(np.int64)
+        self.add(taxa, encs, ev_taxa)
+        return True
+
+    def sparse_set_of(self, dense_id: int) -> np.ndarray:
+        """Sorted distinct encodings of a (never-dense) taxon."""
+        self._compact()
+        lo = np.uint64(dense_id) << np.uint64(32)
+        hi = np.uint64(dense_id + 1) << np.uint64(32)
+        s = np.searchsorted(self._union, lo, side="left")
+        e = np.searchsorted(self._union, hi, side="left")
+        return (self._union[s:e] & np.uint64(0xFFFFFFFF)).astype(np.uint32)

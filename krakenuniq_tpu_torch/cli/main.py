@@ -40,6 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--check-names", action="store_true")
     p.add_argument("--hll-precision", type=int, default=12)
     p.add_argument("--only-classified-output", action="store_true")
+    p.add_argument(
+        "--device-counters",
+        action="store_true",
+        help="keep taxon counters on the device (bit-identical to the host "
+        "path: the sparse-regime HLL tracking runs on the device, see "
+        "classify/sparse_exact.py)",
+    )
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the tables live and the step runs (default: cuda)")
     p.add_argument("--version", action="version", version=f"KrakenUniq-TPU-torch version {__version__}")
@@ -85,6 +92,7 @@ def main(argv: list[str] | None = None) -> int:
         min_hits=args.min_hits,
         hll_precision=args.hll_precision,
         only_classified_output=args.only_classified_output,
+        device_counters=args.device_counters,
         device=args.device,
     )
 

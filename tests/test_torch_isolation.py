@@ -41,6 +41,8 @@ def _forbidden(name: str) -> bool:
 def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "krakenuniq_tpu_torch.classify.pipeline" in mods
+    assert "krakenuniq_tpu_torch.classify.device_counters" in mods
+    assert "krakenuniq_tpu_torch.tools.probe_gather" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -89,4 +91,7 @@ def test_kernel_wrappers_refuse_cpu_launch():
         _kernels.check_cuda("scores", tins=x, touts=x)
     with pytest.raises(ValueError, match="several devices"):
         _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
-    assert set(_kernels.LAUNCHES) == {"scores", "kmer_front", "chd_probe"}
+    assert set(_kernels.LAUNCHES) == {
+        "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
+    }
+    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.LAUNCHES)

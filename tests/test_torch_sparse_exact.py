@@ -1,0 +1,180 @@
+"""The port's sparse-regime statistics (krakenuniq_tpu_torch.classify.
+sparse_exact) against the JAX package's: `sparse_stats_core` buffer, pair
+and event counts equal integer for integer, and both equal the real
+per-unit HLL fold, as tests/test_sparse_exact.py checks the JAX one."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from krakenuniq_tpu.classify import sparse_exact as JS
+from krakenuniq_tpu_torch.classify import sparse_exact as TS
+from krakenuniq_tpu_torch.hll import HLL
+
+P = 6  # threshold m/4 = 16: easy to hit the edge cases
+TH = (1 << P) // 4
+
+_jit_stats = jax.jit(JS.sparse_stats_core, static_argnums=(4, 5))
+
+
+def _oracle(taxa, enc, lanes, unit_bounds):
+    """The real per-unit HLL fold: (pairs, dense events)."""
+    pairs, dense = set(), []
+    for s, e in zip(unit_bounds[:-1], unit_bounds[1:]):
+        t = taxa[s:e][lanes[s:e]]
+        v = enc[s:e][lanes[s:e]]
+        for taxon in np.unique(t):
+            h = HLL(P)
+            h.insert_encodings(v[t == taxon])
+            if h.sparse:
+                pairs.update((int(taxon), int(x)) for x in h.sparse_set)
+            else:
+                dense.append(int(taxon))
+    return pairs, sorted(dense)
+
+
+def _decode(buf, n_p, n_e):
+    mask = np.uint64((1 << TS.TAXON_BITS) - 1)
+    pairs = buf[:n_p]
+    taxa = ((pairs >> np.uint64(32)) & mask).astype(np.int64)
+    encs = (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    ev = sorted(int(x & mask) for x in buf[n_p : n_p + n_e])
+    return set(zip(taxa.tolist(), encs.tolist())), ev
+
+
+def _both(taxa, enc, lanes, unit_id, cap):
+    """(JAX stats, port stats) as numpy (buf u64, n_p, n_e)."""
+    jb, jp, je = _jit_stats(
+        jnp.asarray(taxa), jnp.asarray(enc), jnp.asarray(lanes), jnp.asarray(unit_id), P, cap
+    )
+    tb, tp, te = TS.sparse_stats_core(
+        torch.from_numpy(taxa), torch.from_numpy(enc.view(np.int32)),
+        torch.from_numpy(lanes), torch.from_numpy(unit_id.astype(np.int64)), P, cap,
+    )
+    assert tb.dtype == torch.int64 and tp.dtype == te.dtype == torch.int32
+    return (np.asarray(jb), int(jp), int(je)), (tb.numpy().view(np.uint64), int(tp), int(te))
+
+
+@pytest.mark.parametrize("trial", range(8))
+def test_sparse_stats_core_matches_jax_and_oracle(trial):
+    rng = np.random.default_rng(trial)
+    b, w = 32, 40
+    unit_bounds = [0, 10, 22, 32]
+    unit_id = np.zeros(b, np.uint8)
+    for u, (s, e) in enumerate(zip(unit_bounds[:-1], unit_bounds[1:])):
+        unit_id[s:e] = u
+    taxa = rng.integers(0, 6, size=(b, w)).astype(np.int32)
+    # a small encoding alphabet forces near-threshold distinct counts, and
+    # taxa 4-5 draw from fewer than m/4 values so some groups stay sparse:
+    # the buffer then holds pairs, events (tag bit 63) and pads (all ones),
+    # which only an unsigned key order puts in that order
+    alphabet = np.where(taxa >= 4, TH - 4, TH + 3)
+    enc = (rng.integers(0, alphabet).astype(np.uint32)) * 7 + 1
+    enc[taxa % 2 == 1] |= np.uint32(1 << 31)
+    lanes = rng.random((b, w)) < 0.8
+
+    (jb, jp, je), (tb, tp, te) = _both(taxa, enc, lanes, unit_id, 4096)
+    assert (tp, te) == (jp, je)
+    assert tp > 0 and te > 0, "the buffer should hold pairs and events"
+    np.testing.assert_array_equal(tb, jb)  # used prefix and the pad tail
+
+    want_pairs, want_dense = _oracle(taxa, enc, lanes, unit_bounds)
+    assert _decode(tb, tp, te) == (want_pairs, want_dense)
+    pt, pe, dt = TS.sparse_stats_host(taxa, enc, lanes, unit_bounds, TH)
+    assert set(zip(pt.tolist(), pe.tolist())) == want_pairs
+    assert sorted(dt.tolist()) == want_dense
+    for got, want in zip((pt, pe, dt), JS.sparse_stats_host(taxa, enc, lanes, unit_bounds, TH)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cap", [3, 1 << 20])
+def test_sparse_stats_core_buffer_cap(cap):
+    """A cap below the emitted count truncates the buffer exactly as the
+    JAX slice does (the caller sees n_p + n_e > len(buf)); a cap above the
+    lane count leaves one slot per lane."""
+    rng = np.random.default_rng(11)
+    taxa = rng.integers(0, 4, size=(8, 16)).astype(np.int32)
+    enc = rng.integers(1, 1 << 32, size=(8, 16), dtype=np.uint64).astype(np.uint32)
+    lanes = rng.random((8, 16)) < 0.9
+    (jb, jp, je), (tb, tp, te) = _both(taxa, enc, lanes, np.zeros(8, np.uint8), cap)
+    assert (tp, te) == (jp, je) and len(tb) == len(jb) == min(cap, taxa.size)
+    np.testing.assert_array_equal(tb, jb)
+
+
+@pytest.mark.parametrize("last_dup", [False, True])
+def test_threshold_edge(last_dup):
+    """d == m/4 exactly: the counter goes dense only if the set fills BEFORE
+    the unit's last insert; a trailing duplicate flips the outcome."""
+    stream = np.arange(1, TH + 1, dtype=np.uint32)
+    if last_dup:
+        stream = np.concatenate([stream, stream[:1]])
+    h = HLL(P)
+    h.insert_encodings(stream)
+    assert h.sparse == (not last_dup)
+
+    taxa = np.full((1, len(stream)), 3, np.int32)
+    enc = stream[None, :]
+    lanes = np.ones((1, len(stream)), bool)
+    _, _, dt = TS.sparse_stats_host(taxa, enc, lanes, [0, 1], TH)
+    assert (len(dt) == 1) == last_dup
+    (jb, jp, je), (tb, tp, te) = _both(taxa, enc, lanes, np.zeros(1, np.uint8), 4096)
+    assert (tp, te) == (jp, je)
+    assert (te == 1) == last_dup
+    assert (tp == 0) == last_dup
+    np.testing.assert_array_equal(tb, jb)
+
+
+def test_tracker_union_and_final_state():
+    """Union across spans and units equals one big host fold, and equals the
+    JAX tracker's; a taxon dense in ANY unit is dense forever."""
+    rng = np.random.default_rng(7)
+    tr, jtr = TS.SparseTracker(), JS.SparseTracker()
+    all_pairs: dict[int, set] = {}
+    dense: set[int] = set()
+    for _ in range(4):
+        taxa = rng.integers(0, 5, size=(16, 24)).astype(np.int32)
+        enc = (rng.integers(0, TH + 2, size=(16, 24)).astype(np.uint32)) * 3 + 1
+        lanes = rng.random((16, 24)) < 0.9
+        ub = [0, 7, 16]
+        stats = TS.sparse_stats_host(taxa, enc, lanes, ub, TH)
+        tr.add(*stats)
+        jtr.add(*stats)
+        dense.update(int(x) for x in stats[2])
+        for t, v in zip(stats[0].tolist(), stats[1].tolist()):
+            all_pairs.setdefault(t, set()).add(v)
+    assert tr.dense_ever == dense == jtr.dense_ever
+    for t, vals in all_pairs.items():
+        got = tr.sparse_set_of(t)
+        assert set(got.tolist()) == vals
+        assert (np.sort(got) == got).all()
+        np.testing.assert_array_equal(got, jtr.sparse_set_of(t))
+
+
+def test_tracker_consumes_device_buffer():
+    """A port buffer folds into the tracker exactly as the JAX buffer folds
+    into the JAX tracker."""
+    rng = np.random.default_rng(3)
+    taxa = rng.integers(0, 6, size=(12, 30)).astype(np.int32)
+    enc = (rng.integers(0, TH + 3, size=(12, 30)).astype(np.uint32)) * 5 + 1
+    lanes = rng.random((12, 30)) < 0.85
+    unit_id = np.repeat(np.arange(3, dtype=np.uint8), 4)
+    (jb, jp, je), (tb, tp, te) = _both(taxa, enc, lanes, unit_id, 4096)
+    tr, jtr = TS.SparseTracker(), JS.SparseTracker()
+    assert tr.consume_buffer(tb[: tp + te], tp, te)
+    assert jtr.consume_buffer(jb[: jp + je], jp, je)
+    assert tr.dense_ever == jtr.dense_ever
+    for t in range(6):
+        np.testing.assert_array_equal(tr.sparse_set_of(t), jtr.sparse_set_of(t))
+
+
+def test_tracker_overflow_flag():
+    tr = TS.SparseTracker()
+    buf = np.zeros(4, np.uint64)
+    assert not tr.consume_buffer(buf, 3, 2)  # 5 > 4 slots
+    assert tr.overflows == 1
+
+
+def test_constants_match_jax():
+    assert (TS.TAXON_BITS, TS.UNIT_BITS, TS.MAX_UNITS) == (JS.TAXON_BITS, JS.UNIT_BITS, JS.MAX_UNITS)
