@@ -1,14 +1,25 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (krakenuniq_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # the whole check
+    python3 chip_smoke.py --kernels-only DIR    # phases 1-2 on DIR's package
+
+`--kernels-only` imports krakenuniq_tpu_torch from DIR (a checkout, or an
+unpacked `git archive` of one), builds its kernels there and runs phases 1
+and 2 only: run on two checkouts in turns (A, B, B, A) in one call, it
+times both packages' kernels on the same inputs and the same card.
 
 Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
      csrc/ from source (one nvcc per file, in parallel);
   2. each kernel against its plain PyTorch version on the card, integer for
      integer (tolerance 0: every output is an integer or a bool), at the
-     span shapes and the shapes of the JAX package's kernel tools;
+     span and unit shapes and the shapes of the JAX package's kernel tools,
+     with scores' edge rows (all-miss, all-hit, W = 1025 and 2018, a
+     tout < tin hit in every row) and kmer_front's (k = 21, LB = 161, rows
+     of length 0, k - 1 and k); each
+     check times the wrapper call (`ms`, CUDA events, host launch path
+     included) and the kernel alone (`device_ms`, torch.profiler);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair, with
@@ -92,6 +103,42 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+# the CUDA kernel symbol of each wrapper (a substring of the profiler's name)
+SYMBOLS = {
+    "scores": ("scores_kernel",),
+    "kmer_front": ("kmer_front_kernel",),
+    "chd_probe": ("chd_probe_kernel",),
+    "taxon_counts": ("counts_smem_kernel", "counts_global_kernel"),
+    "hll_regmax": ("hll_regmax_kernel",),
+    "row_gather": ("row_gather_kernel",),
+}
+
+
+def device_ms(fn, kname: str, reps: int) -> float:
+    """Median card milliseconds of kernel `kname` itself over `reps` calls
+    of fn() under torch.profiler: the kernel's own duration on the card,
+    without the wrapper's host work or the other kernels fn() launches. A
+    profiler session that lost kernel records is run again (at most three
+    sessions, their records pooled)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)  # let the tracer settle before the first launch
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs += [e.device_time_total for e in prof.events()
+                 if e.device_type.name == "CUDA" and any(sym in e.name for sym in SYMBOLS[kname])]
+        if len(durs) >= reps:
+            return statistics.median(durs) / 1e3
+    raise AssertionError(f"profiler saw {len(durs)} {kname} kernels in {3 * reps} calls")
+
+
 def max_abs_err(got, want) -> float:
     """0.0 when every tensor pair is equal, else the largest difference."""
     import torch
@@ -108,8 +155,10 @@ def max_abs_err(got, want) -> float:
 def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, extra=None):
     """Run the kernel and its plain version on the same inputs, require
     equality, time both (and `library`, one PyTorch call computing the same
-    function, where there is one); returns the record. `launches` counts
-    this check's launches of the kernel (the run, warm-up and timed calls)."""
+    function, where there is one); returns the record. `ms` is the wrapper
+    call between CUDA events (host launch path included), `device_ms` the
+    kernel's own card time (`device_ms`). `launches` counts this check's
+    launches of the kernel (the run, warm-up and timed calls)."""
     import torch
 
     from krakenuniq_tpu_torch import _kernels
@@ -126,6 +175,7 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
         "shape": list(shape),
         "max_abs_err": err,
         "ms": time_ms(kernel, reps),
+        "device_ms": device_ms(kernel, kname, reps),
         "plain_ms": time_ms(plain, max(3, reps // 4)),
         "launches": _kernels.LAUNCHES[kname] - before,
     }
@@ -148,19 +198,30 @@ def bound(bytes_moved: float, ops: float) -> dict:
     }
 
 
-def scores_bound(hit, w: int) -> dict:
-    """Per row, every hit lane i is compared with every hit lane j (two
-    compares and an add); tins, touts in and scores out, 4 bytes each."""
-    n_hit = hit.sum(dim=1).double()
-    pairs = float((n_hit * n_hit).sum())
-    return bound(3 * 4 * hit.numel(), 3 * pairs)
+def scores_bound(hit) -> dict:
+    """tin, tout and the score (4 B each) and the hit byte per lane; the
+    compares the function needs whatever the algorithm: per row of H hits,
+    sorting its H tins and H touts (H log2 H each) and, per hit query, two
+    searches of log2 H steps: 4 H log2 H."""
+    b, w = hit.shape
+    n = hit.sum(dim=1).double()
+    ops = 4 * n * n.clamp(min=1).log2()
+    return bound(13 * b * w, float(ops.sum()))
+
+
+# kmer_front's integer operations per lane: the block-local index (4), two
+# funnel-shift windows (2 shared loads, 2 shifts, an or and a mask each:
+# 12), the ambiguity test (1), the 2-bit reversal (bit reversal, adjacent
+# swap, shift: 7), the reverse complement (2), the minimum (1), murmur (add,
+# three shift-xors, two multiplies: 9), the encoder (~10), three stores.
+FRONT_OPS_PER_LANE = 49
 
 
 def front_bound(b: int, lb: int, k: int) -> dict:
     """Codes and flags in (1 byte each per base); hash, enc, ambiguity out
-    (8 + 4 + 1 bytes per lane); ~2k + 48 integer operations per lane."""
+    (8 + 4 + 1 bytes per lane); FRONT_OPS_PER_LANE operations per lane."""
     lanes = b * (lb - k + 1)
-    return bound(2 * b * lb + 13 * lanes, (2 * k + 48) * lanes)
+    return bound(2 * b * lb + 13 * lanes, FRONT_OPS_PER_LANE * lanes)
 
 
 def probe_bound(valid) -> dict:
@@ -217,27 +278,37 @@ def card_line() -> str:
 # ------------------------------------------------------------------ phase 2
 
 
-def score_inputs(b, w, seed, all_miss=False):
+def score_inputs(b, w, seed, hit_rate=0.7, bad_rows=False):
+    """Random intervals (tin < tout); with `bad_rows` each row's first hit
+    gets tout < tin, which sends the row to the kernel's pair form."""
     import torch
 
     rng = np.random.default_rng(seed)
     tins = rng.integers(0, 5000, size=(b, w)).astype(np.int32)
     touts = (tins + rng.integers(1, 2500, size=(b, w))).astype(np.int32)
-    hit = np.zeros((b, w), bool) if all_miss else rng.random((b, w)) < 0.7
+    hit = rng.random((b, w)) < hit_rate
+    if bad_rows:
+        rows = np.flatnonzero(hit.any(axis=1))
+        first = hit[rows].argmax(axis=1)
+        touts[rows, first] = tins[rows, first] - 1
     t = lambda a: torch.from_numpy(a).cuda()
     return t(tins), t(touts), t(hit)
 
 
-def front_inputs(b, lb, seed):
-    """Random bases, ~1% N, and per-row lengths from 0 to lb (some below k);
-    padding positions ambiguous with code 0, as encode_batch lays them out."""
+def front_inputs(b, lb, seed, lengths=None):
+    """Random bases, ~1% N, and per-row lengths (default: half the rows 150,
+    the rest from 0 to lb, some below k); padding positions ambiguous with
+    code 0, as encode_batch lays them out."""
     import torch
 
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, size=(b, lb), dtype=np.uint8)
     ambig = rng.random((b, lb)) < 0.01
-    lengths = rng.integers(0, lb + 1, size=b)
-    lengths[: b // 2] = 150
+    if lengths is None:
+        lengths = rng.integers(0, lb + 1, size=b)
+        lengths[: b // 2] = 150
+    else:
+        lengths = np.resize(np.asarray(lengths), b)
     pad = np.arange(lb)[None, :] >= lengths[:, None]
     codes[pad] = 0
     ambig |= pad
@@ -249,27 +320,58 @@ def phase_kernels(k: int):
     from krakenuniq_tpu_torch.classify.device_step import kmer_front, kmer_front_plain
     from krakenuniq_tpu_torch.taxonomy.resolve import _scores_plain, scores
 
-    for i, (b, w, miss) in enumerate(
-        [(4096, 130, False), (65536, 130, False), (64, 482, False), (5, 7, False),
-         (64, 130, True), (16, 2018, False)]  # W > 1024: the j-tiled path
-    ):
-        tins, touts, hit = score_inputs(b, w, i, all_miss=miss)
+    for i, (label, b, w, rate) in enumerate([
+        ("", 4096, 130, 0.7), ("", 65536, 130, 0.7), ("", 64, 482, 0.7), ("", 5, 7, 0.7),
+        (" all-miss", 64, 130, 0.0), (" all-hit", 4096, 130, 1.0),
+        # long rows: 1025 lanes (one past four 256-lane hit tiles) and 2018
+        (" W>1024", 16, 2018, 0.7), (" W>1024", 8, 1025, 0.7),
+        # the span shape's loads and stores alone (no hit: no sort, no search)
+        (" all-miss", 65536, 130, 0.0),
+        # a tout < tin hit in every row: the whole batch takes the pair form
+        (" tout<tin", 65536, 130, 0.7),
+    ]):
+        tins, touts, hit = score_inputs(b, w, i, hit_rate=rate, bad_rows=label == " tout<tin")
         check_kernel(
-            "scores" + (" all-miss" if miss else ""), (b, w),
+            "scores" + label, (b, w),
             lambda: (scores(tins, touts, hit),),
             lambda: (_scores_plain(tins, touts, hit),),
-            reps=20, bound=scores_bound(hit, w),
+            reps=20, bound=scores_bound(hit),
         )
-    b, lb = 65536, 160
-    codes, ambig = front_inputs(b, lb, 7)
-    check_kernel(
-        "kmer_front", (b, lb),
-        lambda: kmer_front(codes, ambig, k, 12),
-        lambda: kmer_front_plain(codes, ambig, k, 12),
-        reps=20, bound=front_bound(b, lb, k),
-    )
+    for label, b, lb, kk, lengths in [
+        ("", 65536, 160, k, None), ("", 4096, 160, k, None), (" k=21", 65536, 160, 21, None),
+        (" LB=161", 4096, 161, k, None), (" short rows", 4096, 160, k, (0, k - 1, k, 150)),
+    ]:
+        codes, ambig = front_inputs(b, lb, 7, lengths)
+        check_kernel(
+            "kmer_front" + label, (b, lb),
+            lambda: kmer_front(codes, ambig, kk, 12),
+            lambda: kmer_front_plain(codes, ambig, kk, 12),
+            reps=20, bound=front_bound(b, lb, kk), extra={"k": kk},
+        )
+    phase_probe_kernel()
     phase_counter_kernels()
     return phase_gather_kernel()
+
+
+def phase_probe_kernel():
+    """chd_probe at the unit shape on a random 16 MB table (its launch path;
+    phase 4 checks it on the full-size table)."""
+    import torch
+
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(a).cuda()
+    word = lambda n: rng.integers(-(1 << 31), 1 << 31, size=(n, 4), dtype=np.int64).astype(np.int32)
+    planes = (t(word(1 << 16)), t(word(1 << 20)))  # displacement words, 2^20 rows of 16 B
+    h = t(rng.integers(0, 1 << 64, size=(4096, 130), dtype=np.uint64).view(np.int64))
+    valid = t(rng.random((4096, 130)) < 0.9)
+    check_kernel(
+        "chd_probe 16 MB table", (4096, 130),
+        lambda: (hash_lookup_kmers(planes, h, valid),),
+        lambda: (hash_lookup_plain(planes, h, valid),),
+        reps=20, bound=probe_bound(valid),
+    )
 
 
 def counts_check(ids, mask, t: int, reps: int, label: str = ""):
@@ -334,27 +436,27 @@ def phase_counter_kernels(p: int = 12):
 
 def phase_gather_kernel(depth: int = 16):
     """row_gather at the probe tool's defaults (a 1 GiB table, 8,519,680
-    random queries) for 16-byte rows (the CHD row) and 512-byte rows;
-    returns the 16-byte record."""
+    random queries) for 16-byte rows (the CHD row) and 512-byte rows, and
+    for 16-byte rows at one unit's 532,480 queries; returns the first
+    record."""
     import torch
 
     from krakenuniq_tpu_torch.tools.probe_gather import row_gather, row_gather_plain
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flat = torch.randint(-(1 << 31), 1 << 31, ((1 << 26) * 4,), dtype=torch.int32, device="cuda", generator=gen)
-    n = 8_519_680
-    recs = {}
-    for rb in (16, 512):
+    recs = []
+    for rb, n in ((16, 8_519_680), (512, 8_519_680), (16, 4096 * 130)):
         table = flat.view(-1, rb // 4)
         q = torch.randint(0, table.shape[0], (n,), dtype=torch.int32, device="cuda", generator=gen)
-        recs[rb] = check_kernel(
+        recs.append(check_kernel(
             f"row_gather {rb}B", (n, rb // 4),
             lambda: (row_gather(table, q, depth),),
             lambda: (row_gather_plain(table, q),),
             reps=10, bound=gather_bound(n, rb),
             library=lambda: table.index_select(0, q), extra={"depth": depth},
-        )
-    return recs[16]
+        ))
+    return recs[0]
 
 
 def probe_check(db, keys, n_queries=8_500_000, seed=5):
@@ -565,12 +667,13 @@ def phase_main(reps: int):
     )
     t_dense = out_k["taxa_dense"].long()
     hit = t_dense != 0
-    tins, touts = c._tin[t_dense], c._tout[t_dense]
+    rows = c._io[t_dense]  # [B, W, 2]: the kernel reads both halves in place
+    tins, touts = rows[..., 0], rows[..., 1]
     score = check_kernel(
         "scores", (b, w),
         lambda: (scores(tins, touts, hit),),
         lambda: (_scores_plain(tins, touts, hit),),
-        reps=reps, bound=scores_bound(hit, w),
+        reps=reps, bound=scores_bound(hit),
     )
 
     n_units = max(c.n_units, 1)
@@ -734,7 +837,15 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", metavar="DIR",
+                    help="run phases 1-2 only, on the krakenuniq_tpu_torch package under DIR")
+    args = ap.parse_args(argv)
+    if args.kernels_only:
+        sys.path.insert(0, os.path.abspath(args.kernels_only))
     import torch
 
     if not torch.cuda.is_available():
@@ -753,6 +864,9 @@ def main() -> int:
     log(f"kernels built in {time.time() - t:.1f}s: {sorted(paths)}")
 
     gather_rec = phase_kernels(k=31)
+    if args.kernels_only:
+        print(card)
+        return 0
     phase_goldens()
     recs, launches, main_run = phase_main(reps=50)
     dc_recs, dc_launches = phase_counters(main_run, reps=50)
@@ -769,7 +883,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
     emit({"kernels": rows})

@@ -35,8 +35,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each kernel's entry point (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
-    # tins, touts, out, B, W, stream
-    "scores": (_P, _P, _P, _I, _I, _P),
+    # tins, touts, hit, out, B, W, row stride, lane stride, stream
+    "scores": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
     # codes, ambig, hash, enc, kmer_ambig, B, LB, k, p, stream
     "kmer_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # disp, rows, hashes, valid, out, n, lr, lg, stream
@@ -50,7 +50,7 @@ SIGNATURES = {
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
-_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}  # name -> the loaded library's entry point, argtypes bound
 
 
 def reset_launches() -> None:
@@ -100,15 +100,14 @@ def build(names=None) -> dict[str, str]:
     return paths
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
-        fn = getattr(lib, f"kuniq_{name}")
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(ctypes.CDLL(build([name])[name]), f"kuniq_{name}")
         fn.argtypes = list(SIGNATURES[name])
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+        _fns[name] = fn
+    return fn
 
 
 def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
@@ -127,12 +126,18 @@ def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel `name` on `device`'s current stream; tensors in `args`
-    are passed by data pointer. Raises on a refused launch."""
-    fn = getattr(_lib(name), f"kuniq_{name}")
+    are passed by data pointer. Raises on a refused launch. Enters the
+    device's context only when another device is current."""
+    fn = _fn(name)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         rc = fn(*c_args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1

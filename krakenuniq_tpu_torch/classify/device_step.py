@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from .. import _kernels
-from ..ints import clz64, lsr, s64, u32_to_i32
+from ..ints import clz64, i32_to_u32, lsr, s64, u32_to_i32
 from ..kmer import ops as kops
 from ..lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
 from ..taxonomy.resolve import resolve_reads
@@ -58,10 +58,69 @@ def kmer_front_plain(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
     return hashes, encode_hash_device(hashes, p), kops.window_any(ambig, k)
 
 
+def pack_input(codes: torch.Tensor, ambig: torch.Tensor):
+    """(B, LB) codes and flags -> the bit-packed feed of
+    kuniq_native.encode_unit_packed as int32 bit patterns: base j in bits
+    2(j % 16) of code word j / 16, its flag in bit j % 32 of flag word j / 32;
+    rows padded with zero codes and flags to a multiple of 32 bases."""
+    b, lb = codes.shape
+    lbp = -(-lb // 32) * 32
+    c = torch.zeros((b, lbp), dtype=torch.int64, device=codes.device)
+    a = torch.zeros((b, lbp), dtype=torch.int64, device=codes.device)
+    c[:, :lb] = codes
+    a[:, :lb] = ambig
+    sh = torch.arange(32, device=codes.device)
+    cw = (c.view(b, lbp // 16, 16) << (2 * sh[:16])).sum(dim=2)
+    aw = (a.view(b, lbp // 32, 32) << sh).sum(dim=2)
+    return u32_to_i32(cw), u32_to_i32(aw)
+
+
+_I64_MIN = -(1 << 63)
+
+
+def _words64(words32: torch.Tensor) -> torch.Tensor:
+    """int32 [B, n] words of a bit string -> int64 words (pairs low-first),
+    with at least one zero word past the data."""
+    w = i32_to_u32(words32)
+    w = torch.nn.functional.pad(w, (0, 4 - w.shape[1] % 2))
+    return w[:, 0::2] | (w[:, 1::2] << 32)
+
+
+def _window64(s64: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
+    """Bits [bit, bit + 64) of each row's bit string: the funnel shift of
+    two adjacent words, every shift below 64."""
+    w, sh = bit >> 6, bit & 63
+    lo, hi = s64[:, w], s64[:, w + 1]
+    lo = (lo >> sh) & ~((torch.full_like(sh, _I64_MIN) >> sh) << 1)  # logical shift
+    return lo | ((hi << 1) << (63 - sh))
+
+
+def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb: int, k: int, p: int):
+    """The `kmer_front` kernel's algorithm in plain torch, from the packed
+    feed (`pack_input`) of rows of `lb` bases: per lane l the code window
+    r = sum c[l + t] << 2t and flag window from one funnel shift each, the
+    reverse complement (~r) & (2^2k - 1), the forward k-mer as the 2-bit
+    reversal of r; then canonical min, murmur and the HLL encoding. Returns
+    what `kmer_front` returns."""
+    lane = torch.arange(lb - k + 1, device=codes_packed.device)
+    r = _window64(_words64(codes_packed), 2 * lane) & ((1 << 2 * k) - 1)
+    amb = (_window64(_words64(ambig_packed), lane) & ((1 << k) - 1)) != 0
+    x = r  # 2-bit reversal (the kernel: a bit reversal, then swap adjacent bits)
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                  (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        x = ((x >> sh) & m) | ((x & m) << sh)
+    x = lsr(x, 32) | (x << 32)
+    fwd = lsr(x, 64 - 2 * k)
+    rc = ~r & ((1 << 2 * k) - 1)
+    hashes = murmur3_finalizer_device(torch.minimum(fwd, rc))
+    return hashes, encode_hash_device(hashes, p), amb
+
+
 def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
     """Canonical k-mer hashes, their HLL encodings and the per-k-mer
     ambiguity of a (B, LB) batch of 2-bit codes (uint8 in 0..3) and base
-    ambiguity flags (bool). CUDA tensors launch the `kmer_front` kernel."""
+    ambiguity flags (bool). CUDA tensors launch the `kmer_front` kernel
+    (csrc/kmer_front.cu; `kmer_front_packed` is its algorithm in torch)."""
     if codes.device.type == "cpu":
         return kmer_front_plain(codes, ambig, k, p)
     dev = _kernels.check_cuda("kmer_front", codes=codes, ambig=ambig)
@@ -92,8 +151,7 @@ class StepConfig:
 def classify_step_core(
     db_planes,  # tuple of (disp4, rows) CHD planes per database, in hierarchy order
     taxid_table: torch.Tensor,  # int32 [T]: device id -> original taxid (uint32 bits)
-    tin: torch.Tensor,
-    tout: torch.Tensor,
+    io: torch.Tensor,  # int32 [T, 2]: Euler (tin, tout) per id
     parent: torch.Tensor,
     root_dense: int,
     codes: torch.Tensor,  # uint8 [B, LB]
@@ -148,7 +206,7 @@ def classify_step_core(
         processed = valid
         total_hits = hit.sum(dim=1, dtype=torch.int32)
         call_dense = resolve_reads(
-            taxon_dense, hit & processed, tin, tout, parent, root_dense, cfg.max_depth,
+            taxon_dense, hit & processed, io, parent, root_dense, cfg.max_depth,
             plain=plain,
         )
     call = taxid_table[call_dense.long()]

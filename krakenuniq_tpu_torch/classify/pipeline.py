@@ -201,8 +201,8 @@ class Classifier:
 
         self._taxids_host = np.asarray(taxids, dtype=np.uint32)
         self._taxid_table = put(self._taxids_host.view(np.int32), np.int32)
-        self._tin = put(tin, np.int32)
-        self._tout = put(tout, np.int32)
+        # the resolve's [T, 2] (tin, tout) table, gathered per k-mer lane
+        self._io = put(np.stack([tin, tout], axis=1), np.int32)
         self._parent = put(parent, np.int32)
         self._db_planes = tuple(db.hash_table for db in self.dbs)
         self._cfg = StepConfig(
@@ -311,8 +311,7 @@ class Classifier:
         return classify_step_core(
             self._db_planes,
             self._taxid_table,
-            self._tin,
-            self._tout,
+            self._io,
             self._parent,
             self._root_dense,
             torch.from_numpy(codes).to(dev),

@@ -12,14 +12,25 @@
 //   hash  = murmur3 finalizer of canon             (hyperloglogplus.cpp:830-838)
 //   enc   = the 32-bit sparse HLL encoding of hash (hyperloglogplus.cpp:181-204)
 //
-// Bound on the H100: bytes. Each lane reads k code and k flag bytes that
-// overlap its neighbours' (one pass over [B, LB] from device memory, the
-// rest hits L1) and writes 13 bytes; the arithmetic is a few dozen integer
-// operations per lane.
+// Bound on the H100: bytes (2 B per base in, 13 B per lane out) and the
+// per-lane integer work (window, reversal, murmur's two 64-bit multiplies,
+// the encoder) are of one size; see chip_smoke.front_bound.
 //
-// Design: consecutive threads take consecutive lanes of a row, so the
-// window reads of a warp fall on the same cache lines and the int64/int32/
-// uint8 stores are coalesced. No intermediate plane touches device memory.
+// Design: a block owns R whole rows (about 4,096 bases). Stage: it reads
+// their codes and flags with aligned 16-byte loads and packs each 16 bases
+// in registers (two multiplies per 4 bytes) into shared memory, as one bit
+// string per plane: base f at bits 2f of the code words and bit f of the
+// flag words, the layout of kuniq_native.encode_unit_packed (base j in bits
+// 2(j % 16) of u32 word j / 16, its flag in bit j % 32 of word j / 32).
+// Compute: a lane takes its 2k code bits and k flag bits with one funnel
+// shift of two adjacent u64 words. Low-first packing gives r = sum c_t <<
+// 2t, so the reverse complement is (~r) & (2^2k - 1) and the forward k-mer
+// is the 2-bit reversal of r (a bit reversal and an adjacent-bit swap). A
+// row's bit string starts anywhere in a word, so any LB and any byte
+// alignment of the inputs work; consecutive threads write consecutive
+// lanes, so the int64/int32/uint8 stores are coalesced. No intermediate
+// plane touches device memory, and no thread loads a base from device
+// memory more than once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,16 +38,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPPrime = 25;  // sparse precision, hyperloglogplus.hpp:76
-
-__device__ __forceinline__ uint64_t reverse_complement(uint64_t x, int n) {
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) | ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  return (~x) >> (64 - 2 * n);
-}
+constexpr int kBlockBases = 4096;  // bases staged per block (whole rows, at least one)
+constexpr int kPPrime = 25;        // sparse precision, hyperloglogplus.hpp:76
 
 __device__ __forceinline__ uint64_t murmur3_finalizer(uint64_t key) {
   key += 1;
@@ -57,28 +60,84 @@ __device__ __forceinline__ uint32_t encode_hash(uint64_t h, int p) {
   return idx | ((uint32_t)(clz + 1) << 1) | 1u;
 }
 
+// 4 code bytes (0..3) -> 8 bits, byte t at bits 2t: the masked product puts
+// byte t's two bits at 24 + 2t, with every other partial product below bit
+// 24 in its own field or above bit 31.
+__device__ __forceinline__ uint32_t pack4_codes(uint32_t x) {
+  return ((x & 0x03030303u) * 0x01041040u) >> 24;
+}
+
+// 4 flag bytes (0/1) -> 4 bits, byte t at bit t (partial products at 24 + t).
+__device__ __forceinline__ uint32_t pack4_flags(uint32_t x) {
+  return (((x & 0x01010101u) * 0x01020408u) >> 24) & 0xFu;
+}
+
+// Bits [bit, bit + 64) of the bit string held in s (low bits first).
+__device__ __forceinline__ uint64_t window64(const uint64_t* s, int bit) {
+  const int w = bit >> 6, sh = bit & 63;
+  return (s[w] >> sh) | ((s[w + 1] << 1) << (63 - sh));
+}
+
 __global__ void __launch_bounds__(kThreads)
 kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__ ambig,
                   uint64_t* __restrict__ hash_out, uint32_t* __restrict__ enc_out,
-                  uint8_t* __restrict__ amb_out, int B, int LB, int k, int p) {
+                  uint8_t* __restrict__ amb_out, int B, int LB, int k, int p, int R) {
+  extern __shared__ uint64_t smem[];
+  const long long r0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, (long long)B - r0);
+  const int n = rows * LB;
   const int W = LB - k + 1;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)B * W) return;
-  const long long row = idx / W;
-  const int lane = (int)(idx - row * W);
-  const uint8_t* c = codes + row * LB + lane;
-  const uint8_t* a = ambig + row * LB + lane;
-  uint64_t fwd = 0;
-  uint8_t amb = 0;
-  for (int t = 0; t < k; ++t) {
-    fwd |= (uint64_t)c[t] << (2 * (k - 1 - t));
-    amb |= a[t];
+  const uint8_t* cp = codes + r0 * LB;
+  const uint8_t* ap = ambig + r0 * LB;
+  // the 16-byte chunks that hold the block's bases (the first may start
+  // before them; bytes outside the block's rows are staged but never read)
+  const int offc = (int)((uintptr_t)cp & 15), offa = (int)((uintptr_t)ap & 15);
+  const uint4* cv = reinterpret_cast<const uint4*>(cp - offc);
+  const uint4* av = reinterpret_cast<const uint4*>(ap - offa);
+  const int ncc = (n + offc + 15) / 16, nca = (n + offa + 15) / 16;
+  const int nc64 = (ncc + 1) / 2 + 1, na64 = (nca + 3) / 4 + 1;  // + one zero word
+  uint32_t* s_code = reinterpret_cast<uint32_t*>(smem);        // one word per chunk
+  uint16_t* s_flag = reinterpret_cast<uint16_t*>(smem + nc64);  // one half per chunk
+
+  for (int c = threadIdx.x; c < 2 * nc64; c += kThreads) {
+    uint32_t v = 0;
+    if (c < ncc) {
+      const uint4 x = cv[c];
+      v = pack4_codes(x.x) | pack4_codes(x.y) << 8 | pack4_codes(x.z) << 16 |
+          pack4_codes(x.w) << 24;
+    }
+    s_code[c] = v;
   }
-  const uint64_t rc = reverse_complement(fwd, k);
-  const uint64_t h = murmur3_finalizer(fwd < rc ? fwd : rc);
-  hash_out[idx] = h;
-  enc_out[idx] = encode_hash(h, p);
-  amb_out[idx] = amb != 0;
+  for (int c = threadIdx.x; c < 4 * na64; c += kThreads) {
+    uint32_t v = 0;
+    if (c < nca) {
+      const uint4 x = av[c];
+      v = pack4_flags(x.x) | pack4_flags(x.y) << 4 | pack4_flags(x.z) << 8 |
+          pack4_flags(x.w) << 12;
+    }
+    s_flag[c] = (uint16_t)v;
+  }
+  __syncthreads();
+
+  const uint64_t* c64 = smem;
+  const uint64_t* a64 = smem + nc64;
+  const uint64_t mask2k = (1ull << (2 * k)) - 1;
+  const uint64_t maskk = (1ull << k) - 1;
+  const long long o0 = r0 * W;
+  for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
+    const int rr = (int)((unsigned)idx / (unsigned)W);
+    const int f = rr * LB + (idx - rr * W);  // the window's first base in the block
+    const uint64_t r = window64(c64, 2 * (f + offc)) & mask2k;
+    const bool amb = (window64(a64, f + offa) & maskk) != 0;
+    uint64_t x = __brevll(r);
+    x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+    const uint64_t fwd = x >> (64 - 2 * k);
+    const uint64_t rc = ~r & mask2k;
+    const uint64_t h = murmur3_finalizer(fwd < rc ? fwd : rc);
+    hash_out[o0 + idx] = h;
+    enc_out[o0 + idx] = encode_hash(h, p);
+    amb_out[o0 + idx] = amb;
+  }
 }
 
 }  // namespace
@@ -86,11 +145,15 @@ kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__
 extern "C" int kuniq_kmer_front(const void* codes, const void* ambig, void* hash_out,
                                 void* enc_out, void* amb_out, int B, int LB, int k, int p,
                                 void* stream) {
-  const long long n = (long long)B * (LB - k + 1);
-  if (n <= 0) return (int)cudaGetLastError();
-  const long long grid = (n + kThreads - 1) / kThreads;
-  kmer_front_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
+  const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
+  // shared words for the largest block, at the worst 15-byte misalignment
+  const int ncc = (R * LB + 30) / 16;
+  const size_t smem = sizeof(uint64_t) * (size_t)((ncc + 1) / 2 + 1 + (ncc + 3) / 4 + 1);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (B + R - 1) / R;
+  kmer_front_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint8_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
-      (uint8_t*)amb_out, B, LB, k, p);
+      (uint8_t*)amb_out, B, LB, k, p, R);
   return (int)cudaGetLastError();
 }

@@ -8,11 +8,12 @@ candidates; empty hits => 0.
 As in krakenuniq_tpu/taxonomy/resolve.py, scores come from Euler-tour
 intervals: hit j contributes to candidate i iff tin[t_j] <= tin[t_i] <
 tout[t_j], so per k-mer lane
-  score_i = #{hits j : tin_j <= tin_i < tout_j}.
+  score_i = #{hits j : tin_j <= tin_i < tout_j}   (0 at non-hit lanes).
 `scores` launches the `scores` CUDA kernel (csrc/scores.cu) on CUDA tensors
 at every width W; on CPU tensors it runs `_scores_plain`, the direct
-all-pairs form. `_scores_sort`, the event-sort form, is a second reference
-for the tests.
+all-pairs form. `_scores_count` mirrors the kernel's counting form (sorted
+tins and touts per row, two searches per query) and `_scores_sort`, the
+event-sort form, is a second reference for the tests.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ _PLAIN_BLOCK = 1 << 24  # compare-cube elements per chunk of the plain form
 
 
 def _sentinel_mask(tins, touts, hit_mask):
-    """Non-hit j lanes get tin = 2^30, tout = -1 and can never count: the
-    input contract of the kernel (and of the TPU kernel it replaces)."""
+    """Non-hit lanes get tin = 2^30, tout = -1: as j lanes they never
+    count, as queries they score 0 (the TPU kernel's input contract)."""
     return (
         torch.where(hit_mask, tins, torch.full_like(tins, _BIG)),
         torch.where(hit_mask, touts, torch.full_like(touts, -1)),
@@ -76,29 +77,50 @@ def _scores_sort(tins, touts, hit_mask):
     return torch.gather(running, 1, back)[:, :w]
 
 
+def _scores_count(tins, touts, hit_mask):
+    """The kernel's counting form in plain torch: per row, the hit lanes'
+    tins and touts sorted (non-hit lanes pushed past every query), then
+    score_i = #{tin_j <= q} - #{tout_j <= q} for q = tin_i, 0 at non-hit
+    lanes. Needs tin_j <= tout_j at every hit lane (Euler intervals)."""
+    pad = torch.full_like(tins, 2**31 - 1)
+    st = torch.sort(torch.where(hit_mask, tins, pad), dim=1).values
+    so = torch.sort(torch.where(hit_mask, touts, pad), dim=1).values
+    q = tins.contiguous()
+    n = torch.searchsorted(st, q, right=True) - torch.searchsorted(so, q, right=True)
+    return torch.where(hit_mask, n.to(torch.int32), torch.zeros_like(q))
+
+
 def scores(tins: torch.Tensor, touts: torch.Tensor, hit_mask: torch.Tensor) -> torch.Tensor:
-    """Interval-stabbing score per lane, int32 [B, W] (garbage at non-hit
-    lanes, which the caller masks). CUDA tensors launch the kernel."""
+    """Interval-stabbing score per lane, int32 [B, W], 0 at non-hit lanes.
+    CUDA tensors launch the kernel, which reads tins/touts at their strides
+    (equal for both, e.g. the two halves of a [B, W, 2] gather) and the
+    mask as a contiguous bool [B, W]."""
     if tins.device.type == "cpu":
         return _scores_plain(tins, touts, hit_mask)
-    tins, touts = _sentinel_mask(tins, touts, hit_mask)
-    tins, touts = tins.contiguous(), touts.contiguous()
-    dev = _kernels.check_cuda("scores", tins=tins, touts=touts)
+    dev = _kernels.check_cuda("scores", hit_mask=hit_mask)
+    if tins.device != dev or touts.device != dev:
+        raise ValueError("scores: tins, touts and hit_mask must be on one device")
     if tins.dtype != torch.int32 or touts.dtype != torch.int32 or tins.dim() != 2:
         raise TypeError("scores: tins/touts must be int32 [B, W]")
-    if tins.shape != touts.shape:
-        raise ValueError(f"scores: shapes {tuple(tins.shape)} != {tuple(touts.shape)}")
+    if hit_mask.dtype != torch.bool:
+        raise TypeError("scores: hit_mask must be bool")
+    if tins.shape != touts.shape or tins.shape != hit_mask.shape:
+        raise ValueError(
+            f"scores: shapes {tuple(tins.shape)}, {tuple(touts.shape)}, {tuple(hit_mask.shape)} differ"
+        )
+    if tins.stride() != touts.stride():
+        raise ValueError(f"scores: tins and touts strides {tins.stride()} != {touts.stride()}")
     b, w = tins.shape
+    rs, ls = tins.stride()
     out = torch.empty((b, w), dtype=torch.int32, device=dev)
-    _kernels.launch("scores", dev, tins, touts, out, b, w)
+    _kernels.launch("scores", dev, tins, touts, hit_mask, out, b, w, rs, ls)
     return out
 
 
 def resolve_reads(
     taxa_dense: torch.Tensor,  # int32 [B, W] dense/pool ids per k-mer (0 = no hit)
     hit_mask: torch.Tensor,  # bool [B, W]
-    tin: torch.Tensor,  # int32 [T]
-    tout: torch.Tensor,  # int32 [T]
+    io: torch.Tensor,  # int32 [T, 2]: (tin, tout) per id, built once per table
     parent: torch.Tensor,  # int32 [T] parent id (self for roots)
     root_dense: int,
     max_depth: int,
@@ -107,12 +129,10 @@ def resolve_reads(
     """The call per read, int32 [B] (0 = unclassified). `plain=True` takes
     the plain score form on any device (for holding the kernel against it)."""
     t = torch.where(hit_mask, taxa_dense, torch.zeros_like(taxa_dense)).long()
-    io = torch.stack([tin, tout], dim=1)  # [T, 2]
     rows = io[t]  # [B, W, 2]
     tins = rows[..., 0]
     touts = rows[..., 1]
-    score = (_scores_plain if plain else scores)(tins, touts, hit_mask)
-    score = torch.where(hit_mask, score, torch.zeros_like(score))
+    score = (_scores_plain if plain else scores)(tins, touts, hit_mask)  # 0 at non-hit lanes
 
     max_score = score.max(dim=1).values  # [B]
     classified = max_score > 0

@@ -54,7 +54,8 @@ def test_step_matches_jax(dbs, quick, min_hits):
         k=jc.k, max_depth=jc._cfg.max_depth, hll_p=jc._cfg.hll_p, quick=quick, min_hits=min_hits
     )
     got = classify_step_core(
-        planes, t(jc._taxid_table, np.int32), t(jc._tin, np.int32), t(jc._tout, np.int32),
+        planes, t(jc._taxid_table, np.int32),
+        torch.stack([t(jc._tin, np.int32), t(jc._tout, np.int32)], dim=1),
         t(jc._parent, np.int32), int(jc._root_dense),
         torch.from_numpy(enc.codes), torch.from_numpy(enc.ambig), torch.from_numpy(enc.lengths),
         cfg,

@@ -112,3 +112,45 @@ def test_kmer_front_plain_matches_jax_front(rng, k, p):
         e.numpy().view(np.uint32), np.asarray(jds.encode_hash_device(jh, p))
     )
     np.testing.assert_array_equal(a.numpy(), np.asarray(jops.window_any(jnp.asarray(enc.ambig), k)))
+
+
+def _front_case(rng, lb):
+    """Random codes with ~3% N (code 0, flagged) and per-row padding."""
+    b = 12
+    codes = rng.integers(0, 4, size=(b, lb), dtype=np.uint8)
+    ambig = rng.random((b, lb)) < 0.03
+    pad = np.arange(lb)[None, :] >= rng.integers(0, lb + 1, size=b)[:, None]
+    ambig |= pad
+    codes[ambig] = 0
+    return codes, ambig
+
+
+@pytest.mark.parametrize("lb", [37, 160, 161])
+def test_pack_input_round_trips_through_jax_unpack_input(rng, lb):
+    """The kernel's packed layout is encode_unit_packed's: the reference's
+    unpack_input reads `pack_input`'s words back to the codes and flags."""
+    codes, ambig = _front_case(rng, lb)
+    cp, ap = tds.pack_input(torch.from_numpy(codes), torch.from_numpy(ambig))
+    uc, ua = jds.unpack_input(jnp.asarray(cp.numpy().view(np.uint32)), jnp.asarray(ap.numpy().view(np.uint32)))
+    uc, ua = np.asarray(uc), np.asarray(ua)
+    np.testing.assert_array_equal(uc[:, :lb], codes)
+    np.testing.assert_array_equal(ua[:, :lb], ambig)
+    assert not uc[:, lb:].any() and not ua[:, lb:].any()
+
+
+@pytest.mark.parametrize("k,lb", [(21, 37), (21, 160), (21, 161), (31, 37), (31, 160), (31, 161)])
+def test_kmer_front_packed_matches_plain_and_jax(rng, k, lb):
+    """The kernel's algorithm from packed words (funnel-shift windows,
+    complement by inversion, forward k-mer by 2-bit reversal) equals
+    `kmer_front_plain` and the JAX front."""
+    codes, ambig = _front_case(rng, lb)
+    p = 14 if k == 21 else 12
+    ct, at = torch.from_numpy(codes), torch.from_numpy(ambig)
+    got = tds.kmer_front_packed(*tds.pack_input(ct, at), lb, k, p)
+    for g, w in zip(got, tds.kmer_front_plain(ct, at, k, p)):
+        assert torch.equal(g, w)
+    canon = jops.canonical_representation(jops.pack_windows(jnp.asarray(codes), k), k)
+    jh = jds.murmur3_finalizer_device(canon)
+    np.testing.assert_array_equal(_u64(got[0]), np.asarray(jh))
+    np.testing.assert_array_equal(got[1].numpy().view(np.uint32), np.asarray(jds.encode_hash_device(jh, p)))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jops.window_any(jnp.asarray(ambig), k)))

@@ -1,6 +1,6 @@
 """The port's tree resolution (krakenuniq_tpu_torch.taxonomy.resolve) against
-the JAX package: the plain all-pairs and event-sort score forms against the
-Pallas kernel (interpret mode) and the JAX sort form, exactly as
+the JAX package: the plain all-pairs, event-sort and counting score forms
+against the Pallas kernel (interpret mode) and the JAX sort form, exactly as
 tests/test_resolve_pallas.py runs them, and `resolve_reads` against the JAX
 `resolve_reads` on the golden pool tables and on a disconnected taxonomy."""
 
@@ -45,10 +45,44 @@ def test_scores_all_miss():
     z = np.zeros((b, w), np.int32)
     hm = np.zeros((b, w), bool)
     want = _masked(JR._scores_pallas(jnp.asarray(z), jnp.asarray(z), jnp.asarray(hm), interpret=True), hm)
-    for fn in (TR._scores_plain, TR._scores_sort):
+    for fn in (TR._scores_plain, TR._scores_sort, TR._scores_count):
         got = fn(torch.from_numpy(z), torch.from_numpy(z), torch.from_numpy(hm))
         np.testing.assert_array_equal(_masked(got, hm), want)
         assert (_masked(got, hm) == 0).all()
+
+
+def _score_case(trial, b, w, hit_rate=0.7):
+    rng = np.random.default_rng(trial)
+    tins = rng.integers(0, 5000, size=(b, w)).astype(np.int32)
+    touts = (tins + rng.integers(1, 2500, size=(b, w))).astype(np.int32)
+    return tins, touts, rng.random((b, w)) < hit_rate
+
+
+@pytest.mark.parametrize(
+    "trial,b,w,hit_rate",
+    [(0, 67, 30, 0.7), (1, 64, 130, 0.7), (2, 5, 7, 0.7), (3, 8, 33, 0.0), (4, 3, 1030, 0.7)],
+    ids=["67x30", "64x130", "5x7", "all-miss", "W>1024"],
+)
+def test_scores_count_matches_pallas_and_sort(trial, b, w, hit_rate):
+    """The kernel's counting form (sorted tins/touts, two searches per
+    query, 0 at non-hit lanes) equals the Pallas kernel and the JAX sort
+    form at every hit lane and is 0 elsewhere."""
+    tins, touts, hit = _score_case(trial, b, w, hit_rate)
+    jt, jo, jh = jnp.asarray(tins), jnp.asarray(touts), jnp.asarray(hit)
+    want = _masked(JR._scores_pallas(jt, jo, jh, interpret=True), hit)
+    np.testing.assert_array_equal(want, _masked(JR._scores_sort(jt, jo, jh), hit))
+    got = TR._scores_count(torch.from_numpy(tins), torch.from_numpy(touts), torch.from_numpy(hit)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_scores_strided_halves_of_io_gather():
+    """The CPU path of `scores` takes the two strided halves of the
+    [B, W, 2] gather that resolve_reads hands it, as the kernel does."""
+    tins, touts, hit = _score_case(5, 16, 40)
+    io = torch.from_numpy(np.stack([tins, touts], axis=2))
+    got = TR.scores(io[..., 0], io[..., 1], torch.from_numpy(hit)).numpy()
+    want = TR._scores_count(torch.from_numpy(tins), torch.from_numpy(touts), torch.from_numpy(hit)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def _resolve_both(taxa, hit, tin, tout, parent, root, depth):
@@ -60,9 +94,8 @@ def _resolve_both(taxa, hit, tin, tout, parent, root, depth):
     )
     t = torch.from_numpy
     for plain in (False, True):
-        got = TR.resolve_reads(
-            t(taxa), t(hit), t(tin), t(tout), t(parent), root, depth, plain=plain
-        ).numpy()
+        io = torch.stack([t(np.asarray(tin, np.int32)), t(np.asarray(tout, np.int32))], dim=1)
+        got = TR.resolve_reads(t(taxa), t(hit), io, t(parent), root, depth, plain=plain).numpy()
         np.testing.assert_array_equal(got, want)
     return want
 
