@@ -16,10 +16,14 @@ Phases, each raising on failure:
      integer (tolerance 0: every output is an integer or a bool), at the
      span and unit shapes and the shapes of the JAX package's kernel tools,
      with scores' edge rows (all-miss, all-hit, W = 1025 and 2018, a
-     tout < tin hit in every row) and kmer_front's (k = 21, LB = 161, rows
-     of length 0, k - 1 and k); each
+     tout < tin hit in every row), kmer_front's (k = 21, LB = 161, rows
+     of length 0, k - 1 and k), chd_probe on random planes of the phase-4
+     table's size (1.14 GB, no database build: 8.5M uniform queries and a
+     zipf unit) and hll_regmax's (one hot slot, one hot row, pre-filled
+     registers, p = 4 and 18, every flagged stored value); each
      check times the wrapper call (`ms`, CUDA events, host launch path
-     included) and the kernel alone (`device_ms`, torch.profiler);
+     included) and the kernel alone (`device_ms`, torch.profiler), and
+     each chd_probe check the one-level random-row floor (`floor_ms`);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair, with
@@ -237,11 +241,13 @@ def counts_bound(n: int, t: int) -> dict:
     return bound(5 * n + 16 * t, 4 * n)
 
 
-def regmax_bound(lanes, reg) -> dict:
-    """A taxon, an encoding (4 B each) and a lane byte in per lane; the u8
-    register plane read and written once; ~16 operations per counted lane
-    (rank decode, slot, compare)."""
-    return bound(9 * lanes.numel() + 2 * reg.numel(), 16 * float(lanes.sum()))
+def regmax_bound(lanes, slots) -> dict:
+    """A taxon, an encoding (4 B each) and a lane byte in per lane; each
+    register the counted lanes touch (`slots`, flat indices) read and
+    written once; ~16 operations per counted lane (rank decode, slot,
+    compare)."""
+    touched = int(slots.unique().numel())
+    return bound(9 * lanes.numel() + 2 * touched, 16 * float(lanes.sum()))
 
 
 def gather_bound(n: int, row_bytes: int) -> dict:
@@ -353,12 +359,59 @@ def phase_kernels(k: int):
     return phase_gather_kernel()
 
 
-def phase_probe_kernel():
-    """chd_probe at the unit shape on a random 16 MB table (its launch path;
-    phase 4 checks it on the full-size table)."""
+def probe_floor(rows, n_valid: int, seed: int) -> dict:
+    """floor_ms: the row_gather kernel's device_ms for n_valid random 16 B
+    rows of the same row plane (S = 16 copies in flight, 16 loads per lane,
+    so even a unit's queries fill the card): the one-level random-sector
+    rate that the two-level probe is judged against."""
     import torch
 
-    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+    from krakenuniq_tpu_torch.tools.probe_gather import row_gather
+
+    gen = torch.Generator(device=rows.device).manual_seed(seed)
+    q = torch.randint(0, rows.shape[0], (n_valid,), dtype=torch.int32, device=rows.device, generator=gen)
+    return {"floor_ms": device_ms(lambda: row_gather(rows, q, 16, 16), "row_gather", 10)}
+
+
+def plant_hits(planes, h, seed: int):
+    """Store each query of `h` in slot 0 of its CHD row with a random value
+    in [1, 2^min(lr, 20)), so the probe's match path runs on random planes;
+    returns the values (a later query wins a row that two share)."""
+    import torch
+
+    from krakenuniq_tpu_torch.db.hash_table import C2, GOLDEN
+    from krakenuniq_tpu_torch.ints import i32_to_u32, lsr, s64, u32_to_i32
+    from krakenuniq_tpu_torch.lookup.hash_lookup import _chd_widths
+
+    disp4, rows = planes
+    lr, lg = _chd_widths(disp4, rows)
+    r = h & ((1 << (64 - lr)) - 1)
+    d = i32_to_u32(disp4.reshape(-1)[lsr(r * s64(int(GOLDEN)), 64 - lg)])
+    row = (lsr(h, 64 - lr) + (d & 0xFFFF) + (d >> 16) * lsr(r * s64(int(C2)), 64 - lr)) & ((1 << lr) - 1)
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    vals = torch.randint(1, 1 << min(lr, 20), h.shape, dtype=torch.int64, device=h.device, generator=gen)
+    rows[row, 0] = u32_to_i32(r >> (32 - lr))
+    rows[row, 1] = u32_to_i32(((r & ((1 << (32 - lr)) - 1)) << lr) | vals)
+    return vals
+
+
+def random_hashes(n: int, gen):
+    """n uniformly random int64 hashes (uint64 bit patterns) on gen's device."""
+    import torch
+
+    hi, lo = (torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32, device=gen.device, generator=gen)
+              for _ in range(2))
+    return (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+
+
+def phase_probe_kernel():
+    """chd_probe on a random 16 MB table at the unit shape (it fits the L2),
+    and on random planes of the phase-4 table's size (lr = 26, lg = 24,
+    1.14 GB, built on the card): 8,500,000 uniform hashes with ~1% invalid
+    lanes, half of them planted in the table, and the unit shape [4096, 130]
+    drawn zipf-1.5 from 10M distinct hashes, half of them planted (the reuse
+    of real reads). Each record carries floor_ms (probe_floor)."""
+    import torch
 
     rng = np.random.default_rng(13)
     t = lambda a: torch.from_numpy(a).cuda()
@@ -366,12 +419,42 @@ def phase_probe_kernel():
     planes = (t(word(1 << 16)), t(word(1 << 20)))  # displacement words, 2^20 rows of 16 B
     h = t(rng.integers(0, 1 << 64, size=(4096, 130), dtype=np.uint64).view(np.int64))
     valid = t(rng.random((4096, 130)) < 0.9)
+    probe_case("chd_probe 16 MB table", planes, h, valid, 20)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rand_i32 = lambda *shape: torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device="cuda",
+                                            generator=gen)
+    planes = (rand_i32(1 << 22, 4), rand_i32(1 << 26, 4))
+    n = 8_500_000
+    h = random_hashes(n, gen)
+    valid = torch.rand(n, device="cuda", generator=gen) >= 0.01
+    vals = plant_hits(planes, h[: n // 2], 19)
+    got = probe_case("chd_probe 1 GiB table", planes, h, valid, 10)[: n // 2]
+    ok = valid[: n // 2]
+    if float((got[ok] == vals[ok]).float().mean()) < 0.9:
+        raise AssertionError("chd_probe 1 GiB table: planted keys did not return their values")
+    pool = torch.unique(random_hashes(10_000_000, gen))
+    plant_hits(planes, pool[: pool.numel() // 2], 23)
+    pick = torch.from_numpy(rng.zipf(1.5, size=4096 * 130) % pool.numel()).cuda()
+    hz = pool[pick].reshape(4096, 130)
+    vz = torch.rand((4096, 130), device="cuda", generator=gen) < 0.9
+    probe_case("chd_probe 1 GiB table zipf", planes, hz, vz, 20)
+    del planes, h, valid, vals, got, pool, hz
+    torch.cuda.empty_cache()
+
+
+def probe_case(name, planes, h, valid, reps):
+    """chd_probe against its plain version (check_kernel) with floor_ms;
+    returns the kernel's output."""
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+
     check_kernel(
-        "chd_probe 16 MB table", (4096, 130),
+        name, tuple(h.shape),
         lambda: (hash_lookup_kmers(planes, h, valid),),
         lambda: (hash_lookup_plain(planes, h, valid),),
-        reps=20, bound=probe_bound(valid),
+        reps=reps, bound=probe_bound(valid), extra=probe_floor(planes[1], int(valid.sum()), 29),
     )
+    return hash_lookup_kmers(planes, h.reshape(-1), valid.reshape(-1))
 
 
 def counts_check(ids, mask, t: int, reps: int, label: str = ""):
@@ -392,14 +475,25 @@ def counts_check(ids, mask, t: int, reps: int, label: str = ""):
 
 
 def regmax_check(reg0, taxa, enc, lanes, lut, p: int, reps: int, label: str = ""):
-    """hll_regmax into a copy of reg0 (the copy is part of both timings)."""
-    from krakenuniq_tpu_torch.classify.device_counters import hll_regmax, hll_regmax_plain
+    """hll_regmax into a copy of reg0 (the copy is part of every timing).
+    library_ms is the scatter-max stage alone: one scatter_reduce_ ("amax")
+    of precomputed int64 slots and uint8 ranks into the copy."""
+    import torch
 
+    from krakenuniq_tpu_torch.classify.device_counters import hll_ranks, hll_regmax, hll_regmax_plain
+
+    sel = lanes.reshape(-1)
+    rows = taxa.reshape(-1)[sel].long()
+    if lut is not None:
+        rows = lut[rows].long()
+    idx, rank = hll_ranks(enc.reshape(-1)[sel], p)
+    slot, rank = rows * reg0.shape[1] + idx, rank.to(torch.uint8)
     return check_kernel(
         "hll_regmax" + label, (taxa.numel(), reg0.shape[0], reg0.shape[1]),
         lambda: (hll_regmax(reg0.clone(), taxa, enc, lanes, lut, p),),
         lambda: (hll_regmax_plain(reg0.clone(), taxa, enc, lanes, lut, p),),
-        reps=reps, bound=regmax_bound(lanes, reg0),
+        reps=reps, bound=regmax_bound(lanes, slot),
+        library=lambda: reg0.clone().view(-1).scatter_reduce_(0, slot, rank, reduce="amax"),
     )
 
 
@@ -407,7 +501,11 @@ def phase_counter_kernels(p: int = 12):
     """taxon_counts at one unit's lanes over the 503-id pool, at
     counts_mxu_exp's shape (8,520,000 zipf-1.5 ids, T = 504) and over the
     dense 2,400,503-id space; hll_regmax at one unit's planes and at 8.5M
-    lanes (P = 503, m = 4096), as rows = ids and through a lut."""
+    lanes (P = 503, m = 4096), as rows = ids and through a lut, and at the
+    unit shape on its edge cases: one hot slot (every lane one row and one
+    index), one hot row (every lane one taxon), registers pre-filled with
+    0-40, p = 4 and p = 18, and flagged encodings with every stored value
+    0-63."""
     import torch
 
     from krakenuniq_tpu_torch.utils.bits import encode_hash_32
@@ -419,19 +517,34 @@ def phase_counter_kernels(p: int = 12):
         ids = (rng.zipf(1.5, size=n) % n_ids) if zipf else rng.integers(0, n_ids, size=n)
         counts_check(t(ids.astype(np.int32)), t(rng.random(n) < 0.9), n_ids, reps=20)
     pool = 503
+    encode = lambda n, pp: t(encode_hash_32(rng.integers(0, 1 << 64, size=n, dtype=np.uint64), pp).view(np.int32))
+    zeros = lambda pp: torch.zeros((pool, 1 << pp), dtype=torch.uint8, device="cuda")
     for n in (4096 * 130, 8_520_000):
         taxa = t((rng.zipf(1.5, size=n) % pool).astype(np.int32))
-        enc = t(encode_hash_32(rng.integers(0, 1 << 64, size=n, dtype=np.uint64), p).view(np.int32))
+        enc = encode(n, p)
         lanes = t(rng.random(n) < 0.9)
-        reg0 = torch.zeros((pool, 1 << p), dtype=torch.uint8, device="cuda")
-        regmax_check(reg0, taxa, enc, lanes, None, p, reps=20)
+        regmax_check(zeros(p), taxa, enc, lanes, None, p, reps=20)
     # through a lut: the pool's rows spread over a 2.4M-id space
     ids = np.sort(rng.choice(PAD_NODES + 503, pool, replace=False))
     ids[0] = 0
     lut = np.zeros(PAD_NODES + 503, np.int32)
     lut[ids] = np.arange(pool, dtype=np.int32)
-    taxa = t(ids[rng.zipf(1.5, size=4096 * 130) % pool].astype(np.int32))
-    regmax_check(reg0, taxa, enc[: 4096 * 130], lanes[: 4096 * 130], t(lut), p, reps=20, label=" lut")
+    u = 4096 * 130
+    taxa = t(ids[rng.zipf(1.5, size=u) % pool].astype(np.int32))
+    enc, lanes = enc[:u], lanes[:u]
+    regmax_check(zeros(p), taxa, enc, lanes, t(lut), p, reps=20, label=" lut")
+    # edge cases at the unit shape
+    taxa = t((rng.zipf(1.5, size=u) % pool).astype(np.int32))
+    hot = torch.full_like(taxa, 7)
+    regmax_check(zeros(p), hot, torch.full_like(enc, int(enc[0])), lanes, None, p, reps=10, label=" hot slot")
+    regmax_check(zeros(p), hot, enc, lanes, None, p, reps=10, label=" hot row")
+    filled = t(rng.integers(0, 41, size=(pool, 1 << p), dtype=np.uint8))
+    regmax_check(filled, taxa, enc, lanes, None, p, reps=10, label=" pre-filled")
+    for pp in (4, 18):
+        regmax_check(zeros(pp), taxa, encode(u, pp), lanes, None, pp, reps=10, label=f" p={pp}")
+    stored = np.arange(u, dtype=np.uint32) % 64
+    flagged = (rng.integers(0, 1 << 25, size=u, dtype=np.uint32) << 7) | (stored << 1) | 1
+    regmax_check(zeros(p), taxa, t(flagged.view(np.int32)), lanes, None, p, reps=10, label=" flag values")
 
 
 def phase_gather_kernel(depth: int = 16):
@@ -480,7 +593,7 @@ def probe_check(db, keys, n_queries=8_500_000, seed=5):
         "chd_probe", (n_queries,),
         lambda: (hash_lookup_kmers(planes, h, valid),),
         lambda: (hash_lookup_plain(planes, h, valid),),
-        reps=10, bound=probe_bound(valid),
+        reps=10, bound=probe_bound(valid), extra=probe_floor(planes[1], int(valid.sum()), 29),
     )
     got = hash_lookup_kmers(planes, h, valid)[:half].cpu().numpy()
     vd = db.vals_dense[pick]
@@ -663,7 +776,7 @@ def phase_main(reps: int):
         "chd_probe", (b, w),
         lambda: (hash_lookup_kmers(planes, hashes, search),),
         lambda: (hash_lookup_plain(planes, hashes, search),),
-        reps=reps, bound=probe_bound(search),
+        reps=reps, bound=probe_bound(search), extra=probe_floor(planes[1], int(search.sum()), 29),
     )
     t_dense = out_k["taxa_dense"].long()
     hit = t_dense != 0
@@ -886,6 +999,7 @@ def main(argv=None) -> int:
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
+            **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {}),
         })
     emit({"kernels": rows})
     print(card)

@@ -152,7 +152,7 @@ class DeviceCounters:
         pool_dense: np.ndarray | None = None,
         sparse_cap: int = 1 << 17,
         host_stats: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         """pool_dense: the dense taxon ids that can ever be COUNTED -- the
         distinct database values (misses count under 0). None: register rows
@@ -160,7 +160,9 @@ class DeviceCounters:
         slots for the sparse-exact stats (0 = estimate-compat only).
         host_stats: keep the sparse-regime tracking but compute the stats on
         the HOST from the fetched planes -- still bit-exact, used when ids
-        exceed the device packing's 2^TAXON_BITS taxon field."""
+        exceed the device packing's 2^TAXON_BITS taxon field. device: where
+        the state lives, the card unless the caller asks for the CPU (the
+        Classifier passes its own device)."""
         self.p = p
         self.m = 1 << p
         self.n_taxa = n_taxa

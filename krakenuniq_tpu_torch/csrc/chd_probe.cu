@@ -14,14 +14,29 @@
 // where `valid` is false.
 //
 // Bound on the H100: random 32-byte sectors. Each valid query makes two
-// dependent reads at random addresses of a table far larger than the 50 MB
-// L2 (4 bytes of the displacement plane, then one 16-byte row), so device
-// memory serves two sectors per query whatever the byte count.
+// dependent reads at random addresses: 4 bytes of the displacement plane,
+// then one 16-byte row. At full size (lr = 26, lg = 24) the row plane is
+// 1.07 GB and the displacement plane 64 MB, itself larger than the 50 MB L2,
+// so device memory serves one row sector per query plus the displacement
+// sectors the L2 misses. The floor is the one-level random-row rate
+// (chip_smoke.py's floor_ms: the row_gather kernel on the same row plane).
 //
-// Design: one thread per query, the row read as one 16-byte vector load
-// (uint4) so a query touches exactly one sector of the row plane; the
-// displacement word and the row go through the read-only path (__ldg).
-// Invalid lanes skip both reads.
+// Design: a thread takes Q = 4 consecutive queries. Their hashes come in
+// as two 16-byte vectors and their flags as one 4-byte word; the thread
+// issues all Q displacement loads, then all Q row loads, so 2Q loads of a
+// thread are in flight at once, and writes the Q values as one 16-byte
+// store. When the row plane is larger than the card's L2, the rows go
+// through ld.global.cs (__ldcs: evict-first in L1 and L2): such a row is
+// seldom read again, and marking it first to go leaves the L2 to the
+// displacement plane, which is. A row plane that fits the L2 is re-read,
+// and its rows keep the default priority (__ldg). The displacement words
+// go through the read-only path (__ldg) with the default priority: on the
+// card, an L2 evict_last policy on them (createpolicy, fractions 0.5-1.0),
+// ld.global.cg and L1::no_allocate all measured slower, and
+// L1::no_allocate on the rows lost the L1 reuse of repeated k-mers
+// (PERF.md). A ragged end, or operands not aligned for the vector
+// accesses, take the same path with scalar loads and stores. Invalid lanes
+// skip both reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,33 +44,72 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kQ = 4;  // queries per thread
 constexpr uint64_t kGolden = 0x9E3779B97F4A7C15ull;
 constexpr uint64_t kC2 = 0xC2B2AE3D27D4EB4Full;
 
+template <bool kStreamRows>
 __global__ void __launch_bounds__(kThreads)
 chd_probe_kernel(const uint32_t* __restrict__ disp, const uint4* __restrict__ rows,
                  const uint64_t* __restrict__ hashes, const uint8_t* __restrict__ valid,
                  uint32_t* __restrict__ out, long long n, int lr, int lg) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    out[i] = 0;
-    return;
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+  if (i0 >= n) return;
+  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
+                   !((uintptr_t)valid & 3);
+  uint64_t h[kQ];
+  bool v[kQ];
+  if (vec) {
+    const ulonglong2 h01 = reinterpret_cast<const ulonglong2*>(hashes + i0)[0];
+    const ulonglong2 h23 = reinterpret_cast<const ulonglong2*>(hashes + i0)[1];
+    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
+    h[0] = h01.x;
+    h[1] = h01.y;
+    h[2] = h23.x;
+    h[3] = h23.y;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) v[j] = (flags >> (8 * j)) & 0xFFu;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      v[j] = i0 + j < n && valid[i0 + j];
+      h[j] = v[j] ? hashes[i0 + j] : 0;
+    }
   }
-  const uint64_t h = hashes[i];
-  const uint32_t p = (uint32_t)(h >> (64 - lr));
-  const uint64_t r = h & ((1ull << (64 - lr)) - 1);
-  const uint32_t g = (uint32_t)((r * kGolden) >> (64 - lg));
-  const uint32_t q = (uint32_t)((r * kC2) >> (64 - lr));
-  const uint32_t d = __ldg(disp + g);
+  const uint64_t r_mask = (1ull << (64 - lr)) - 1;
+  uint32_t d[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint32_t g = (uint32_t)(((h[j] & r_mask) * kGolden) >> (64 - lg));
+    d[j] = v[j] ? __ldg(disp + g) : 0u;
+  }
   const uint32_t v_mask = (1u << lr) - 1;
-  const uint32_t row = (p + (d & 0xFFFFu) + (d >> 16) * q) & v_mask;
-  const uint4 rw = __ldg(rows + row);
-  const uint32_t e_hi = (uint32_t)(r >> (32 - lr));
-  const uint32_t e_lo = (uint32_t)((r & ((1ull << (32 - lr)) - 1)) << lr);
-  const uint32_t v0 = (rw.x == e_hi && (rw.y & ~v_mask) == e_lo) ? (rw.y & v_mask) : 0u;
-  const uint32_t v1 = (rw.z == e_hi && (rw.w & ~v_mask) == e_lo) ? (rw.w & v_mask) : 0u;
-  out[i] = v0 > v1 ? v0 : v1;
+  uint4 rw[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint32_t p = (uint32_t)(h[j] >> (64 - lr));
+    const uint32_t q = (uint32_t)(((h[j] & r_mask) * kC2) >> (64 - lr));
+    const uint32_t row = (p + (d[j] & 0xFFFFu) + (d[j] >> 16) * q) & v_mask;
+    const uint4* at = rows + row;
+    rw[j] = !v[j] ? make_uint4(0u, 0u, 0u, 0u) : kStreamRows ? __ldcs(at) : __ldg(at);
+  }
+  uint32_t res[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint64_t r = h[j] & r_mask;
+    const uint32_t e_hi = (uint32_t)(r >> (32 - lr));
+    const uint32_t e_lo = (uint32_t)((r & ((1ull << (32 - lr)) - 1)) << lr);
+    const uint32_t v0 = (rw[j].x == e_hi && (rw[j].y & ~v_mask) == e_lo) ? (rw[j].y & v_mask) : 0u;
+    const uint32_t v1 = (rw[j].z == e_hi && (rw[j].w & ~v_mask) == e_lo) ? (rw[j].w & v_mask) : 0u;
+    res[j] = v[j] ? (v0 > v1 ? v0 : v1) : 0u;
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(out + i0) = make_uint4(res[0], res[1], res[2], res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (i0 + j < n) out[i0 + j] = res[j];
+  }
 }
 
 }  // namespace
@@ -64,8 +118,14 @@ extern "C" int kuniq_chd_probe(const void* disp, const void* rows, const void* h
                                const void* valid, void* out, long long n, int lr, int lg,
                                void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const long long grid = (n + kThreads - 1) / kThreads;
-  chd_probe_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+  int dev = 0, l2_bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
+  const auto kernel = (long long)sizeof(uint4) << lr > l2_bytes ? chd_probe_kernel<true>
+                                                                 : chd_probe_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)disp, (const uint4*)rows, (const uint64_t*)hashes,
       (const uint8_t*)valid, (uint32_t*)out, n, lr, lg);
   return (int)cudaGetLastError();

@@ -16,14 +16,28 @@
 //
 // Bound on the H100: bytes. Per lane a 4-byte taxon, a 4-byte encoding and
 // a 1-byte flag are read; the register plane is read and written once. The
-// arithmetic is a few integer operations per lane.
+// arithmetic is a few integer operations per lane. Under zipf-skewed taxa
+// the work is not spread over the plane: a third of the lanes can fall in
+// one 4 KB register row (p = 12), so their reads and atomics queue on the
+// few L2 slices that hold it.
 //
 // Design: one thread per lane. The registers are bytes and the card has no
-// byte atomics, so each update is a compare-and-swap loop on the aligned
-// 32-bit word that holds the byte. Registers only grow, so a plain read that
-// already shows a value >= rank ends the update without an atomic: once a
-// taxon's registers fill up most lanes cost no atomic at all. Taxa outside
-// the lut and rows outside [0, P) are skipped, so no access leaves its plane.
+// byte atomics, so an update is a compare-and-swap loop on the aligned
+// 32-bit word that holds the byte (want = __vmaxu4(old, rank << shift)).
+// Before any atomic, a pre-check reads the word through L1 (ld.global.ca,
+// __ldca) and stops when the byte already holds >= rank. This is exact
+// although L1 is not coherent with other SMs' atomics: registers only
+// grow, so any value the word ever held, stale or not, is a lower bound of
+// its current value. A stale read can only send a lane on to the CAS, whose
+// returned value is the current word and ends the loop once it is >= rank;
+// it can never skip a needed update. So the hot row's pre-checks are
+// served from each SM's L1 instead of all queueing on the same L2 lines.
+// Measured on the card (PERF.md) and not kept: warp aggregation
+// (__match_any_sync on the word, byte maxima combined, one CAS per word per
+// warp) costs more in the match than it saves except when one slot takes
+// every lane; several lanes per thread with 16-byte loads; a block's hot
+// row privatised in shared memory. Taxa outside the lut and rows outside
+// [0, P) are skipped, so no access leaves its plane.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,12 +48,13 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ void byte_max(uint8_t* reg, long long slot, unsigned rank) {
   unsigned* word = reinterpret_cast<unsigned*>(reg + (slot & ~3LL));
-  const int shift = (int)(slot & 3) * 8;
-  unsigned old = *reinterpret_cast<volatile unsigned*>(word);
-  while (((old >> shift) & 0xFFu) < rank) {
-    const unsigned want = (old & ~(0xFFu << shift)) | (rank << shift);
+  const unsigned packed = rank << ((int)(slot & 3) * 8);
+  unsigned old = __ldca(word);  // a lower bound of the word (see above)
+  while (true) {
+    const unsigned want = __vmaxu4(old, packed);
+    if (want == old) return;
     const unsigned prev = atomicCAS(word, old, want);
-    if (prev == old) break;
+    if (prev == old) return;
     old = prev;
   }
 }

@@ -14,8 +14,6 @@ runs `probe_chd_plain`, the plain PyTorch version, on CPU tensors.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .. import _kernels
@@ -33,15 +31,18 @@ def _chd_widths(disp4: torch.Tensor, rows: torch.Tensor) -> tuple[int, int]:
             "only the CHD (disp4, rows) table layout is ported; the fused and "
             "two-level layouts belong to a later slice of the port"
         )
-    lr = int(rows.shape[0]).bit_length() - 1
-    lg = int(math.log2(disp4.shape[0] * 4))
-    return lr, lg
+    n_disp, n_rows = int(disp4.shape[0]) * 4, int(rows.shape[0])
+    if n_disp & (n_disp - 1) or n_rows & (n_rows - 1) or n_rows == 0:
+        raise ValueError(
+            f"chd_probe: {n_disp} displacement words and {n_rows} rows must be powers of two"
+        )
+    return n_rows.bit_length() - 1, n_disp.bit_length() - 1
 
 
 def probe_chd_plain(disp4, rows, h, lr: int):
     """Plain PyTorch CHD probe (krakenuniq_tpu.lookup.hash_lookup._probe_chd):
     returns (found bool [n], value int64 [n]) for int64 query hashes `h`."""
-    lg = int(math.log2(disp4.shape[0] * 4))
+    lg = _chd_widths(disp4, rows)[1]
     p = lsr(h, 64 - lr)
     r = h & ((1 << (64 - lr)) - 1)
     g = lsr(r * _GOLDEN, 64 - lg)
@@ -91,7 +92,7 @@ def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torc
         raise TypeError("chd_probe: table planes must be int32")
     if hashes.shape != valid.shape:
         raise ValueError(f"chd_probe: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
-    if not 4 <= lr <= 30 or rows.shape[0] != 1 << lr or rows.data_ptr() % 16:
+    if not 4 <= lr <= 30 or rows.data_ptr() % 16:
         raise ValueError("chd_probe: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
     out = torch.empty(hashes.shape, dtype=torch.int32, device=dev)
     _kernels.launch(

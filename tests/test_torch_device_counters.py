@@ -120,6 +120,96 @@ def test_update_core_matches_jax(layout):
         assert (got[0].numpy() > reg0).any(), "the update should raise some registers"
 
 
+# hll_regmax's edge cases, each run in the JAX update_core's register branches
+REGMAX_EDGES = ["hot_slot", "hot_row", "prefilled", "p4", "p18", "flag_values"]
+
+
+def _edge_layout(layout, p):
+    """(T ids, register pool size or None for rows = ids): each lands in its
+    JAX branch (sort_segmax needs P*m <= 2^22, lut P*m > 2^22)."""
+    m = 1 << p
+    return {
+        "identity": (60, None),
+        "sort_segmax": (300, min(40, (1 << 22) // m)),
+        "lut": (max(5000, (1 << 22) // m + 1000), (1 << 22) // m + 100),
+    }[layout]
+
+
+def _edge_inputs(case, rng, n_rows, p, shape=(24, 50)):
+    """(register rows per lane, enc, lanes, reg0) for one hll_regmax edge
+    case; rows index the register pool."""
+    m = 1 << p
+    rows = rng.integers(0, n_rows, size=shape)
+    enc = _encodings(rng, shape, p)
+    lanes = rng.random(shape) < 0.8
+    reg0 = np.zeros((n_rows, m), np.uint8)
+    if case in ("hot_slot", "hot_row"):
+        rows[:] = n_rows // 2
+    if case == "hot_slot":
+        enc[:] = enc.reshape(-1)[0]
+    if case == "prefilled":
+        reg0 = rng.integers(0, 41, size=(n_rows, m), dtype=np.uint8)
+    if case == "flag_values":
+        stored = (np.arange(enc.size, dtype=np.uint32) % 64).reshape(shape)
+        enc = (rng.integers(0, 1 << 25, size=shape, dtype=np.uint32) << np.uint32(7)) | (stored << np.uint32(1)) | 1
+    return rows, enc, lanes, reg0
+
+
+@pytest.mark.parametrize("case,layout", [
+    (c, lay) for c in REGMAX_EDGES for lay in ("identity", "sort_segmax", "lut")
+    if not (c == "flag_values" and lay == "sort_segmax")
+])
+def test_update_core_registers_edge_cases_match_jax(case, layout):
+    """update_core's register plane through the plain hll_regmax (plain=True)
+    against the JAX update_core on hll_regmax's edge cases: one hot slot,
+    one hot row, pre-filled registers, p = 4 and 18, and flagged encodings
+    with every stored value 0-63. The JAX sort_segmax branch packs the rank
+    in 6 bits of its sort key, which holds every rank a real encoding gives
+    (stored values <= 40) but not the ranks >= 64 of stored values past
+    63 - (25 - p), so flag_values runs only in the two scatter branches."""
+    p = {"p4": 4, "p18": 18}.get(case, 12)
+    t, n_pool = _edge_layout(layout, p)
+    rng = np.random.default_rng(REGMAX_EDGES.index(case) * 3 + ["identity", "sort_segmax", "lut"].index(layout))
+    identity = n_pool is None
+    pool = np.arange(t) if identity else np.unique(
+        np.concatenate([[0], rng.choice(np.arange(1, t), n_pool - 1, replace=False)]))
+    lut = np.zeros(t, np.int32)
+    lut[pool] = np.arange(len(pool), dtype=np.int32)
+    rows, enc, lanes, reg0 = _edge_inputs(case, rng, len(pool), p)
+    taxa = pool[rows].astype(np.int32)
+    b = taxa.shape[0]
+    zeros_t = np.zeros(t, np.int64)
+    call = np.zeros(b, np.int32)
+    row_valid = np.ones(b, bool)
+
+    want = JD.update_core(
+        jnp.asarray(reg0), jnp.asarray(zeros_t), jnp.asarray(zeros_t),
+        (jnp.asarray(pool.astype(np.int32)), jnp.asarray(lut)),
+        jnp.asarray(taxa), jnp.asarray(enc), jnp.asarray(lanes), jnp.asarray(call),
+        jnp.asarray(row_valid), p, None, 0, False, identity,
+    )
+    got = TD.update_core(
+        torch.from_numpy(reg0.copy()), torch.from_numpy(zeros_t.copy()), torch.from_numpy(zeros_t.copy()),
+        None if identity else torch.from_numpy(lut),
+        torch.from_numpy(taxa), torch.from_numpy(enc.view(np.int32)), torch.from_numpy(lanes),
+        torch.from_numpy(call), torch.from_numpy(row_valid), p, plain=True,
+    )
+    for name, g, w_ in zip(("registers", "kmer_counts", "read_counts"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=f"{case}/{layout}: {name}")
+    assert (got[0].numpy() > reg0).any(), "the update should raise some registers"
+
+
+def test_device_counters_default_to_the_card():
+    """DeviceCounters keeps its state on the card unless asked for the CPU;
+    the Classifier passes its own device."""
+    import inspect
+
+    assert inspect.signature(TD.DeviceCounters.__init__).parameters["device"].default == "cuda"
+    c = Classifier([DATA], ClassifyOptions(print_progress=False, device="cpu", device_counters=True))
+    dc = c.dev_counters
+    assert {dc.reg.device.type, dc.kmer_counts.device.type, dc.read_counts.device.type} == {"cpu"}
+
+
 def test_hll_ranks_match_decode_rank():
     rng = np.random.default_rng(5)
     for p in (4, 12, 14, 18):

@@ -12,11 +12,13 @@ import torch
 
 from krakenuniq_tpu.db.hash_table import build_hash_table as jax_build_hash_table
 from krakenuniq_tpu.lookup.hash_lookup import _probe_chd as jax_probe_chd
+from krakenuniq_tpu.lookup.hash_lookup import hash_lookup_kmers as jax_hash_lookup_kmers
 from krakenuniq_tpu_torch.db.device_db import device_db_from_host, load_database_dir
-from krakenuniq_tpu_torch.db.hash_table import build_hash_table
+from krakenuniq_tpu_torch.db.hash_table import C2, GOLDEN, build_hash_table
 from krakenuniq_tpu_torch.formats import read_kdb
 from krakenuniq_tpu_torch.lookup.hash_lookup import (
     hash_lookup_kmers,
+    hash_lookup_plain,
     probe_chd_plain,
 )
 from krakenuniq_tpu_torch.utils.bits import murmur3_finalizer
@@ -100,3 +102,85 @@ def test_demo_db_matches_jax_and_probes():
     host, lr = build_hash_table(keys, vals.astype(np.int32))
     db = device_db_from_host(host, lr, None, k=31, nt=9, device="cpu")
     np.testing.assert_array_equal(_lookup(db, keys), vals.astype(np.int32))
+
+
+# ------------------------------------------------------------- edge inputs
+
+
+def _chd_row_of(disp, h, lr, lg):
+    """(unwrapped row sum p + d0 + d1*q, row, r) of uint64 hashes `h` for a
+    uint32 displacement plane `disp` [2^lg], as db/hash_table.py places."""
+    r = h & np.uint64((1 << (64 - lr)) - 1)
+    g = (r * GOLDEN) >> np.uint64(64 - lg)
+    q = (r * C2) >> np.uint64(64 - lr)
+    d = disp[g.astype(np.int64)].astype(np.uint64)
+    raw = (h >> np.uint64(64 - lr)) + (d & np.uint64(0xFFFF)) + (d >> np.uint64(16)) * q
+    return raw, (raw & np.uint64((1 << lr) - 1)).astype(np.int64), r
+
+
+def _plant(disp, rows, h, lr, lg, vals):
+    """Store each hash in slot 0 of its row with its value (later ones win)."""
+    _, row, r = _chd_row_of(disp, h, lr, lg)
+    rows[row, 0] = (r >> np.uint64(32 - lr)).astype(np.uint32)
+    lo = (r & np.uint64((1 << (32 - lr)) - 1)) << np.uint64(lr)
+    rows[row, 1] = (lo | vals.astype(np.uint64)).astype(np.uint32)
+
+
+EDGE_PROBES = ["r0_empty", "all_invalid", "lr4", "wrap"]
+
+
+@pytest.mark.parametrize("case", EDGE_PROBES)
+def test_probe_edge_cases_match_jax(case):
+    """hash_lookup_plain (and probe_chd_plain's found flags) against the JAX
+    package's hash_lookup_kmers / _probe_chd on random planes: queries with
+    r == 0 against empty slots, every lane invalid, the smallest table
+    (lr = 4), and displacements large enough that p + d0 + d1*q wraps."""
+    rng = np.random.default_rng(EDGE_PROBES.index(case))
+    lr, lg = (4, 4) if case == "lr4" else (12, 10)
+    n = 3000
+    disp = rng.integers(0, 1 << 32, size=1 << lg, dtype=np.uint64).astype(np.uint32)
+    if case == "wrap":
+        disp |= np.uint32(0xFF00FF00)
+    rows = rng.integers(0, 1 << 32, size=(1 << lr, 4), dtype=np.uint64).astype(np.uint32)
+    h = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    if case == "r0_empty":
+        rows[::2] = 0  # every other row empty
+        h = (h >> np.uint64(64 - lr)) << np.uint64(64 - lr)  # r == 0
+    else:
+        _plant(disp, rows, h[: n // 2], lr, lg, rng.integers(1, 1 << lr, size=n // 2))
+    valid = np.zeros(n, bool) if case == "all_invalid" else rng.random(n) < 0.9
+    raw, _, _ = _chd_row_of(disp, h, lr, lg)
+    if case == "wrap":
+        assert (raw >= np.uint64(1 << lr)).mean() > 0.9, "the row sums should wrap"
+
+    disp4 = disp.reshape(-1, 4)
+    planes = (torch.from_numpy(disp4.view(np.int32)), torch.from_numpy(rows.view(np.int32)))
+    ht = torch.from_numpy(h.view(np.int64))
+    got = hash_lookup_plain(planes, ht, torch.from_numpy(valid)).numpy()
+    want = np.asarray(jax_hash_lookup_kmers(
+        (jnp.asarray(disp4), jnp.asarray(rows)), jnp.asarray(h), jnp.asarray(valid), lr
+    ))
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    found, val = probe_chd_plain(*planes, ht, lr)
+    j_found, j_val = jax_probe_chd(jnp.asarray(disp4), jnp.asarray(rows), jnp.asarray(h), lr)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(j_found))
+    np.testing.assert_array_equal(val.numpy(), np.asarray(j_val).astype(np.int64))
+    if case == "r0_empty":
+        assert found.numpy().any() and (got == 0).all()
+    elif case == "all_invalid":
+        assert found.numpy().any() and (got == 0).all()
+    else:
+        hits = (got[: n // 2][valid[: n // 2]] != 0).sum()
+        assert hits > 0.3 * min(n // 2, 1 << lr), "planted keys should hit"
+
+
+def test_lookup_refuses_planes_not_powers_of_two():
+    """The wrapper reads lr and lg from the plane shapes, so each plane must
+    hold a power of two of words or rows."""
+    h, v = torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool)
+    ok_disp, ok_rows = torch.zeros((4, 4), dtype=torch.int32), torch.zeros((16, 4), dtype=torch.int32)
+    for planes in ((torch.zeros((3, 4), dtype=torch.int32), ok_rows),
+                   (ok_disp, torch.zeros((24, 4), dtype=torch.int32))):
+        with pytest.raises(ValueError, match="powers of two"):
+            hash_lookup_kmers(planes, h, v)
+    assert (hash_lookup_kmers((ok_disp, ok_rows), h, v).numpy() == 0).all()
