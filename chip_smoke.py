@@ -19,11 +19,15 @@ Phases, each raising on failure:
      tout < tin hit in every row), kmer_front's (k = 21, LB = 161, rows
      of length 0, k - 1 and k), chd_probe on random planes of the phase-4
      table's size (1.14 GB, no database build: 8.5M uniform queries and a
-     zipf unit) and hll_regmax's (one hot slot, one hot row, pre-filled
-     registers, p = 4 and 18, every flagged stored value); each
+     zipf unit), hll_regmax's (one hot slot, one hot row, pre-filled
+     registers, p = 4 and 18, every flagged stored value) and taxon_counts'
+     (both counts of a unit in one launch, over the 503-id pool, over the
+     dense 2.4M-id space with zipf-skewed ids and over 58,112 and 58,113
+     ids, the edge of its shared-memory form); each
      check times the wrapper call (`ms`, CUDA events, host launch path
-     included) and the kernel alone (`device_ms`, torch.profiler), and
-     each chd_probe check the one-level random-row floor (`floor_ms`);
+     included) and the kernel alone (`device_ms`, torch.profiler, summed
+     over a call's launches), and each chd_probe check the one-level
+     random-row floor (`floor_ms`);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair, with
@@ -41,7 +45,7 @@ Phases, each raising on failure:
      Classifier.with_shared_db(..., device_counters=True) classifies the same
      reads with every launch counter reset just before and read just after;
      its kraken output and report must be byte-equal to phase 4's, with
-     taxon_counts launched twice and hll_regmax once per work unit and no
+     taxon_counts and hll_regmax launched once per work unit and no
      sparse-buffer overflow; one full unit's counter update is held against
      the same update forced to the plain versions;
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
@@ -118,29 +122,65 @@ SYMBOLS = {
 }
 
 
-def device_ms(fn, kname: str, reps: int) -> float:
-    """Median card milliseconds of kernel `kname` itself over `reps` calls
-    of fn() under torch.profiler: the kernel's own duration on the card,
-    without the wrapper's host work or the other kernels fn() launches. A
-    profiler session that lost kernel records is run again (at most three
-    sessions, their records pooled)."""
+# Idle seconds kept before and after the timed calls of one profiler
+# session, one entry per session tried. The profiler keeps only the kernel
+# records that its clock places inside the session, and late in a long
+# process the card's timestamps can drift from the host's by more than the
+# first margin, so a session that lost records is run again with a wider one.
+PROFILE_MARGINS_S = (0.01, 0.25, 2.0)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Card milliseconds per call of fn() between two CUDA events, with the
+    stream held by a spin kernel while the host queues all `reps` calls, so
+    the card runs them back to back: fn()'s whole card work without the
+    host's launch path (every kernel fn() launches, not one alone)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning at the card's clock
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def device_ms(fn, kname: str, reps: int, per_call: int = 1) -> tuple[float, str]:
+    """Median card milliseconds of kernel `kname` itself per call of fn(),
+    over `reps` calls under torch.profiler: the kernel's own duration on
+    the card, without the wrapper's host work or the other kernels fn()
+    launches; a call that launches the kernel `per_call` times counts the
+    sum of its launches. A session that lost kernel records is run again
+    with a wider margin (PROFILE_MARGINS_S); when every session lost some,
+    the time is queued_ms's. Returns the time and where it came from,
+    "profiler" or "events"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    durs = []
-    for _ in range(3):
+    for margin in PROFILE_MARGINS_S:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.01)  # let the tracer settle before the first launch
+            time.sleep(margin)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        durs += [e.device_time_total for e in prof.events()
-                 if e.device_type.name == "CUDA" and any(sym in e.name for sym in SYMBOLS[kname])]
-        if len(durs) >= reps:
-            return statistics.median(durs) / 1e3
-    raise AssertionError(f"profiler saw {len(durs)} {kname} kernels in {3 * reps} calls")
+            time.sleep(margin)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type.name == "CUDA" and any(sym in e.name for sym in SYMBOLS[kname])),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == reps * per_call:
+            durs = [e.device_time_total for e in evs]
+            return statistics.median(
+                sum(durs[i:i + per_call]) for i in range(0, len(durs), per_call)) / 1e3, "profiler"
+        n_card = sum(e.device_type.name == "CUDA" for e in prof.events())
+        log(f"profiler saw {len(evs)} {kname} kernels ({n_card} card records) in {reps} calls "
+            f"of {per_call} launches, margin {margin} s")
+    return queued_ms(fn, reps), "events"
 
 
 def max_abs_err(got, want) -> float:
@@ -161,25 +201,33 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
     equality, time both (and `library`, one PyTorch call computing the same
     function, where there is one); returns the record. `ms` is the wrapper
     call between CUDA events (host launch path included), `device_ms` the
-    kernel's own card time (`device_ms`). `launches` counts this check's
-    launches of the kernel (the run, warm-up and timed calls)."""
+    kernel's own card time per call (`device_ms`, summed over the call's
+    launches, `launches_per_call`; `device_ms_by` says whether the profiler
+    or queued_ms gave it). `launches` counts this check's launches
+    of the kernel (the run, warm-up and timed calls)."""
     import torch
 
     from krakenuniq_tpu_torch import _kernels
 
     kname = name.split()[0]
     before = _kernels.LAUNCHES[kname]
-    got, want = kernel(), plain()
+    got = kernel()
+    per_call = _kernels.LAUNCHES[kname] - before
+    want = plain()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{name} {shape}: kernel differs from plain (max_abs_err {err})")
+    ms = time_ms(kernel, reps)
+    dev_ms, dev_by = device_ms(kernel, kname, reps, per_call)
     rec = {
         "check": name,
         "shape": list(shape),
         "max_abs_err": err,
-        "ms": time_ms(kernel, reps),
-        "device_ms": device_ms(kernel, kname, reps),
+        "ms": ms,
+        "device_ms": dev_ms,
+        "device_ms_by": dev_by,
+        "launches_per_call": per_call,
         "plain_ms": time_ms(plain, max(3, reps // 4)),
         "launches": _kernels.LAUNCHES[kname] - before,
     }
@@ -235,10 +283,16 @@ def probe_bound(valid) -> dict:
     return bound(13 * n + 20 * nv, 24 * nv)
 
 
-def counts_bound(n: int, t: int) -> dict:
-    """An id (4 B) and a mask byte in per lane; the int64 accumulator read
-    and written once; ~4 operations per lane."""
-    return bound(5 * n + 16 * t, 4 * n)
+def counts_bound(segs, t: int) -> dict:
+    """An id (4 B) and a mask byte in per lane of each (ids, mask) segment;
+    each accumulator bin a segment's counted lanes touch (a distinct id in
+    [0, t) under a set mask) read and written once (8 + 8 B); ~4 operations
+    per lane."""
+    import torch
+
+    n = sum(ids.numel() for ids, _ in segs)
+    touched = sum(int(torch.unique(ids[m & (ids >= 0) & (ids < t)]).numel()) for ids, m in segs)
+    return bound(5 * n + 16 * touched, 4 * n)
 
 
 def regmax_bound(lanes, slots) -> dict:
@@ -370,7 +424,8 @@ def probe_floor(rows, n_valid: int, seed: int) -> dict:
 
     gen = torch.Generator(device=rows.device).manual_seed(seed)
     q = torch.randint(0, rows.shape[0], (n_valid,), dtype=torch.int32, device=rows.device, generator=gen)
-    return {"floor_ms": device_ms(lambda: row_gather(rows, q, 16, 16), "row_gather", 10)}
+    floor, by = device_ms(lambda: row_gather(rows, q, 16, 16), "row_gather", 10)
+    return {"floor_ms": floor, "floor_ms_by": by}
 
 
 def plant_hits(planes, h, seed: int):
@@ -457,20 +512,35 @@ def probe_case(name, planes, h, valid, reps):
     return hash_lookup_kmers(planes, h.reshape(-1), valid.reshape(-1))
 
 
-def counts_check(ids, mask, t: int, reps: int, label: str = ""):
-    """taxon_counts on (ids, mask) into a zero int64 [t] accumulator."""
+def counts_check(segs, t: int, reps: int, label: str = ""):
+    """taxon_counts on one or two (ids, mask) segments, each into a zero
+    int64 [t] accumulator: one segment through taxon_counts; two through
+    taxon_counts_pair, one launch (a work unit's reads and k-mers), or, in
+    a package without it, through two taxon_counts calls ("form" says
+    which; device_ms sums a call's launches). library_ms: one bincount per
+    segment, of the ids with masked lanes sent to an extra bin t."""
     import torch
 
-    from krakenuniq_tpu_torch.classify.device_counters import taxon_counts, taxon_counts_plain
+    from krakenuniq_tpu_torch.classify import device_counters as dcm
 
-    acc0 = torch.zeros(t, dtype=torch.int64, device=ids.device)
+    dev = segs[0][0].device
+    zeros = lambda: [torch.zeros(t, dtype=torch.int64, device=dev) for _ in segs]
+    pair = getattr(dcm, "taxon_counts_pair", None)
+    if len(segs) == 1:
+        form, run = "one segment", lambda: (dcm.taxon_counts(zeros()[0], *segs[0]),)
+    elif pair is not None:
+        form, run = "pair", lambda: pair(*(x for a, seg in zip(zeros(), segs) for x in (a, *seg)))
+    else:
+        form, run = "two calls", lambda: tuple(dcm.taxon_counts(a, *seg) for a, seg in zip(zeros(), segs))
+    extra = {"form": form}
+    if len(segs) == 1:
+        extra["sort_boundary_ms"] = sort_boundary_ms(*segs[0], t, reps)
     return check_kernel(
-        "taxon_counts" + label, (ids.numel(), t),
-        lambda: (taxon_counts(acc0.clone(), ids, mask),),
-        lambda: (taxon_counts_plain(acc0.clone(), ids, mask),),
-        reps=reps, bound=counts_bound(ids.numel(), t),
-        library=lambda: torch.bincount(ids[mask], minlength=t),
-        extra={"sort_boundary_ms": sort_boundary_ms(ids, mask, t, reps)},
+        "taxon_counts" + label, (*(ids.numel() for ids, _ in segs), t), run,
+        lambda: tuple(dcm.taxon_counts_plain(a, *seg) for a, seg in zip(zeros(), segs)),
+        reps=reps, bound=counts_bound(segs, t),
+        library=lambda: [torch.bincount(torch.where(m, ids, t).reshape(-1), minlength=t + 1) for ids, m in segs],
+        extra=extra,
     )
 
 
@@ -500,7 +570,10 @@ def regmax_check(reg0, taxa, enc, lanes, lut, p: int, reps: int, label: str = ""
 def phase_counter_kernels(p: int = 12):
     """taxon_counts at one unit's lanes over the 503-id pool, at
     counts_mxu_exp's shape (8,520,000 zipf-1.5 ids, T = 504) and over the
-    dense 2,400,503-id space; hll_regmax at one unit's planes and at 8.5M
+    dense 2,400,503-id space; both counts of a unit in one call over the
+    pool, over the dense space (zipf ids) and over T = 58,112 and 58,113
+    (the two forms' edge), and on views off the 16-byte
+    grid of ragged lengths; hll_regmax at one unit's planes and at 8.5M
     lanes (P = 503, m = 4096), as rows = ids and through a lut, and at the
     unit shape on its edge cases: one hot slot (every lane one row and one
     index), one hot row (every lane one taxon), registers pre-filled with
@@ -515,7 +588,29 @@ def phase_counter_kernels(p: int = 12):
     for n, n_ids, zipf in ((4096 * 130, 503, True), (8_520_000, 504, True),
                            (8_520_000, PAD_NODES + 503, False), (4096, 503, False)):
         ids = (rng.zipf(1.5, size=n) % n_ids) if zipf else rng.integers(0, n_ids, size=n)
-        counts_check(t(ids.astype(np.int32)), t(rng.random(n) < 0.9), n_ids, reps=20)
+        counts_check([(t(ids.astype(np.int32)), t(rng.random(n) < 0.9))], n_ids, reps=20)
+    # both counts of one unit ([4096] reads, [4096, 130] k-mers, zipf-1.5):
+    # over the 503-id pool, and over the dense 2.4M-id space with the pool's
+    # ids scattered in it (the dense device-counter layout)
+    prng = np.random.default_rng(12)
+    scattered = np.sort(prng.choice(PAD_NODES + 503, 503, replace=False))
+    scattered[0] = 0
+    for label, n_ids, id_of in ((" unit pair", 503, np.arange(503)), (" dense zipf", PAD_NODES + 503, scattered)):
+        segs = [(t(id_of[prng.zipf(1.5, size=shape) % 503].astype(np.int32)), t(prng.random(shape) < 0.9))
+                for shape in ((4096,), (4096, 130))]
+        counts_check(segs, n_ids, reps=20, label=label)
+    # the same pair over T = 58,112, the most bins the shared-memory form
+    # holds (227 KB), and 58,113, the least the global form takes: zipf-1.5
+    # ids over the whole id space (a value pool of tens of thousands of ids)
+    for n_ids in (58_112, 58_113):
+        segs = [(t((prng.zipf(1.5, size=shape) % n_ids).astype(np.int32)), t(prng.random(shape) < 0.9))
+                for shape in ((4096,), (4096, 130))]
+        counts_check(segs, n_ids, reps=20, label=f" T={n_ids}")
+    # views one lane off the 16-byte grid, of lengths 4k + 1 and 4k + 2: the
+    # kernel's scalar head and tail
+    segs = [(ids[1:], mask[1:]) for ids, mask in
+            ((t((prng.zipf(1.5, size=n) % 503).astype(np.int32)), t(prng.random(n) < 0.9)) for n in (4098, 532_483))]
+    counts_check(segs, 503, reps=10, label=" ragged")
     pool = 503
     encode = lambda n, pp: t(encode_hash_32(rng.integers(0, 1 << 64, size=n, dtype=np.uint64), pp).view(np.int32))
     zeros = lambda pp: torch.zeros((pool, 1 << pp), dtype=torch.uint8, device="cuda")
@@ -550,25 +645,40 @@ def phase_counter_kernels(p: int = 12):
 def phase_gather_kernel(depth: int = 16):
     """row_gather at the probe tool's defaults (a 1 GiB table, 8,519,680
     random queries) for 16-byte rows (the CHD row) and 512-byte rows, and
-    for 16-byte rows at one unit's 532,480 queries; returns the first
-    record."""
+    for 16-byte rows at one unit's 532,480 queries, each record with the
+    launch the kernel's C entry reports (a package without that entry:
+    depth only); out-of-range indices at S = 1 and 256 (zero rows);
+    returns the first record."""
     import torch
 
-    from krakenuniq_tpu_torch.tools.probe_gather import row_gather, row_gather_plain
+    from krakenuniq_tpu_torch.tools import probe_gather as pg
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flat = torch.randint(-(1 << 31), 1 << 31, ((1 << 26) * 4,), dtype=torch.int32, device="cuda", generator=gen)
+    geometry = getattr(pg, "gather_geometry", lambda *args: {})
     recs = []
     for rb, n in ((16, 8_519_680), (512, 8_519_680), (16, 4096 * 130)):
         table = flat.view(-1, rb // 4)
         q = torch.randint(0, table.shape[0], (n,), dtype=torch.int32, device="cuda", generator=gen)
         recs.append(check_kernel(
             f"row_gather {rb}B", (n, rb // 4),
-            lambda: (row_gather(table, q, depth),),
-            lambda: (row_gather_plain(table, q),),
+            lambda: (pg.row_gather(table, q, depth),),
+            lambda: (pg.row_gather_plain(table, q),),
             reps=10, bound=gather_bound(n, rb),
-            library=lambda: table.index_select(0, q), extra={"depth": depth},
+            library=lambda: table.index_select(0, q), extra={"depth": depth, **geometry(n, rb // 4, depth)},
         ))
+    # indices outside [0, R) give zero rows, at both ends of the ring depths
+    table = flat.view(-1, 4)
+    q = torch.randint(-5, table.shape[0] + 5, (10_007,), dtype=torch.int32, device="cuda", generator=gen)
+    q[:2] = torch.tensor([-1, table.shape[0]], dtype=torch.int32)
+    ok = ((q >= 0) & (q < table.shape[0]))[:, None]
+    for s in (1, 256):
+        check_kernel(
+            "row_gather out-of-range", (q.numel(), 4),
+            lambda: (pg.row_gather(table, q, s),),
+            lambda: (torch.where(ok, pg.row_gather_plain(table, q.clamp(0, table.shape[0] - 1)), 0),),
+            reps=5, bound=gather_bound(q.numel(), 16), extra={"depth": s},
+        )
     return recs[0]
 
 
@@ -851,7 +961,7 @@ def phase_counters(run4, reps: int):
     peak = torch.cuda.max_memory_allocated()
     log(f"device counters: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
     units = c.n_units
-    want = {"taxon_counts": 2 * units, "hll_regmax": units, "scores": units,
+    want = {"taxon_counts": units, "hll_regmax": units, "scores": units,
             "kmer_front": units, "chd_probe": units}
     if any(launches[k] != v for k, v in want.items()) or units == 0:
         raise AssertionError(f"device-counters path launches {launches}, want {want}")
@@ -885,7 +995,7 @@ def phase_counters(run4, reps: int):
     log(f"work unit [{b}, {w}]: kernel update == plain update ({n_used} sparse-buffer entries)")
 
     taxa, lanes = out["taxa_dense"], out["hll_lanes"]
-    counts = counts_check(taxa, lanes, dc.n_taxa, reps)
+    counts = counts_check([(out["call_dense"], row_valid), (taxa, lanes)], dc.n_taxa, reps, " unit pair")
     regmax = regmax_check(dc.reg, taxa, out["enc"], lanes, None, dc.p, reps)
     # the rest of the unit's update: the plain-torch sparse stats, and the
     # host's fetch-and-fold of the report (finalize: one state fetch)
@@ -996,7 +1106,8 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {}),

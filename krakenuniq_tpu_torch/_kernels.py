@@ -41,16 +41,19 @@ SIGNATURES = {
     "kmer_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # disp, rows, hashes, valid, out, n, lr, lg, stream
     "chd_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
-    # ids, mask, acc, n, t, stream
-    "taxon_counts": (_P, _P, _P, _L, _I, _P),
+    # ids, mask, acc, n of segment a, the same of segment b, t, shared form,
+    # blocks of a, blocks of b, stream
+    "taxon_counts": (_P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # reg, taxa, enc, lanes, lut (NULL: rows are ids), n, n_ids, n_rows, p, stream
     "hll_regmax": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # table, q, out, n, n_rows, row_words, depth, loads_per_lane, stream
+    # table, q, out, n, n_rows, row_words, depth, copies per lane, stream
     "row_gather": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
-_fns: dict = {}  # name -> the loaded library's entry point, argtypes bound
+_libs: dict = {}  # name -> the loaded library
+_fns: dict = {}  # symbol -> a loaded entry point, argtypes bound
+_sms: dict = {}  # device index -> its SM count
 
 
 def reset_launches() -> None:
@@ -100,13 +103,20 @@ def build(names=None) -> dict[str, str]:
     return paths
 
 
-def _fn(name: str):
-    fn = _fns.get(name)
+def entry(name: str, symbol: str, argtypes):
+    """The C function `symbol` of kernel `name`'s library (built on first
+    use), its argtypes bound and returning an int. `launch` calls the
+    kernel's own `kuniq_<name>`; a library's other entry points (one that
+    reports a launch's geometry, say) launch nothing and count nothing."""
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = getattr(ctypes.CDLL(build([name])[name]), f"kuniq_{name}")
-        fn.argtypes = list(SIGNATURES[name])
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(build([name])[name])
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[symbol] = fn
     return fn
 
 
@@ -124,11 +134,20 @@ def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel `name` on `device`'s current stream; tensors in `args`
     are passed by data pointer. Raises on a refused launch. Enters the
     device's context only when another device is current."""
-    fn = _fn(name)
+    fn = entry(name, f"kuniq_{name}", SIGNATURES[name])
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index

@@ -6,8 +6,9 @@ k-mer counters plus dense HLL registers, updated in place every work unit;
 the host fetches the state ONCE, at `finalize`. Two CUDA kernels do the
 updates:
 
-  * `taxon_counts` (csrc/taxon_counts.cu) adds per-id counts into an int64
-    accumulator: once for the read calls, once for the counted k-mers;
+  * `taxon_counts` (csrc/taxon_counts.cu) adds per-id counts into int64
+    accumulators: the read calls and the counted k-mers of a work unit in
+    one launch (`taxon_counts_pair`);
   * `hll_regmax` (csrc/hll_regmax.cu) takes the byte max of each counted
     k-mer's rank into its register, for all three register layouts of the
     JAX package (rows = ids, or a lut from id to row).
@@ -41,23 +42,77 @@ def taxon_counts_plain(acc: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor)
     return acc
 
 
+COUNTS_THREADS = 512  # threads per block of csrc/taxon_counts.cu
+SMEM_BINS = 232_448 // 4  # int32 bins in the shared memory one block may opt into on sm_90
+
+
+def counts_plan(n_a: int, n_b: int, t: int, sms: int) -> tuple[bool, int, int]:
+    """(shared, blocks_a, blocks_b) of one `taxon_counts` launch over two
+    segments of n_a and n_b lanes into T = t bins on a card of `sms` SMs.
+    The shared-memory form takes T up to SMEM_BINS. A segment gets a block
+    per 4 lanes per thread, at most one wave (4 blocks per SM); in the
+    shared form also at most one block per ~8 T lanes, which bounds the
+    flush to 1/8 of an atomic per lane, but at least one block per SM. An
+    empty segment gets no block."""
+    shared = t <= SMEM_BINS
+
+    def blocks(n: int) -> int:
+        if n == 0:
+            return 0
+        g = min(-(-n // (4 * COUNTS_THREADS)), 4 * sms)
+        return min(g, max(n // (8 * t), sms)) if shared else g
+
+    return shared, blocks(n_a), blocks(n_b)
+
+
+def _counts_launch(*segments) -> None:
+    """One `taxon_counts` launch over one or two (acc, ids, mask) segments
+    on the card; the accumulators are of one length T."""
+    named = {f"{k}{i}": v for i, seg in enumerate(segments) for k, v in zip(("acc", "ids", "mask"), seg)}
+    dev = _kernels.check_cuda("taxon_counts", **named)
+    t = segments[0][0].shape[0]
+    for acc, ids, mask in segments:
+        if acc.dtype != torch.int64 or acc.dim() != 1:
+            raise TypeError("taxon_counts: acc must be int64 [T]")
+        if ids.dtype != torch.int32 or mask.dtype != torch.bool:
+            raise TypeError("taxon_counts: ids must be int32 and mask bool")
+        if ids.shape != mask.shape:
+            raise ValueError(f"taxon_counts: shapes {tuple(ids.shape)} != {tuple(mask.shape)}")
+        if acc.shape[0] != t:
+            raise ValueError(f"taxon_counts: accumulators of {t} and {acc.shape[0]} ids")
+    if not 0 < t < (1 << 31):
+        raise ValueError(f"taxon_counts: T = {t} out of range")
+    (acc_a, ids_a, mask_a), *rest = segments
+    acc_b, ids_b, mask_b = rest[0] if rest else (None, None, None)
+    n_a, n_b = ids_a.numel(), 0 if ids_b is None else ids_b.numel()
+    shared, blocks_a, blocks_b = counts_plan(n_a, n_b, t, _kernels.sm_count(dev))
+    if blocks_a + blocks_b == 0:
+        return
+    _kernels.launch(
+        "taxon_counts", dev, ids_a, mask_a, acc_a, n_a, ids_b, mask_b, acc_b, n_b, t,
+        int(shared), blocks_a, blocks_b,
+    )
+
+
 def taxon_counts(acc: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """acc[t] += #{i : mask[i] and ids[i] == t}, in place; returns acc.
     `acc` int64 [T]; `ids` int32 in [0, T) and `mask` bool, of one shape.
     CUDA tensors launch the `taxon_counts` kernel."""
     if acc.device.type == "cpu":
         return taxon_counts_plain(acc, ids, mask)
-    dev = _kernels.check_cuda("taxon_counts", acc=acc, ids=ids, mask=mask)
-    if acc.dtype != torch.int64 or acc.dim() != 1:
-        raise TypeError("taxon_counts: acc must be int64 [T]")
-    if ids.dtype != torch.int32 or mask.dtype != torch.bool:
-        raise TypeError("taxon_counts: ids must be int32 and mask bool")
-    if ids.shape != mask.shape:
-        raise ValueError(f"taxon_counts: shapes {tuple(ids.shape)} != {tuple(mask.shape)}")
-    if not 0 < acc.shape[0] < (1 << 31):
-        raise ValueError(f"taxon_counts: T = {acc.shape[0]} out of range")
-    _kernels.launch("taxon_counts", dev, ids, mask, acc, ids.numel(), acc.shape[0])
+    _counts_launch((acc, ids, mask))
     return acc
+
+
+def taxon_counts_pair(acc_a, ids_a, mask_a, acc_b, ids_b, mask_b):
+    """`taxon_counts` on (acc_a, ids_a, mask_a) and on (acc_b, ids_b,
+    mask_b), both accumulators of one length T, in one kernel launch on
+    the card: a work unit's read counts and k-mer counts. Returns (acc_a,
+    acc_b)."""
+    if acc_a.device.type == "cpu":
+        return taxon_counts_plain(acc_a, ids_a, mask_a), taxon_counts_plain(acc_b, ids_b, mask_b)
+    _counts_launch((acc_a, ids_a, mask_a), (acc_b, ids_b, mask_b))
+    return acc_a, acc_b
 
 
 def hll_ranks(enc: torch.Tensor, p: int):
@@ -135,9 +190,11 @@ def update_core(
         if sparse_cap > 0 and not counts_only
         else ()
     )
-    counts = taxon_counts_plain if plain else taxon_counts
-    counts(read_counts, call_dense, row_valid)
-    counts(kmer_counts, taxa_dense, hll_lanes)
+    if plain:
+        taxon_counts_plain(read_counts, call_dense, row_valid)
+        taxon_counts_plain(kmer_counts, taxa_dense, hll_lanes)
+    else:
+        taxon_counts_pair(read_counts, call_dense, row_valid, kmer_counts, taxa_dense, hll_lanes)
     if not counts_only:
         regmax = hll_regmax_plain if plain else hll_regmax
         regmax(reg, taxa_dense, enc, hll_lanes, lut, p)

@@ -1,0 +1,231 @@
+"""Time the candidate designs of two kernels against the kept ones on the card.
+
+`csrc/taxon_counts.cu` and `csrc/row_gather.cu` were each chosen over other
+designs; `tools/variants/*.cu` keeps those candidates (each file includes
+its kernel's source and adds them). This script builds them, runs every
+candidate and the kept kernel (through its wrapper) on the same inputs,
+holds each output equal to the plain PyTorch version, and prints one JSON
+line per (case, design) with `device_ms`: the median card time of the
+design's own kernels per call, from torch.profiler.
+
+    python -m krakenuniq_tpu_torch.tools.kernel_variants [--reps 20]
+
+taxon_counts: grouping a warp's equal ids before the atomics (none, a
+ballot on one id, __match_any_sync) in the shared and in the global form,
+and a flush through 8-block clusters, on one work unit's two counts over
+503, 58,112, 58,113 and 2,400,503 ids and at counts_mxu_exp's shape.
+row_gather: a ring of registers, blocks sized from S on a persistent grid,
+and cp.async.bulk copies, at 8,519,680 and 532,480 16-byte rows and
+8,519,680 512-byte rows of a 1 GiB table. It needs a card and exits with 2
+without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..classify import device_counters as dc
+from . import probe_gather as pg
+
+VARIANTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variants")
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+ENTRIES = {
+    # variant, then kuniq_taxon_counts' arguments
+    "taxon_counts": ("kuniq_taxon_counts_variant", (_I, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
+    # table, q, out, n, n_rows, row_words, depth, form, threads, stream
+    "row_gather": ("kuniq_row_gather_variant", (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P)),
+}
+SMEM_OPT_IN = 232_448  # bytes of shared memory one block may opt into on sm_90
+CLUSTER = 8  # blocks per cluster of the cluster flush
+
+
+def build() -> dict:
+    """Compile every variants source (one nvcc each, in parallel) next to the
+    kernels' libraries; returns name -> the loaded entry point."""
+    nvcc = _kernels._nvcc()
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in ENTRIES:
+        src = os.path.join(VARIANTS, f"{name}_variants.cu")
+        lib = os.path.join(_kernels.BUILD_DIR, f"lib{name}_variants.so")
+        cmd = [nvcc, *_kernels.NVCC_FLAGS, "-I", _kernels.CSRC, "-o", lib, src]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    fns, failed = {}, []
+    for name, (lib, proc) in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{name}_variants.cu:\n{out}")
+            continue
+        symbol, argtypes = ENTRIES[name]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fns[name] = fn
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return fns
+
+
+def call(fn, *args) -> None:
+    """One variant launch on the current stream; raises on a refused launch."""
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"variant launch failed with CUDA error {rc}")
+
+
+def device_ms(fn, symbol: str, reps: int) -> float:
+    """Median card milliseconds per call of fn() of the kernels whose name
+    holds `symbol`, over `reps` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA" and symbol in e.name),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % reps:
+        raise AssertionError(f"profiler saw {len(evs)} {symbol} kernels in {reps} calls")
+    per = len(evs) // reps
+    durs = [e.device_time_total for e in evs]
+    return statistics.median(sum(durs[i:i + per]) for i in range(0, len(durs), per)) / 1e3
+
+
+def counts_cases(seed: int = 12):
+    """(label, [(ids, mask), ...], T): a work unit's two counts ([4096]
+    reads, [4096, 130] k-mers, zipf-1.5 ids, 90% of lanes counted) over the
+    503-id pool, over 58,112 and 58,113 ids and over the dense 2,400,503-id
+    layout (the pool's ids scattered in it), 8,520,000 zipf ids over 504
+    (counts_mxu_exp's shape) and 8,520,000 uniform ids over 2,400,503."""
+    rng = np.random.default_rng(seed)
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    dense = 2_400_503
+    scattered = np.sort(rng.choice(dense, 503, replace=False))
+    unit = lambda id_of, mod: [
+        (cuda(id_of[rng.zipf(1.5, size=shape) % mod].astype(np.int32)), cuda(rng.random(shape) < 0.9))
+        for shape in ((4096,), (4096, 130))]
+    yield "unit pair", unit(np.arange(503), 503), 503
+    for t in (58_112, 58_113):
+        yield f"unit pair T={t}", unit(np.arange(t), t), t
+    yield "dense zipf pair", unit(scattered, 503), dense
+    n = 8_520_000
+    yield "tool zipf", [(cuda((rng.zipf(1.5, size=n) % 504).astype(np.int32)), cuda(rng.random(n) < 0.9))], 504
+    yield "uniform 2.4M", [(cuda(rng.integers(0, dense, size=n).astype(np.int32)), cuda(rng.random(n) < 0.9))], dense
+
+
+def run_counts(fn, reps: int, emit) -> None:
+    """Each taxon_counts design on each case: the kept kernel through its
+    wrapper, the candidates of its form (shared or global, by counts_plan)
+    on the same plan, the cluster flush on blocks rounded up to clusters."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, segs, t in counts_cases():
+        n = [ids.numel() for ids, _ in segs] + [0]
+        shared, blocks_a, blocks_b = dc.counts_plan(n[0], n[1], t, sms)
+        zeros = lambda: [torch.zeros(t, dtype=torch.int64, device="cuda") for _ in segs]
+        want = [dc.taxon_counts_plain(a, *seg) for a, seg in zip(zeros(), segs)]
+
+        def kept():
+            accs = zeros()
+            if len(segs) == 1:
+                return [dc.taxon_counts(accs[0], *segs[0])]
+            return list(dc.taxon_counts_pair(accs[0], *segs[0], accs[1], *segs[1]))
+
+        def variant(v, ba=blocks_a, bb=blocks_b):
+            accs = zeros()
+            (ia, ma), (ib, mb) = segs[0], (segs[1] if len(segs) > 1 else (None, None))
+            call(fn, v, ia, ma, accs[0], n[0], ib, mb, accs[1] if len(segs) > 1 else None, n[1],
+                 t, int(shared), ba, bb)
+            return accs
+
+        up = lambda b: -(-b // CLUSTER) * CLUSTER
+        designs = [("kept", kept)]
+        if shared:
+            designs += [("shared ballot", lambda: variant(1)), ("shared match_any", lambda: variant(2)),
+                        ("cluster flush", lambda: variant(3, up(blocks_a), up(blocks_b)))]
+        else:
+            designs += [("global ungrouped", lambda: variant(0)), ("global ballot", lambda: variant(1))]
+        for design, run in designs:
+            got = run()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"taxon_counts {label} {design}: differs from plain")
+            emit({"kernel": "taxon_counts", "case": label, "t": t, "lanes": n[:len(segs)],
+                  "form": "shared" if shared else "global", "design": design,
+                  "device_ms": device_ms(run, "counts_", reps), "equal": True})
+
+
+def threads_for(form: int, depth: int, row_bytes: int) -> int:
+    """Block size of a row_gather candidate: 256 for the register ring; for
+    the shared ring, as many warps (at most 32) as S slots of 16 + 4 bytes a
+    thread fit in one block's shared memory; for bulk copies, as many warps
+    as S slots of a row and an 8-byte mbarrier a warp fit."""
+    if form == 0:
+        return 256
+    per_warp = depth * 32 * 20 if form == 1 else depth * (row_bytes + 8)
+    return 32 * max(1, min(32, SMEM_OPT_IN // per_warp))
+
+
+def run_gather(fn, reps: int, emit, seed: int = 7) -> None:
+    """Each row_gather design at 8,519,680 16-byte rows (S = 1, 16, 256), one
+    unit's 532,480 16-byte rows (S = 16) and 8,519,680 512-byte rows (S =
+    16, 256) of a 1 GiB table: the kept kernel through its wrapper, the
+    register ring (S <= 16), the shared ring in blocks sized from S on a
+    persistent grid, and bulk copies (S >= 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flat = torch.randint(-(1 << 31), 1 << 31, ((1 << 26) * 4,), dtype=torch.int32, device="cuda", generator=gen)
+    for rb, n, depths in ((16, 8_519_680, (1, 16, 256)), (16, 4096 * 130, (16,)), (512, 8_519_680, (16, 256))):
+        table = flat.view(-1, rb // 4)
+        q = torch.randint(0, table.shape[0], (n,), dtype=torch.int32, device="cuda", generator=gen)
+        want = pg.row_gather_plain(table, q)
+        for s in depths:
+            def variant(form, s=s, table=table, q=q):
+                out = torch.empty((q.shape[0], table.shape[1]), dtype=torch.int32, device="cuda")
+                call(fn, table, q, out, q.shape[0], table.shape[0], table.shape[1], s, form,
+                     threads_for(form, s, rb))
+                return out
+
+            designs = [("kept", lambda s=s, table=table, q=q: pg.row_gather(table, q, s), 32)]
+            if s <= 16:
+                designs.append(("register ring", lambda: variant(0), threads_for(0, s, rb)))
+            designs.append(("shared, blocks from S", lambda: variant(1), threads_for(1, s, rb)))
+            if s >= 2:
+                designs.append(("bulk copies", lambda: variant(2), threads_for(2, s, rb)))
+            for design, run, threads in designs:
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"row_gather {rb}B S={s} {design}: differs from index_select")
+                ms = device_ms(run, "gather_", reps)
+                emit({"kernel": "row_gather", "row_bytes": rb, "rows": n, "depth": s, "design": design,
+                      "threads": threads, "device_ms": ms, "g_rows_per_s": n / ms / 1e6, "equal": True})
+        del table, q, want
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device available", file=sys.stderr)
+        return 2
+    emit = lambda rec: print(json.dumps(rec), flush=True)
+    _kernels.build(["taxon_counts", "row_gather"])
+    fns = build()
+    run_counts(fns["taxon_counts"], args.reps, emit)
+    run_gather(fns["row_gather"], max(5, args.reps // 2), emit)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

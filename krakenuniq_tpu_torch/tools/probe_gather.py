@@ -4,10 +4,11 @@ Counterpart of tools/probe_dma_exp.py. The question it answers on the card:
 how many random rows per second can device memory serve, and how does the
 rate grow with the copies each thread keeps in flight? The `row_gather`
 kernel (csrc/row_gather.cu) fetches rows of a [R, row_words] uint32 table at
-random indices with S 16-byte cp.async copies in flight per thread (a ring
+random indices with S 16-byte cp.async copies in flight per lane (a ring
 of S slots, waiting on copy i-S before issuing copy i, as the TPU kernel's
-semaphore ring did); each output is checked against `index_select`, which is
-also timed as the library control.
+semaphore ring did), in one-warp blocks of max(16, S) copies per lane by
+default; each output is checked against `index_select`, which is also
+timed as the library control.
 
 It sweeps S at the TPU tool's defaults: a 2^26 x 16-byte-row table (1 GiB)
 viewed as 2^21 rows of 512 bytes, 8,519,680 queries. It also runs 16-byte
@@ -16,7 +17,7 @@ could not compile. One JSON line per (row size, S) goes to stdout.
 
     python -m krakenuniq_tpu_torch.tools.probe_gather [--rows 26]
         [--queries 8519680] [--depths 1,4,16,64,256] [--row-bytes 16,512]
-        [--loads 256] [--reps 5]
+        [--loads K] [--reps 5]
 
 It needs a card and exits with 2 without one.
 """
@@ -24,6 +25,7 @@ It needs a card and exits with 2 without one.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import sys
@@ -41,13 +43,37 @@ def row_gather_plain(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, q)
 
 
+def copies_per_lane(depth: int, loads_per_lane: int | None = None) -> int:
+    """The copies each lane of a `row_gather` block makes in all: the
+    caller's loads_per_lane, by default max(16, depth), so that a lane's
+    ring of depth copies fills before it drains."""
+    return max(16, depth) if loads_per_lane is None else loads_per_lane
+
+
+def gather_geometry(n: int, row_words: int, depth: int, loads_per_lane: int | None = None) -> dict:
+    """The launch `row_gather` makes for n rows of row_words words on the
+    current CUDA device, as the kernel's C entry reports it (it launches
+    nothing): threads per block, blocks, shared memory per block, and the
+    blocks one SM holds by the occupancy calculator."""
+    copies = copies_per_lane(depth, loads_per_lane)
+    out = (ctypes.c_longlong * 4)()
+    fn = _kernels.entry("row_gather", "kuniq_row_gather_geometry",
+                        (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    rc = fn(n, row_words, depth, copies, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"row_gather geometry failed with CUDA error {rc}")
+    return {"threads": out[0], "blocks": out[1], "copies_per_lane": copies, "smem_bytes": out[2],
+            "blocks_per_sm": out[3]}
+
+
 def row_gather(table: torch.Tensor, q: torch.Tensor, depth: int = 16,
-               loads_per_lane: int = 256) -> torch.Tensor:
+               loads_per_lane: int | None = None) -> torch.Tensor:
     """table[q] for an int32 [R, row_words] table (row_words a multiple of 4
-    dividing 128) and int32 indices q [n] in [0, R), with `depth` copies in
-    flight per thread and `loads_per_lane` copies per thread in all (so a
-    block fetches loads_per_lane * 32 * 4 / row_words rows). CUDA tensors
-    launch the `row_gather` kernel."""
+    dividing 128) and int32 indices q [n] in [0, R), with `depth` 16-byte
+    copies in flight per lane and `loads_per_lane` copies per lane in all
+    (default max(16, depth): `copies_per_lane`), so a one-warp block fetches
+    loads_per_lane * 32 * 4 / row_words rows. CUDA tensors launch the
+    `row_gather` kernel."""
     if table.device.type == "cpu":
         return row_gather_plain(table, q)
     dev = _kernels.check_cuda("row_gather", table=table, q=q)
@@ -56,12 +82,12 @@ def row_gather(table: torch.Tensor, q: torch.Tensor, depth: int = 16,
     row_words = table.shape[1]
     if row_words % 4 or 128 % row_words or table.data_ptr() % 16:
         raise ValueError("row_gather: row_words must be a multiple of 4 dividing 128, table 16-byte aligned")
-    if depth not in DEPTHS or loads_per_lane < 1:
+    copies = copies_per_lane(depth, loads_per_lane)
+    if depth not in DEPTHS or not 1 <= copies < (1 << 31):
         raise ValueError(f"row_gather: depth must be one of {DEPTHS}, loads_per_lane >= 1")
     out = torch.empty((q.shape[0], row_words), dtype=torch.int32, device=dev)
     _kernels.launch(
-        "row_gather", dev, table, q, out, q.shape[0], table.shape[0], row_words, depth,
-        loads_per_lane,
+        "row_gather", dev, table, q, out, q.shape[0], table.shape[0], row_words, depth, copies,
     )
     return out
 
@@ -89,7 +115,7 @@ def gather_bound_ms(n: int, row_bytes: int) -> float:
 
 
 def sweep(rows_log2: int = 26, n_queries: int = 8_519_680, depths=(1, 4, 16, 64, 256),
-          row_bytes=(16, 512), loads_per_lane: int = 256, reps: int = 5, seed: int = 7,
+          row_bytes=(16, 512), loads_per_lane: int | None = None, reps: int = 5, seed: int = 7,
           emit=print):
     """Run the sweep on the current CUDA device; one record per (row size,
     S), each checked against index_select, plus one library record per row
@@ -116,7 +142,7 @@ def sweep(rows_log2: int = 26, n_queries: int = 8_519_680, depths=(1, 4, 16, 64,
             del got
             ms = time_ms(lambda: row_gather(table, q, s, loads_per_lane), reps)
             rec = {"probe": "row_gather", "row_bytes": rb, "depth": s,
-                   "loads_per_lane": loads_per_lane, "rows": table.shape[0],
+                   **gather_geometry(n_queries, rb // 4, s, loads_per_lane), "rows": table.shape[0],
                    "queries": n_queries, "ms": ms, "ns_per_row": ms * 1e6 / n_queries,
                    "m_rows_per_s": n_queries / ms / 1e3,
                    "bound_ms": gather_bound_ms(n_queries, rb), "equal": True}
@@ -132,7 +158,8 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=8_519_680)
     ap.add_argument("--depths", default="1,4,16,64,256", help="copies in flight per thread")
     ap.add_argument("--row-bytes", default="16,512")
-    ap.add_argument("--loads", type=int, default=256, help="copies per thread in all")
+    ap.add_argument("--loads", type=int, default=None,
+                    help="copies per lane in all (default: max(16, S))")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -199,6 +199,123 @@ def test_update_core_registers_edge_cases_match_jax(case, layout):
     assert (got[0].numpy() > reg0).any(), "the update should raise some registers"
 
 
+# the counts of one work unit on update_core's one-launch path: name ->
+# (T ids, rows B, how the unit's ids and masks are drawn)
+COUNT_CASES = {
+    "no_reads": (60, 24, "reads masked"),
+    "all_masked": (60, 24, "all masked"),
+    "edge_ids": (60, 24, "ids 0 and T-1"),
+    "t1": (1, 24, "ids 0"),
+    "empty": (60, 0, ""),
+}
+
+
+def _count_inputs(case, layout, rng, w=50):
+    """(T, pool, lut, taxa, enc, lanes, call, row_valid) for one case: the
+    pool layout (register rows are ids) or the dense layout (the pool's
+    values scattered over T ids, rows through a lut)."""
+    t, b, draw = COUNT_CASES[case]
+    if layout == "dense_lut":
+        t = t * 1000 if t > 1 else 1
+    pool = np.arange(t) if layout == "pool" else np.unique(
+        np.concatenate([[0, t - 1], rng.choice(t, min(t, 40), replace=False)]))
+    lut = np.zeros(t, np.int32)
+    lut[pool] = np.arange(len(pool), dtype=np.int32)
+    taxa = pool[rng.integers(0, len(pool), size=(b, w))].astype(np.int32)
+    call = pool[rng.integers(0, len(pool), size=b)].astype(np.int32)
+    if draw == "ids 0 and T-1":
+        taxa = np.where(rng.random((b, w)) < 0.5, 0, t - 1).astype(np.int32)
+        call = np.where(rng.random(b) < 0.5, 0, t - 1).astype(np.int32)
+    lanes = rng.random((b, w)) < 0.8
+    row_valid = rng.random(b) < 0.9
+    if draw in ("reads masked", "all masked"):
+        row_valid[:] = False
+    if draw == "all masked":
+        lanes[:] = False
+    return t, pool, lut, taxa, _encodings(rng, (b, w), 12), lanes, call, row_valid
+
+
+@pytest.mark.parametrize("case,layout", [(c, lay) for c in COUNT_CASES for lay in ("pool", "dense_lut")])
+def test_update_core_counts_pair_matches_jax(case, layout):
+    """update_core's counts, one taxon_counts_pair call per unit (on the CPU
+    its two plain calls), against the JAX update_core's read_counts and
+    kmer_counts and against two taxon_counts_plain calls, on a unit with its
+    reads masked off, all lanes masked off, only ids 0 and T-1, T = 1, and
+    no rows; registers too, but for the unit of no rows."""
+    p = 12
+    rng = np.random.default_rng(sorted(COUNT_CASES).index(case) * 2 + (layout == "pool"))
+    t, pool, lut, taxa, enc, lanes, call, row_valid = _count_inputs(case, layout, rng)
+    identity = layout == "pool"
+    counts_only = case == "empty"  # the JAX register branches take no empty unit
+    reg0 = np.zeros((len(pool), 1 << p), np.uint8)
+    kc0 = rng.integers(0, 100, size=t).astype(np.int64)
+    rc0 = rng.integers(0, 100, size=t).astype(np.int64)
+    want = JD.update_core(
+        jnp.asarray(reg0), jnp.asarray(kc0), jnp.asarray(rc0),
+        (jnp.asarray(pool.astype(np.int32)), jnp.asarray(lut)),
+        jnp.asarray(taxa), jnp.asarray(enc), jnp.asarray(lanes), jnp.asarray(call),
+        jnp.asarray(row_valid), p, None, 0, counts_only, identity,
+    )
+    got = TD.update_core(
+        torch.from_numpy(reg0.copy()), torch.from_numpy(kc0.copy()), torch.from_numpy(rc0.copy()),
+        None if identity else torch.from_numpy(lut),
+        torch.from_numpy(taxa), torch.from_numpy(enc.view(np.int32)), torch.from_numpy(lanes),
+        torch.from_numpy(call), torch.from_numpy(row_valid), p, counts_only=counts_only,
+    )
+    for name, g, w_ in zip(("registers", "kmer_counts", "read_counts"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=f"{case}/{layout}: {name}")
+    kc, rc = torch.from_numpy(kc0.copy()), torch.from_numpy(rc0.copy())
+    TD.taxon_counts_plain(rc, torch.from_numpy(call), torch.from_numpy(row_valid))
+    TD.taxon_counts_plain(kc, torch.from_numpy(taxa), torch.from_numpy(lanes))
+    assert torch.equal(got[1], kc) and torch.equal(got[2], rc)
+
+
+@pytest.mark.parametrize("n_a,n_b,t,want", [
+    # one unit in the pool layout: 4,096 reads and 4,096 x 130 k-mers over 503 ids
+    (4096, 532_480, 503, (True, 2, 132)),
+    # counts_mxu_exp's shape: ~8 T lanes a block would be 2,113 blocks; one wave is 528
+    (0, 8_520_000, 504, (True, 0, 528)),
+    # the largest T the shared histogram holds, and one past it
+    (1000, 532_480, 58_112, (True, 1, 132)),
+    (1000, 532_480, 58_113, (False, 1, 260)),
+    # the dense layout: global atomics, a block per 2,048 lanes, one wave at most
+    (4096, 532_480, 2_400_503, (False, 2, 260)),
+    (0, 8_520_000, 2_400_503, (False, 0, 528)),
+    (0, 0, 503, (True, 0, 0)),
+])
+def test_counts_plan(n_a, n_b, t, want):
+    """The taxon_counts launch plan: form by T, blocks per segment (at most
+    one wave, ~8 T lanes a block in the shared form), no block for an
+    empty segment."""
+    assert TD.counts_plan(n_a, n_b, t, 132) == want
+
+
+@pytest.mark.parametrize("depth,loads,want", [
+    (1, None, 16), (16, None, 16), (32, None, 32), (64, None, 64), (256, None, 256), (16, 256, 256),
+])
+def test_gather_plan(depth, loads, want):
+    """row_gather's copies per lane: max(16, S), so that a lane's ring of S
+    copies fills, unless the caller names them."""
+    assert PG.copies_per_lane(depth, loads) == want
+    assert depth in PG.DEPTHS
+
+
+@pytest.mark.parametrize("form,depth,row_bytes,want", [
+    (0, 16, 16, 256), (1, 1, 16, 1024), (1, 16, 16, 704), (1, 256, 16, 32),
+    (2, 16, 16, 1024), (2, 16, 512, 864), (2, 256, 512, 32),
+])
+def test_kernel_variants_block_size(form, depth, row_bytes, want):
+    """The row_gather candidates' blocks: 256 threads for the register ring;
+    for the shared ring and bulk copies as many warps as their S slots fit
+    in one block's 227 KB of shared memory, at least one and at most 32."""
+    from krakenuniq_tpu_torch.tools import kernel_variants as KV
+
+    threads = KV.threads_for(form, depth, row_bytes)
+    assert threads == want
+    per_thread = {0: 0, 1: depth * 20, 2: depth * (row_bytes + 8) / 32}[form]
+    assert threads * per_thread <= KV.SMEM_OPT_IN
+
+
 def test_device_counters_default_to_the_card():
     """DeviceCounters keeps its state on the card unless asked for the CPU;
     the Classifier passes its own device."""
@@ -224,7 +341,7 @@ def test_hll_ranks_match_decode_rank():
 # ------------------------------------------------------------ Pallas tools
 
 
-@pytest.mark.parametrize("n,t", [(5000, 504), (4100, 130)])
+@pytest.mark.parametrize("n,t", [(5000, 504), (4100, 130), (4100, 13_000)])
 def test_taxon_counts_plain_matches_counts_mxu(n, t, monkeypatch):
     tool = _load_tool("counts_mxu_exp", monkeypatch)
     rng = np.random.default_rng(n)
@@ -249,7 +366,7 @@ class _InterpretPallas:
         return getattr(pl, name)
 
 
-@pytest.mark.parametrize("q_block,depth", [(64, 8), (64, 1)])
+@pytest.mark.parametrize("q_block,depth", [(64, 8), (64, 1), (64, 2), (64, 16)])
 def test_row_gather_plain_matches_make_probe(q_block, depth, monkeypatch):
     tool = _load_tool("probe_dma_exp", monkeypatch)
     monkeypatch.setattr(tool, "pl", _InterpretPallas())
