@@ -11,7 +11,8 @@ times both packages' kernels on the same inputs and the same card.
 
 Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
-     csrc/ from source (one nvcc per file, in parallel);
+     csrc/ from source (one nvcc per file, in parallel) and the port's
+     native host module (kuniq_native_torch, one C++ compile);
   2. each kernel against its plain PyTorch version on the card, integer for
      integer (tolerance 0: every output is an integer or a bool), at the
      span and unit shapes and the shapes of the JAX package's kernel tools,
@@ -23,31 +24,35 @@ Phases, each raising on failure:
      registers, p = 4 and 18, every flagged stored value) and taxon_counts'
      (both counts of a unit in one launch, over the 503-id pool, over the
      dense 2.4M-id space with zipf-skewed ids and over 58,112 and 58,113
-     ids, the edge of its shared-memory form); each
+     ids, the edge of its shared-memory form), pack_runs in its three row
+     layouts and the packed-input kmer_front at the unit and span shapes
+     (reads that overflow the run slots, ambiguous runs, reads shorter
+     than k); each
      check times the wrapper call (`ms`, CUDA events, host launch path
      included) and the kernel alone (`device_ms`, torch.profiler, summed
      over a call's launches), and each chd_probe check the one-level
      random-row floor (`floor_ms`);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
-     single database and for the hierarchical db_bact + db_viral pair, with
-     host counters and with --device-counters;
-  4. the main path at full size: a synthetic database at the JAX bench's
-     default shape (400 species x 25 kbp, BALLAST = 101M ballast keys, a
-     2.4M-node taxonomy, k=31, nt=12) under krakenuniq_tpu_torch/_build/,
-     loaded by Classifier(device="cuda"), classifying N_READS zipf-1.5
-     150 bp reads through
-     Classifier.run and write_report with every launch counter reset just
-     before and read just after; the calls are checked against each read's
-     true species, and one full work unit is held against the same step
+     single database and for the hierarchical db_bact + db_viral pair,
+     through the span route, the Python host route and --device-counters;
+  4. the main path at full size, on the span route: a synthetic database
+     at the JAX bench's default shape (400 species x 25 kbp, BALLAST = 101M
+     ballast keys, a 2.4M-node taxonomy, k=31, nt=12) under
+     krakenuniq_tpu_torch/_build/, loaded by Classifier(device="cuda"),
+     classifying the JAX bench's N_READS = 1M zipf-1.5 150 bp reads
+     through Classifier.run and write_report with every launch counter reset
+     just before and read just after; the calls are checked against each
+     read's true species, and one full span is held against the same step
      forced to the plain versions;
-  5. the --device-counters path on the same loaded database:
-     Classifier.with_shared_db(..., device_counters=True) classifies the same
-     reads with every launch counter reset just before and read just after;
-     its kraken output and report must be byte-equal to phase 4's, with
-     taxon_counts and hll_regmax launched once per work unit and no
-     sparse-buffer overflow; one full unit's counter update is held against
-     the same update forced to the plain versions;
+  5. the --device-counters path (the Python host route) on the same loaded
+     database: Classifier.with_shared_db(..., device_counters=True)
+     classifies the same reads with every launch counter reset just before
+     and read just after; its kraken output and report must be byte-equal
+     to phase 4's (so the span route equals the Python route at full
+     size), with taxon_counts and hll_regmax launched once per work unit
+     and no sparse-buffer overflow; one full unit's counter update is held
+     against the same update forced to the plain versions;
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
      the sweep over copies in flight at 16- and 512-byte rows, with the
      launch counters reset just before and read just after.
@@ -77,10 +82,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Guide, arithmetic instruction throughput): 132 SMs x 64 x 1.98 GHz boost.
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 
-# Phase 4: the JAX bench's default database (bench.py:225-230) and a fifth
-# of its 1M reads, to bound the run time.
+# Phase 4: the JAX bench's default database (bench.py:225-230) and reads
+# (bench.py:234).
 N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST = 400, 25_000, 2_400_000, 101_000_000
-N_READS = 200_000
+N_READS = 1_000_000
 
 T0 = time.time()
 
@@ -114,11 +119,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 # the CUDA kernel symbol of each wrapper (a substring of the profiler's name)
 SYMBOLS = {
     "scores": ("scores_kernel",),
-    "kmer_front": ("kmer_front_kernel",),
+    "kmer_front": ("kmer_front_kernel", "kmer_front_packed_kernel"),
     "chd_probe": ("chd_probe_kernel",),
     "taxon_counts": ("counts_smem_kernel", "counts_global_kernel"),
     "hll_regmax": ("hll_regmax_kernel",),
     "row_gather": ("row_gather_kernel",),
+    "pack_runs": ("pack_runs_kernel",),
 }
 
 
@@ -276,6 +282,29 @@ def front_bound(b: int, lb: int, k: int) -> dict:
     return bound(2 * b * lb + 13 * lanes, FRONT_OPS_PER_LANE * lanes)
 
 
+def front_words_bound(b: int, lb: int, k: int) -> dict:
+    """kmer_front on the packed feed: 3 bits per base in (2 code bits and
+    a flag bit, as int32 words); as front_bound otherwise."""
+    lanes = b * (lb - k + 1)
+    return bound(b * lb * 3 // 8 + 13 * lanes, FRONT_OPS_PER_LANE * lanes)
+
+
+# pack_runs' integer operations per valid lane: two loads, two shuffles and
+# the code compare (3), the ballot and prefix popcount (3), the run index
+# and slot tests (3), the step's carry (2): ~13
+RLE_OPS_PER_LANE = 13
+
+
+def rle_bound(n_kmers, w: int, cols: int) -> dict:
+    """An id (4 B) and a flag byte in per valid lane (p < n_kmers: the
+    lanes past it are never read), n_kmers, call and hits (4 B each) in
+    and a row of `cols` u32 words out per read; the operations of the
+    valid lanes."""
+    b = n_kmers.numel()
+    valid = float(n_kmers.clamp(min=0, max=w).sum())
+    return bound(5 * valid + 12 * b + 4 * b * cols, RLE_OPS_PER_LANE * valid)
+
+
 def probe_bound(valid) -> dict:
     """Hash (8 B) and valid (1 B) in, value (4 B) out per query; per valid
     query one 4 B displacement word and one 16 B row; ~24 operations."""
@@ -408,9 +437,82 @@ def phase_kernels(k: int):
             lambda: kmer_front_plain(codes, ambig, kk, 12),
             reps=20, bound=front_bound(b, lb, kk), extra={"k": kk},
         )
+    phase_span_kernels(k)
     phase_probe_kernel()
     phase_counter_kernels()
     return phase_gather_kernel()
+
+
+def rle_inputs(b, w, seed, k=31):
+    """One span's pack_runs inputs on the card: per read runs of pool ids
+    (lengths 1-64, ids zipf-1.5 over 503), ~1% ambiguous lanes plus an
+    ambiguous stretch in every eighth read (carrying varied ids, as the
+    function allows), a quarter of the reads with a fresh id at every lane
+    (far more runs than slots: overflow rows), n_kmers from reads of 0 to
+    W + k - 1 bases (a tenth shorter than k: no k-mer); call and hits
+    random."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    run_len = rng.integers(1, 65, size=(b, w))
+    starts = np.cumsum(run_len, axis=1) - run_len  # run j of read i starts here
+    lane_run = np.stack([np.searchsorted(starts[i], np.arange(w), side="right") - 1 for i in range(min(b, 64))])
+    lane_run = np.resize(lane_run, (b, w))
+    run_ids = (rng.zipf(1.5, size=(b, w)) % 503).astype(np.int32)
+    ids = np.take_along_axis(run_ids, lane_run, axis=1)
+    noisy = rng.random(b) < 0.25
+    ids[noisy] = rng.integers(0, 503, size=(int(noisy.sum()), w))
+    amb = rng.random((b, w)) < 0.01
+    amb[::8, 20:50] = True
+    ids[amb] = rng.integers(0, 503, size=int(amb.sum()))
+    lengths = rng.integers(0, w + k, size=b)
+    lengths[: b // 2] = w + k - 1
+    lengths[::10] = rng.integers(0, k, size=len(lengths[::10]))
+    nk = np.maximum(lengths - (k - 1), 0).astype(np.int32)
+    call = rng.integers(0, 503, size=b).astype(np.int32)
+    hits = rng.integers(0, w + 1, size=b).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return t(ids), t(amb), t(nk), t(call), t(hits)
+
+
+def phase_span_kernels(k: int, r: int = 8):
+    """The span route's two kernels at the unit and span shapes: the
+    packed-input kmer_front (the words of pack_input, which lays rows out as
+    encode_unit_packed does) and pack_runs in its three row layouts (the
+    wide one through a 2.4M-id map). Skipped, with a note, on a package
+    that has neither."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    if not hasattr(ds, "pack_runs"):
+        log("this package has no span kernels (pack_runs, kmer_front_words)")
+        return
+    for b, lb in ((4096, 160), (65536, 160)):
+        codes, ambig = front_inputs(b, lb, 7)
+        cw, aw = ds.pack_input(codes, ambig)
+        check_kernel(
+            "kmer_front packed", (b, lb),
+            lambda: ds.kmer_front_words(cw, aw, k, 12),
+            lambda: ds.kmer_front_packed(cw, aw, lb, k, 12),
+            reps=20, bound=front_words_bound(b, lb, k), extra={"k": k},
+        )
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randint(0, 1 << 31, (PAD_NODES + 503,), dtype=torch.int32, device="cuda", generator=gen)
+    for b, w in ((4096, 130), (65536, 130)):
+        ids, amb, nk, call, hits = rle_inputs(b, w, b)
+        for layout in ("compact", "dense", "wide"):
+            mt = table if layout == "wide" else None
+            check_kernel(
+                f"pack_runs {layout}", (b, w),
+                lambda: (ds.pack_runs(ids, amb, nk, call, hits, r, layout, mt),),
+                lambda: (ds.pack_runs_plain(ids, amb, nk, call, hits, r, layout, mt),),
+                reps=20, bound=rle_bound(nk, w, ds.pack_runs_cols(layout, r)),
+                extra={"max_runs": r},
+            )
+        n_runs = ds.pack_runs(ids, amb, nk, call, hits, r, "compact")[:, r] & 0xFFFF
+        if not bool((n_runs > r).any()) or not bool((nk == 0).any()):
+            raise AssertionError("pack_runs inputs hold no overflow row or no read shorter than k")
 
 
 def probe_floor(rows, n_valid: int, seed: int) -> dict:
@@ -718,30 +820,34 @@ def probe_check(db, keys, n_queries=8_500_000, seed=5):
 
 
 def phase_goldens():
+    """The goldens through the span route, the Python host route
+    (use_native=False) and --device-counters (on the Python route)."""
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
-    for dbs, kraken_name, report_name, dc in (
-        (["."], "kraken.out", "report.tsv", False),
-        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv", False),
-        (["."], "kraken.out", "report.tsv", True),
-        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv", True),
+    for dbs, kraken_name, report_name in (
+        (["."], "kraken.out", "report.tsv"),
+        (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv"),
     ):
-        c = Classifier(
-            [os.path.join(GOLDEN, d) for d in dbs],
-            ClassifyOptions(print_progress=False, device="cuda", device_counters=dc),
-        )
-        kraken, report = io.StringIO(), io.StringIO()
-        c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
-        c.write_report(report)
-        for got, name in ((kraken.getvalue(), kraken_name), (report.getvalue(), report_name)):
-            with open(os.path.join(GOLDEN, name)) as f:
-                if got != f.read():
-                    raise AssertionError(f"golden {name} differs on the card (device_counters={dc})")
-        if dc and c.dev_counters.tracker.overflows:
-            raise AssertionError("golden run overflowed the sparse buffer")
-        log(f"golden {kraken_name} + {report_name} (device_counters={dc}): byte-equal")
+        for route, opts in (("span", {}), ("python", {"use_native": False}),
+                            ("python", {"device_counters": True})):
+            c = Classifier(
+                [os.path.join(GOLDEN, d) for d in dbs],
+                ClassifyOptions(print_progress=False, device="cuda", **opts),
+            )
+            if c.route != route:
+                raise AssertionError(f"golden run with {opts} took the {c.route} route")
+            kraken, report = io.StringIO(), io.StringIO()
+            c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
+            c.write_report(report)
+            for got, name in ((kraken.getvalue(), kraken_name), (report.getvalue(), report_name)):
+                with open(os.path.join(GOLDEN, name)) as f:
+                    if got != f.read():
+                        raise AssertionError(f"golden {name} differs on the card ({route} route, {opts})")
+            if c.dev_counters is not None and c.dev_counters.tracker.overflows:
+                raise AssertionError("golden run overflowed the sparse buffer")
+            log(f"golden {kraken_name} + {report_name} ({route} route, {opts}): byte-equal")
     emit({"check": "goldens", "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"],
-          "device_counters": [False, True], "equal": True})
+          "routes": ["span", "python", "python + device_counters"], "equal": True})
 
 
 # ------------------------------------------------------------------ phase 4
@@ -799,7 +905,12 @@ def phase_main(reps: int):
 
     from krakenuniq_tpu_torch import _kernels
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
-    from krakenuniq_tpu_torch.classify.device_step import kmer_front, kmer_front_plain
+    from krakenuniq_tpu_torch.classify.device_step import (
+        kmer_front_packed,
+        kmer_front_words,
+        pack_runs,
+        pack_runs_plain,
+    )
     from krakenuniq_tpu_torch.formats import read_kdb
     from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
     from krakenuniq_tpu_torch.taxonomy.resolve import _scores_plain, scores
@@ -807,15 +918,19 @@ def phase_main(reps: int):
     k, nt = 31, 12
     db_dir, genomes, synth_s = ensure_db_dir(N_SPECIES, GENOME_LEN, k, nt, PAD_NODES, BALLAST)
     reads_path = os.path.join(db_dir, f"reads_{N_READS}.fa")
+    t = time.time()
     if not os.path.exists(reads_path):
         write_reads(reads_path + ".tmp", genomes, N_READS)
         os.replace(reads_path + ".tmp", reads_path)
+    reads_s = time.time() - t
 
     t = time.time()
     c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
     load_s = time.time() - t
     db = c.dbs[0]
     log(f"loaded in {load_s:.1f}s {db.timings}; lr={db.hash_lb}, {db.table_bytes / 1e9:.3f} GB table")
+    if c.route != "span":
+        raise AssertionError(f"phase 4 takes the {c.route} route, not the span route")
     _, keys, _ = read_kdb(os.path.join(db_dir, "database.kdb"))
     probe_check(db, keys)
     del keys
@@ -835,10 +950,13 @@ def phase_main(reps: int):
     run_s = time.time() - t
     launches = dict(_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
-    missing = [n for n in ("scores", "kmer_front", "chd_probe") if launches[n] == 0]
+    log(f"main path: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
+    missing = [n for n in ("scores", "kmer_front", "chd_probe", "pack_runs") if launches[n] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
+    if c.n_units or launches["pack_runs"] != c.n_spans:
+        raise AssertionError(f"main path ran {c.n_units} Python-route units; "
+                             f"{launches['pack_runs']} pack_runs launches for {c.n_spans} spans")
 
     # outputs: one line per read, calls against each read's true species
     n_lines = n_right = n_class = 0
@@ -855,31 +973,37 @@ def phase_main(reps: int):
             f"main path output wrong: {n_lines} lines, {n_right} right calls, {report_rows} report rows"
         )
 
-    # one full work unit: kernels vs the same step forced to the plain versions
-    unit = next(c._work_units(reads_path))[0]
-    enc = c._encode_unit(unit)
-    out_k = c._device_step(enc.codes, enc.ambig, enc.lengths)
-    out_p = c._device_step(enc.codes, enc.ambig, enc.lengths, plain=True)
+    # one full span: the kernels' step against the same step forced to the
+    # plain versions
+    kind, buf, offs, _, _ = next(c._iter_native_spans(reads_path))
+    if kind != "span":
+        raise AssertionError(f"the first chunk of the reads took the {kind} path")
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    out_k = c._span_step(codes_w, ambig_w, lengths_np)
+    out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
     torch.cuda.synchronize()
     for key in out_p:
         if not torch.equal(out_k[key], out_p[key]):
-            raise AssertionError(f"work unit: kernel step differs from plain step in {key!r}")
-    b, lb = enc.codes.shape
-    log(f"work unit [{b}, {lb}] ({len(unit)} reads): kernel step == plain step")
+            raise AssertionError(f"span: kernel step differs from plain step in {key!r}")
+    b, lbw = codes_w.shape
+    lb = 16 * lbw
+    log(f"span [{b}, {lb}] ({len(offs)} reads): kernel step == plain step")
 
-    # each kernel at this unit's main-path inputs
-    codes = torch.from_numpy(enc.codes).cuda()
-    ambig = torch.from_numpy(enc.ambig).cuda()
+    # each kernel at this span's main-path inputs
+    cw = torch.from_numpy(codes_w.view(np.int32)).cuda()
+    aw = torch.from_numpy(ambig_w.view(np.int32)).cuda()
+    p = c._cfg.hll_p
     front = check_kernel(
-        "kmer_front", (b, lb),
-        lambda: kmer_front(codes, ambig, k, c._cfg.hll_p),
-        lambda: kmer_front_plain(codes, ambig, k, c._cfg.hll_p),
-        reps=reps, bound=front_bound(b, lb, k),
+        "kmer_front packed", (b, lb),
+        lambda: kmer_front_words(cw, aw, k, p),
+        lambda: kmer_front_packed(cw, aw, lb, k, p),
+        reps=reps, bound=front_words_bound(b, lb, k),
     )
-    hashes, _, kmer_ambig = kmer_front(codes, ambig, k, c._cfg.hll_p)
+    hashes, _, kmer_ambig = kmer_front_words(cw, aw, k, p)
     w = lb - k + 1
-    lengths = torch.from_numpy(enc.lengths).cuda()
-    valid = torch.arange(w, device=codes.device)[None, :] < (lengths - (k - 1))[:, None]
+    lengths = torch.from_numpy(lengths_np).cuda()
+    n_kmers = torch.clamp(lengths - (k - 1), min=0)
+    valid = torch.arange(w, device="cuda")[None, :] < n_kmers[:, None]
     search = valid & ~kmer_ambig
     planes = c._db_planes[0]
     probe = check_kernel(
@@ -888,9 +1012,9 @@ def phase_main(reps: int):
         lambda: (hash_lookup_plain(planes, hashes, search),),
         reps=reps, bound=probe_bound(search), extra=probe_floor(planes[1], int(search.sum()), 29),
     )
-    t_dense = out_k["taxa_dense"].long()
+    t_dense = out_k["taxa_dense"]
     hit = t_dense != 0
-    rows = c._io[t_dense]  # [B, W, 2]: the kernel reads both halves in place
+    rows = c._io[t_dense.long()]  # [B, W, 2]: the kernel reads both halves in place
     tins, touts = rows[..., 0], rows[..., 1]
     score = check_kernel(
         "scores", (b, w),
@@ -898,25 +1022,46 @@ def phase_main(reps: int):
         lambda: (_scores_plain(tins, touts, hit),),
         reps=reps, bound=scores_bound(hit),
     )
+    # the compact rows' inputs: the dense call and hit count of each read
+    r = c._cfg_packed.max_runs
+    call_dense = (out_k["packed"][:, r] >> 16) & 0xFFFF
+    hits = hit.sum(dim=1, dtype=torch.int32)
+    ambig = out_k["ambig"]
+    rle = check_kernel(
+        "pack_runs compact", (b, w),
+        lambda: (pack_runs(t_dense, ambig, n_kmers, call_dense, hits, r, "compact"),),
+        lambda: (pack_runs_plain(t_dense, ambig, n_kmers, call_dense, hits, r, "compact"),),
+        reps=reps, bound=rle_bound(n_kmers, w, r + 1), extra={"max_runs": r},
+    )
+    if not torch.equal(pack_runs(t_dense, ambig, n_kmers, call_dense, hits, r, "compact"), out_k["packed"]):
+        raise AssertionError("pack_runs on the span's planes differs from the step's packed rows")
+    n_ov = int(((out_k["packed"][: len(offs), r] & 0xFFFF) > r).sum())
 
-    n_units = max(c.n_units, 1)
+    spans = max(c.n_spans, 1)
     emit({
         "phase": "main_path",
+        "route": c.route,
         "db_keys": int(db.key_ct),
         "taxonomy_nodes": int(c.taxonomy.size),
         "pool_ids": int(db.pool.size) if db.pool is not None else None,
         "table_gb": db.table_bytes / 1e9,
         "synth_s": synth_s,
+        "reads_file_s": reads_s,
         "load_s": load_s,
+        "placement_s": db.timings.get("build_place"),
         "load_steps_s": db.timings,
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
-        # run_s = classify_s (c.run: parse, units) + the report (write_report)
+        # run_s = classify_s (c.run: parse, spans) + the report (write_report)
         "classify_s": classify_s,
-        "units": c.n_units,
-        "host_s_per_unit": c.host_seconds / n_units,
-        "device_step_s_per_unit": c.device_seconds / n_units,
+        "spans": c.n_spans,
+        "span_shape": [b, lb],
+        "overflow_rows_span0": n_ov,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
         "classified": n_class,
         "calls_right": n_right,
         "max_memory_allocated_gb": peak / 1e9,
@@ -924,7 +1069,7 @@ def phase_main(reps: int):
     })
     run = {"c": c, "reads": reads_path, "kraken": out_path, "report": report_path,
            "reads_per_s": c.total_sequences / run_s}
-    return {"scores": score, "kmer_front": front, "chd_probe": probe}, launches, run
+    return {"scores": score, "kmer_front": front, "chd_probe": probe, "pack_runs": rle}, launches, run
 
 
 # ------------------------------------------------------------------ phase 5
@@ -940,6 +1085,8 @@ def phase_counters(run4, reps: int):
     from krakenuniq_tpu_torch.classify.sparse_exact import sparse_stats_core
 
     c = Classifier.with_shared_db(run4["c"], device_counters=True)
+    if c.route != "python":
+        raise AssertionError(f"phase 5 takes the {c.route} route")
     dc = c.dev_counters
     if dc.host_stats or dc.sparse_cap == 0 or dc.lut is not None:
         raise AssertionError("phase 5 should run the pool layout with device sparse stats")
@@ -1057,6 +1204,7 @@ KERNELS = {
     "taxon_counts": ("krakenuniq_tpu_torch/csrc/taxon_counts.cu", "tools/counts_mxu_exp.py:35"),
     "hll_regmax": ("krakenuniq_tpu_torch/csrc/hll_regmax.cu", "krakenuniq_tpu/classify/device_counters.py:109"),
     "row_gather": ("krakenuniq_tpu_torch/csrc/row_gather.cu", "tools/probe_dma_exp.py:42"),
+    "pack_runs": ("krakenuniq_tpu_torch/csrc/pack_runs.cu", "krakenuniq_tpu/classify/device_step.py:408"),
 }
 
 
@@ -1085,6 +1233,12 @@ def main(argv=None) -> int:
     t = time.time()
     paths = _kernels.build()
     log(f"kernels built in {time.time() - t:.1f}s: {sorted(paths)}")
+    if not args.kernels_only:
+        from krakenuniq_tpu_torch import _native_build
+
+        t = time.time()
+        so = _native_build.build()
+        log(f"native host module built in {time.time() - t:.1f}s: {so}")
 
     gather_rec = phase_kernels(k=31)
     if args.kernels_only:

@@ -8,10 +8,12 @@ and an unchanged one is reused. `build()` compiles every source at once, one
 `nvcc` process each.
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
-wrappers (device_step.kmer_front, hash_lookup.hash_lookup_kmers,
-resolve.scores, device_counters.taxon_counts, device_counters.hll_regmax,
-tools.probe_gather.row_gather) call it exactly where they launch, so a run
-can show that its main path went through the kernels.
+wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
+hash_lookup.hash_lookup_kmers, resolve.scores, device_counters.taxon_counts,
+device_counters.hll_regmax, tools.probe_gather.row_gather) call it exactly
+where they launch, so a run can show that its main path went through the
+kernels. A library may hold a second launching entry point (`ENTRIES`);
+its launches count under the library's name.
 """
 
 from __future__ import annotations
@@ -48,6 +50,15 @@ SIGNATURES = {
     "hll_regmax": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # table, q, out, n, n_rows, row_words, depth, copies per lane, stream
     "row_gather": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
+    # ids, kmer_ambig, n_kmers, call, hits, map (NULL: none), n_map, out, B,
+    # W, R, layout, row words, stream
+    "pack_runs": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+}
+# launching entry points besides a library's own kuniq_<name>:
+# entry -> (library, C signature)
+ENTRIES = {
+    # packed words in, the kmer_front kernel's outputs out
+    "kmer_front_packed": ("kmer_front", SIGNATURES["kmer_front"]),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -144,10 +155,12 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream; tensors in `args`
-    are passed by data pointer. Raises on a refused launch. Enters the
-    device's context only when another device is current."""
-    fn = entry(name, f"kuniq_{name}", SIGNATURES[name])
+    """Launch kernel `name` (a library or an `ENTRIES` entry point) on
+    `device`'s current stream; tensors in `args` are passed by data
+    pointer, None as NULL. Raises on a refused launch. Enters the device's
+    context only when another device is current."""
+    lib, sig = ENTRIES.get(name, (name, SIGNATURES.get(name)))
+    fn = entry(lib, f"kuniq_{name}", sig)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
@@ -159,4 +172,4 @@ def launch(name: str, device: torch.device, *args) -> None:
             rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[lib] += 1

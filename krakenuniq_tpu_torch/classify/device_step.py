@@ -1,14 +1,16 @@
 """The classify step on one padded read batch, on a torch device.
 
 Counterpart of krakenuniq_tpu/classify/device_step.py (classify_step_core)
-for the resident CHD-hash path with no RLE packing (max_runs = 0):
-  2-bit windows -> canonical k-mers -> murmur hashes + HLL encodings
-  (`kmer_front` kernel) -> CHD lookup per database, hierarchically
-  (`chd_probe` kernel) -> per-read tree resolution (`scores` kernel).
+for the resident CHD-hash path:
+  2-bit windows (or the span route's packed words) -> canonical k-mers ->
+  murmur hashes + HLL encodings (`kmer_front` kernel) -> CHD lookup per
+  database, hierarchically (`chd_probe` kernel) -> per-read tree resolution
+  (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel).
 
 The returned dict carries what the host text/report layer needs, with the
 JAX step's keys: uint32 planes come back as int32 bit patterns (read them on
-the host with `.numpy().view(np.uint32)`).
+the host with `.numpy().view(np.uint32)`), the u16 `hll_dense` plane as
+int16 bit patterns (`.view(np.uint16)`).
 """
 
 from __future__ import annotations
@@ -116,6 +118,17 @@ def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb
     return hashes, encode_hash_device(hashes, p), amb
 
 
+def unpack_input(codes_packed: torch.Tensor, ambig_packed: torch.Tensor):
+    """The packed feed (int32 [B, LB/16] code words, [B, LB/32] flag words
+    of kuniq_native.encode_unit_packed) -> the (B, LB) uint8 codes and bool
+    flags (krakenuniq_tpu/classify/device_step.py:54-70)."""
+    b, lbw = codes_packed.shape
+    dev = codes_packed.device
+    c = i32_to_u32(codes_packed)[:, :, None] >> (2 * torch.arange(16, device=dev))
+    a = i32_to_u32(ambig_packed)[:, :, None] >> torch.arange(32, device=dev)
+    return (c & 3).to(torch.uint8).reshape(b, lbw * 16), ((a & 1) != 0).reshape(b, -1)
+
+
 def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
     """Canonical k-mer hashes, their HLL encodings and the per-k-mer
     ambiguity of a (B, LB) batch of 2-bit codes (uint8 in 0..3) and base
@@ -139,6 +152,127 @@ def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
     return hashes, enc, kmer_ambig
 
 
+def kmer_front_words(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, k: int, p: int):
+    """`kmer_front` on the span route's packed feed: int32 [B, LB/16] code
+    words and [B, LB/32] flag words (encode_unit_packed's layout, LB a
+    multiple of 32). CUDA tensors launch the kernel's packed entry point,
+    which stages the words as they are; CPU tensors run `kmer_front_packed`."""
+    if codes_packed.dim() != 2 or ambig_packed.dim() != 2:
+        raise TypeError("kmer_front_words: codes and ambig must be [B, words]")
+    b, lbw = codes_packed.shape
+    lb = 16 * lbw
+    if ambig_packed.shape != (b, lbw // 2) or lbw % 2:
+        raise ValueError(
+            f"kmer_front_words: need [B, LB/16] codes and [B, LB/32] flags with LB a "
+            f"multiple of 32, got {tuple(codes_packed.shape)} and {tuple(ambig_packed.shape)}"
+        )
+    if not 1 <= k <= 31 or lb < k or not 0 <= p < 32:
+        raise ValueError(f"kmer_front_words: need 1 <= k <= 31, LB >= k, 0 <= p < 32 (k={k}, LB={lb}, p={p})")
+    if codes_packed.device.type == "cpu":
+        return kmer_front_packed(codes_packed, ambig_packed, lb, k, p)
+    dev = _kernels.check_cuda("kmer_front", codes=codes_packed, ambig=ambig_packed)
+    if codes_packed.dtype != torch.int32 or ambig_packed.dtype != torch.int32:
+        raise TypeError("kmer_front_words: the words must be int32")
+    w = lb - k + 1
+    hashes = torch.empty((b, w), dtype=torch.int64, device=dev)
+    enc = torch.empty((b, w), dtype=torch.int32, device=dev)
+    kmer_ambig = torch.empty((b, w), dtype=torch.bool, device=dev)
+    _kernels.launch("kmer_front_packed", dev, codes_packed, ambig_packed, hashes, enc, kmer_ambig,
+                    b, lb, k, p)
+    return hashes, enc, kmer_ambig
+
+
+# the RLE row layouts of `pack_runs` (csrc/pack_runs.cu) and their codes in
+# the kernel
+_LAYOUTS = {"compact": 0, "dense": 1, "wide": 2}
+
+
+def pack_runs_cols(layout: str, r: int) -> int:
+    """Words in a `layout` row with r run slots."""
+    return {"compact": r + 1, "dense": r + 2, "wide": r + r // 2 + 3}[layout]
+
+
+def _pack_runs_check(ids, max_runs: int, layout: str) -> None:
+    if layout not in _LAYOUTS:
+        raise ValueError(f"pack_runs: layout must be one of {sorted(_LAYOUTS)}, got {layout!r}")
+    if max_runs <= 0 or max_runs % 2:
+        raise ValueError("max_runs must be even and positive (paired 16-bit run lengths)")
+    if ids.dim() != 2 or ids.shape[1] >= 1 << 15:
+        raise ValueError("RLE packing supports at most 2^15-1 k-mers per read")
+
+
+def pack_runs_plain(ids, kmer_ambig, n_kmers, call, hits, max_runs: int, layout: str,
+                    map_table=None):
+    """Plain version of `pack_runs`: the JAX package's `_pack_runs`
+    (krakenuniq_tpu/classify/device_step.py:408-490) in torch, a cumsum of
+    the change flags and masked reductions over the R run slots."""
+    _pack_runs_check(ids, max_runs, layout)
+    b, w = ids.shape
+    r = max_runs
+    dev = ids.device
+    idl = i32_to_u32(ids)
+    valid = torch.arange(w, device=dev)[None, :] < n_kmers[:, None]
+    code = torch.where(kmer_ambig, -1, idl)
+    code = torch.where(valid, code, -2)
+    prev = torch.cat([torch.full((b, 1), -3, dtype=code.dtype, device=dev), code[:, :-1]], dim=1)
+    change = (code != prev) & valid
+    run_id = torch.cumsum(change, dim=1, dtype=torch.int32) - 1
+    n_runs = torch.where(valid, run_id, -1).max(dim=1).values.long() + 1
+    in_slot = valid[:, None, :] & (run_id[:, None, :] == torch.arange(r, device=dev)[None, :, None])
+    run_lens = in_slot.sum(dim=2)
+    run_amb = (in_slot & kmer_ambig[:, None, :]).any(dim=2).long() << 15
+    run_ids = torch.where(in_slot, idl[:, None, :], 0).max(dim=2).values
+    call_u, hits_u = i32_to_u32(call), i32_to_u32(hits)
+    meta = ((hits_u << 16) | n_runs) & 0xFFFFFFFF
+    if layout != "wide":
+        words = ((run_ids << 16) & 0xFFFFFFFF) | run_amb | run_lens
+        if layout == "compact":
+            tail = [((call_u << 16) & 0xFFFFFFFF) | n_runs]
+        else:
+            tail = [call_u, meta]
+        return u32_to_i32(torch.cat([words] + [t[:, None] for t in tail], dim=1))
+    run_vals = run_ids
+    if map_table is not None:
+        n_map = map_table.shape[0]
+        run_vals = torch.where(
+            run_ids < n_map, i32_to_u32(map_table)[run_ids.clamp(max=max(n_map - 1, 0))], 0
+        )
+    lens16 = run_lens | run_amb
+    lens2 = lens16[:, 0::2] | (lens16[:, 1::2] << 16)
+    tail = [call_u, i32_to_u32(n_kmers), meta]
+    return u32_to_i32(torch.cat([run_vals, lens2] + [t[:, None] for t in tail], dim=1))
+
+
+def pack_runs(ids, kmer_ambig, n_kmers, call, hits, max_runs: int, layout: str, map_table=None):
+    """Each read's RLE row, int32 [B, cols] (u32 bit patterns; layouts in
+    csrc/pack_runs.cu): ids int32 [B, W] (dense ids), kmer_ambig bool
+    [B, W], n_kmers, call and hits int32 [B], map_table int32 [T] (wide
+    layout only, optional). CUDA tensors launch the `pack_runs` kernel;
+    CPU tensors run `pack_runs_plain`. Needs W < 2^15 and an even R."""
+    if ids.device.type == "cpu":
+        return pack_runs_plain(ids, kmer_ambig, n_kmers, call, hits, max_runs, layout, map_table)
+    _pack_runs_check(ids, max_runs, layout)
+    if map_table is not None and layout != "wide":
+        raise ValueError("pack_runs: map_table belongs to the wide layout")
+    tensors = dict(ids=ids, kmer_ambig=kmer_ambig, n_kmers=n_kmers, call=call, hits=hits)
+    if map_table is not None:
+        tensors["map_table"] = map_table
+    dev = _kernels.check_cuda("pack_runs", **tensors)
+    if kmer_ambig.dtype != torch.bool or any(
+        t.dtype != torch.int32 for k, t in tensors.items() if k != "kmer_ambig"
+    ):
+        raise TypeError("pack_runs: kmer_ambig must be bool and the rest int32")
+    b, w = ids.shape
+    if kmer_ambig.shape != ids.shape or any(t.shape != (b,) for t in (n_kmers, call, hits)):
+        raise ValueError("pack_runs: need [B, W] ids and kmer_ambig and [B] n_kmers, call, hits")
+    cols = pack_runs_cols(layout, max_runs)
+    out = torch.empty((b, cols), dtype=torch.int32, device=dev)
+    n_map = 0 if map_table is None else map_table.shape[0]
+    _kernels.launch("pack_runs", dev, ids, kmer_ambig, n_kmers, call, hits, map_table, n_map,
+                    out, b, w, max_runs, _LAYOUTS[layout], cols)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     k: int
@@ -146,6 +280,20 @@ class StepConfig:
     hll_p: int = 12
     quick: bool = False
     min_hits: int = 1
+    # the span route's feed: codes and ambig arrive as encode_unit_packed's
+    # int32 words ([B, LB/16] codes, [B, LB/32] flags)
+    packed_input: bool = False
+    # > 0: emit each read's RLE row ("packed", `pack_runs`) with this many
+    # run slots (even); reads with more runs report n_runs > max_runs and
+    # the host formats them from taxa_dense / ambig
+    max_runs: int = 0
+    # RLE rows of dense id<<16 | amb<<15 | len words and the u16 hll_dense
+    # feed (ids below 2^16: the value pool, or a small taxonomy). The step's
+    # wide rows and u64 feed (False) come with the span taxon dictionary
+    # (ROADMAP queue 1, item 5); pack_runs has the wide layout already
+    dense_runs: bool = False
+    # restrict the returned dict to these keys (None = all)
+    outputs: tuple | None = None
 
 
 def classify_step_core(
@@ -154,8 +302,8 @@ def classify_step_core(
     io: torch.Tensor,  # int32 [T, 2]: Euler (tin, tout) per id
     parent: torch.Tensor,
     root_dense: int,
-    codes: torch.Tensor,  # uint8 [B, LB]
-    ambig: torch.Tensor,  # bool [B, LB]
+    codes: torch.Tensor,  # uint8 [B, LB], or int32 [B, LB/16] words (packed_input)
+    ambig: torch.Tensor,  # bool [B, LB], or int32 [B, LB/32] words (packed_input)
     lengths: torch.Tensor,  # int32 [B]
     cfg: StepConfig,
     plain: bool = False,
@@ -163,11 +311,18 @@ def classify_step_core(
     """One classify step. `plain=True` runs the plain PyTorch version of
     every kernel on any device, for holding the kernels against it."""
     k = cfg.k
-    b, lb = codes.shape
-    w = lb - k + 1
-    front = kmer_front_plain if plain else kmer_front
     lookup = hash_lookup_plain if plain else hash_lookup_kmers
-    hashes, enc, kmer_ambig = front(codes, ambig, k, cfg.hll_p)
+    if cfg.packed_input:
+        b, lb = codes.shape[0], 16 * codes.shape[1]
+        if plain:
+            hashes, enc, kmer_ambig = kmer_front_packed(codes, ambig, lb, k, cfg.hll_p)
+        else:
+            hashes, enc, kmer_ambig = kmer_front_words(codes, ambig, k, cfg.hll_p)
+    else:
+        b, lb = codes.shape
+        front = kmer_front_plain if plain else kmer_front
+        hashes, enc, kmer_ambig = front(codes, ambig, k, cfg.hll_p)
+    w = lb - k + 1
 
     pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
     n_kmers = torch.clamp(lengths - (k - 1), min=0)[:, None]  # 0 if read shorter than k
@@ -183,9 +338,6 @@ def classify_step_core(
         word = lookup(plane, hashes, remaining)
         taxon_dense = torch.where(remaining, word, taxon_dense)
         found = found | (word != 0)
-    # stored values are device ids; original taxids for the hit-list planes
-    # (taxid_table[0] == 0, so misses map to 0)
-    taxon = taxid_table[taxon_dense.long()]
     hit = found
 
     if cfg.quick:
@@ -214,8 +366,7 @@ def classify_step_core(
     # HLL: every processed non-ambiguous k-mer is counted, including misses
     # under taxon 0 (classify.cpp:939)
     hll_lanes = processed & ~kmer_ambig
-    return {
-        "taxa": taxon,
+    out = {
         "taxa_dense": taxon_dense,
         "ambig": kmer_ambig,
         "processed": processed,
@@ -226,3 +377,29 @@ def classify_step_core(
         "hits": total_hits,
         "n_kmers": n_kmers[:, 0],
     }
+    if cfg.outputs is None or "taxa" in cfg.outputs:
+        # stored values are device ids; original taxids for the hit-list
+        # planes (taxid_table[0] == 0, so misses map to 0). A full-plane
+        # gather: the span route leaves it out and maps rows on the host.
+        out["taxa"] = taxid_table[taxon_dense.long()]
+    if cfg.max_runs > 0:
+        if not cfg.dense_runs:
+            raise NotImplementedError(
+                "the step's wide RLE rows come with the span taxon dictionary "
+                "(ROADMAP queue 1, item 5)"
+            )
+        # runs group on dense ids (injective, so the boundaries equal the
+        # original ids'); the compact layout carries the dense call, the
+        # quick one the original call
+        layout = "dense" if cfg.quick else "compact"
+        out["packed"] = (pack_runs_plain if plain else pack_runs)(
+            taxon_dense, kmer_ambig, n_kmers[:, 0],
+            call_dense if layout == "compact" else call, total_hits, cfg.max_runs, layout,
+        )
+        # 6 B per lane for the host's HLL fold: the encoding and a u16 id
+        # (0xFFFF where the lane is not counted)
+        out["hll_enc"] = enc
+        out["hll_dense"] = torch.where(hll_lanes, taxon_dense & 0xFFFF, 0xFFFF).to(torch.int16)
+    if cfg.outputs is not None:
+        out = {key: out[key] for key in cfg.outputs}
+    return out

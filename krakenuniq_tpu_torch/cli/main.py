@@ -4,7 +4,10 @@ Flag-compatible with the reference `krakenuniq` wrapper
 (scripts/krakenuniq:76-100) for the options this port serves; run it as
 `python -m krakenuniq_tpu_torch.cli.main --db DIR reads.fa`. `--device cpu`
 runs the plain PyTorch versions of the kernels on the CPU; the default
-`cuda` needs a card.
+`cuda` needs a card. As in the reference, `--threads` (default
+$KRAKEN_NUM_THREADS) is accepted and unused, `--preload` is a no-op (the
+database is resident on the device anyway), and a missing taxDB is written
+from the database's taxonomy/{names,nodes}.dmp.
 """
 
 from __future__ import annotations
@@ -20,12 +23,23 @@ from .. import __version__
 from .dblib import find_db
 
 
+def _env_threads() -> int | None:
+    """KRAKEN_NUM_THREADS as a thread count (the reference wrapper's
+    fallback, krakenuniq:102-104); unset or not a number gives None."""
+    try:
+        return int(os.environ.get("KRAKEN_NUM_THREADS", "")) or None
+    except ValueError:
+        return None
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="krakenuniq-tpu-torch",
         description="Taxonomic sequence classifier with unique k-mer counting (PyTorch/CUDA)",
     )
     p.add_argument("--db", action="append", default=[], help="database directory (repeatable: hierarchical lookup)")
+    p.add_argument("--threads", type=int, default=_env_threads(), help="accepted for compatibility")
+    p.add_argument("--preload", action="store_true", help="accepted no-op (the database is resident)")
     p.add_argument("--fasta-input", action="store_true", help="(format is auto-detected)")
     p.add_argument("--fastq-input", action="store_true", help="(format is auto-detected)")
     p.add_argument("--gzip-compressed", action="store_true", help="(auto-detected)")
@@ -60,11 +74,12 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..classify import Classifier, ClassifyOptions
     from ..formats.seqio import merge_paired, open_output
+    from ..taxonomy import Taxonomy
 
     if not args.db:
         print("Need to specify a database with --db!", file=sys.stderr)
         return 1
-    if not args.files:
+    if not args.files and not args.preload:
         print("Need to specify input filenames!", file=sys.stderr)
         return 1
     if args.min_hits > 1 and not args.quick:
@@ -83,9 +98,16 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         print(f"krakenuniq-tpu-torch: {e}", file=sys.stderr)
         return 1
-    if not os.path.exists(os.path.join(db_dirs[0], "taxDB")):
-        print(f"{os.path.join(db_dirs[0], 'taxDB')} missing", file=sys.stderr)
-        return 1
+    # write taxDB from the NCBI dumps when it is missing (scripts/krakenuniq:213-221)
+    taxdb_path = os.path.join(db_dirs[0], "taxDB")
+    if not os.path.exists(taxdb_path):
+        nodes = os.path.join(db_dirs[0], "taxonomy", "nodes.dmp")
+        names = os.path.join(db_dirs[0], "taxonomy", "names.dmp")
+        if not (os.path.exists(nodes) and os.path.exists(names)):
+            print(f"{taxdb_path} missing and taxonomy dumps not found", file=sys.stderr)
+            return 1
+        print(f"Taxonomy database not at {taxdb_path} - creating it ...", file=sys.stderr)
+        Taxonomy.from_ncbi_dumps(names, nodes).write_taxdb(taxdb_path)
 
     opts = ClassifyOptions(
         quick=args.quick,

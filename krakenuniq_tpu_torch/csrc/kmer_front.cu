@@ -31,6 +31,14 @@
 // lanes, so the int64/int32/uint8 stores are coalesced. No intermediate
 // plane touches device memory, and no thread loads a base from device
 // memory more than once.
+//
+// Packed input (kuniq_kmer_front_packed, the span route's feed): the rows
+// arrive as encode_unit_packed's int32 words ([B, LB/16] codes, [B, LB/32]
+// flags, LB a multiple of 32), which is the staged layout already, with
+// each row on a word boundary. So the stage is a copy of the block's words
+// (3 bits per base read instead of 16) and the compute loop is the same.
+// It replaces the JAX package's unpack_input (device_step.py:54-70), whose
+// unpacked [B, LB] planes never exist here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,6 +86,31 @@ __device__ __forceinline__ uint64_t window64(const uint64_t* s, int bit) {
   return (s[w] >> sh) | ((s[w + 1] << 1) << (63 - sh));
 }
 
+// The per-lane work on a block's staged bit strings (code bit 2f and flag
+// bit f hold the block's base f - off): lanes idx of the block's rows.
+__device__ __forceinline__ void front_lanes(const uint64_t* c64, const uint64_t* a64, int offc,
+                                            int offa, long long o0, int rows, int LB, int W,
+                                            int k, int p, uint64_t* __restrict__ hash_out,
+                                            uint32_t* __restrict__ enc_out,
+                                            uint8_t* __restrict__ amb_out) {
+  const uint64_t mask2k = (1ull << (2 * k)) - 1;
+  const uint64_t maskk = (1ull << k) - 1;
+  for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
+    const int rr = (int)((unsigned)idx / (unsigned)W);
+    const int f = rr * LB + (idx - rr * W);  // the window's first base in the block
+    const uint64_t r = window64(c64, 2 * (f + offc)) & mask2k;
+    const bool amb = (window64(a64, f + offa) & maskk) != 0;
+    uint64_t x = __brevll(r);
+    x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+    const uint64_t fwd = x >> (64 - 2 * k);
+    const uint64_t rc = ~r & mask2k;
+    const uint64_t h = murmur3_finalizer(fwd < rc ? fwd : rc);
+    hash_out[o0 + idx] = h;
+    enc_out[o0 + idx] = encode_hash(h, p);
+    amb_out[o0 + idx] = amb;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__ ambig,
                   uint64_t* __restrict__ hash_out, uint32_t* __restrict__ enc_out,
@@ -119,25 +152,31 @@ kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__
   }
   __syncthreads();
 
-  const uint64_t* c64 = smem;
-  const uint64_t* a64 = smem + nc64;
-  const uint64_t mask2k = (1ull << (2 * k)) - 1;
-  const uint64_t maskk = (1ull << k) - 1;
-  const long long o0 = r0 * W;
-  for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
-    const int rr = (int)((unsigned)idx / (unsigned)W);
-    const int f = rr * LB + (idx - rr * W);  // the window's first base in the block
-    const uint64_t r = window64(c64, 2 * (f + offc)) & mask2k;
-    const bool amb = (window64(a64, f + offa) & maskk) != 0;
-    uint64_t x = __brevll(r);
-    x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
-    const uint64_t fwd = x >> (64 - 2 * k);
-    const uint64_t rc = ~r & mask2k;
-    const uint64_t h = murmur3_finalizer(fwd < rc ? fwd : rc);
-    hash_out[o0 + idx] = h;
-    enc_out[o0 + idx] = encode_hash(h, p);
-    amb_out[o0 + idx] = amb;
-  }
+  front_lanes(smem, smem + nc64, offc, offa, r0 * W, rows, LB, W, k, p, hash_out, enc_out,
+              amb_out);
+}
+
+// The packed feed: row b's codes are words [b * LB/16, (b + 1) * LB/16) of
+// `codes` and its flags words [b * LB/32, (b + 1) * LB/32) of `ambig`, so a
+// block's rows are one contiguous run of words in each plane.
+__global__ void __launch_bounds__(kThreads)
+kmer_front_packed_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restrict__ ambig,
+                         uint64_t* __restrict__ hash_out, uint32_t* __restrict__ enc_out,
+                         uint8_t* __restrict__ amb_out, int B, int LB, int k, int p, int R) {
+  extern __shared__ uint64_t smem[];
+  const long long r0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, (long long)B - r0);
+  const int W = LB - k + 1;
+  const int ncw = rows * (LB / 16), naw = rows * (LB / 32);
+  const int nc64 = (ncw + 1) / 2 + 1, na64 = (naw + 1) / 2 + 1;  // + one zero word
+  uint32_t* s_code = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s_flag = reinterpret_cast<uint32_t*>(smem + nc64);
+  const uint32_t* cw = codes + r0 * (LB / 16);
+  const uint32_t* aw = ambig + r0 * (LB / 32);
+  for (int c = threadIdx.x; c < 2 * nc64; c += kThreads) s_code[c] = c < ncw ? cw[c] : 0u;
+  for (int c = threadIdx.x; c < 2 * na64; c += kThreads) s_flag[c] = c < naw ? aw[c] : 0u;
+  __syncthreads();
+  front_lanes(smem, smem + nc64, 0, 0, r0 * W, rows, LB, W, k, p, hash_out, enc_out, amb_out);
 }
 
 }  // namespace
@@ -154,6 +193,24 @@ extern "C" int kuniq_kmer_front(const void* codes, const void* ambig, void* hash
   const int grid = (B + R - 1) / R;
   kmer_front_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint8_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
+      (uint8_t*)amb_out, B, LB, k, p, R);
+  return (int)cudaGetLastError();
+}
+
+// codes: int32 [B, LB/16] and ambig: int32 [B, LB/32] words of
+// encode_unit_packed (LB a multiple of 32); the outputs as above.
+extern "C" int kuniq_kmer_front_packed(const void* codes, const void* ambig, void* hash_out,
+                                       void* enc_out, void* amb_out, int B, int LB, int k,
+                                       int p, void* stream) {
+  if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
+  if (LB % 32 != 0) return (int)cudaErrorInvalidValue;
+  const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
+  const size_t smem = sizeof(uint64_t) * (size_t)((R * (LB / 16) + 1) / 2 + 1 +
+                                                  (R * (LB / 32) + 1) / 2 + 1);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (B + R - 1) / R;
+  kmer_front_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)codes, (const uint32_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
       (uint8_t*)amb_out, B, LB, k, p, R);
   return (int)cudaGetLastError();
 }

@@ -114,7 +114,8 @@ def load_database_dir(
         pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     table_vals = pool.pool_index(vals_dense) if pool is not None else vals_dense
     t1 = time.perf_counter()
-    host_planes, lr = build_hash_table(keys, table_vals)
+    build_steps: dict = {}
+    host_planes, lr = build_hash_table(keys, table_vals, timings=build_steps)
     del keys, vals, table_vals
     t2 = time.perf_counter()
     db = device_db_from_host(
@@ -122,5 +123,6 @@ def load_database_dir(
     )
     if db.hash_table[1].is_cuda:
         torch.cuda.synchronize(db.hash_table[1].device)
-    db.timings = {"read": t1 - t0, "build": t2 - t1, "upload": time.perf_counter() - t2}
+    db.timings = {"read": t1 - t0, "build": t2 - t1, "upload": time.perf_counter() - t2,
+                  **{f"build_{k}": v for k, v in build_steps.items()}}
     return db, taxonomy

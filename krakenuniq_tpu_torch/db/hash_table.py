@@ -14,14 +14,18 @@ lives in row (p + d0 + d1*q) mod 2^lr. A slot stores r next to the value and
 the row pins p, so a match pins all 64 bits of h: the lookup is exact. Empty
 slots are all-zero and "match" only r == 0 queries, yielding value 0 = miss.
 
-Placement, plane construction and the self-check probe all run on the host
-in numpy (the port has no native placement yet); the planes go to the device
-once validated (db/device_db.py). The JAX package's fused two-choice and
+Placement runs on the host in the port's native module (`_chd_place`,
+kuniq_native_torch.chd_place: a sequential largest-bucket-first search);
+`_chd_place_numpy` is its plain numpy version, which places differently but
+as exactly. Plane construction and the self-check probe run in numpy; the
+planes go to the device once validated (db/device_db.py). The JAX package's fused two-choice and
 two-level layouts are a later slice of the port: a failed CHD build raises
 HashBuildError instead of falling back.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -155,6 +159,13 @@ def _chd_place_numpy(hashes, lr: int, lg: int, seed: int = 0, max_attempts: int 
     return row_of, col_of, disp
 
 
+def _chd_place(hashes, lr: int, lg: int, seed: int = 0, max_attempts: int = 65536):
+    """Returns (row_of int32[n], col_of int8[n], disp uint32[2^lg]) or None,
+    from the native placement (built on first use; a failed build raises)."""
+    from .._native_build import native
+
+    return native().chd_place(np.ascontiguousarray(hashes, np.uint64), lr, lg, seed, max_attempts)
+
 
 def _host_planes_chd(row_of, col_of, hashes, values, lr: int, disp):
     """Host numpy construction of the CHD planes (module docstring):
@@ -206,24 +217,42 @@ def _self_check(host_planes, hashes, values, lr: int) -> int:
     return n_bad
 
 
-def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = True):
+def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = True,
+                     timings: dict | None = None):
     """Build the CHD planes for `keys` (uint64 k-mers) -> `values` (pool or
     dense ids). Returns ((disp4 uint32 [2^(lr-4), 4], rows uint32 [2^lr, 4]),
     lr). Placement is retried with three seeds per width, then the table
-    grows, up to 2^30 rows; every success is self-checked key by key."""
+    grows, up to 2^30 rows; every success is self-checked key by key.
+    `timings`, if given, receives the seconds of each step ("hash", "place",
+    "planes", "check"), summed over retries."""
+    t = timings if timings is not None else {}
+    t.update(hash=0.0, place=0.0, planes=0.0, check=0.0)
+    t0 = time.perf_counter()
+
+    def lap(step):
+        nonlocal t0
+        t1 = time.perf_counter()
+        t[step] += t1 - t0
+        t0 = t1
+
     n = len(keys)
     hashes = murmur3_finalizer(np.ascontiguousarray(keys, dtype=np.uint64))
     values = np.asarray(values).astype(np.uint32)
     vmax = int(values.max()) if n else 0
     lr = chd_min_lr(n, vmax)
+    lap("hash")
     while lr <= 30:
         for seed in range(3):
-            out = _chd_place_numpy(hashes, lr, max(2, lr - 2), seed=seed)
+            out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
+            lap("place")
             if out is None:
                 continue
             row_of, col_of, disp = out
             host = _host_planes_chd(row_of, col_of, hashes, values, lr, disp)
-            if not self_check or n == 0 or _self_check(host, hashes, values, lr) == 0:
+            lap("planes")
+            ok = not self_check or n == 0 or _self_check(host, hashes, values, lr) == 0
+            lap("check")
+            if ok:
                 return host, lr
         lr += 1
     raise HashBuildError(

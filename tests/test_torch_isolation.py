@@ -1,6 +1,8 @@
 """The port stands alone: krakenuniq_tpu_torch and chip_smoke.py import
-neither jax nor anything of krakenuniq_tpu, and a CUDA run without a card
-raises instead of falling back to the CPU."""
+neither jax nor anything of krakenuniq_tpu, importing them builds nothing,
+the port's native module is its own (never krakenuniq_tpu's kuniq_native
+library), and a CUDA run without a card raises instead of falling back to
+the CPU."""
 
 import ast
 import os
@@ -93,5 +95,40 @@ def test_kernel_wrappers_refuse_cpu_launch():
         _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
+        "pack_runs",
     }
     assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.LAUNCHES)
+
+
+def test_native_loader_is_the_ports_own():
+    """Importing every port module starts no compiler; the span route's
+    loader then builds (or reuses) kuniq_native_torch under the port's
+    _build/ and never maps the JAX package's kuniq_native library."""
+    mods = _port_modules()
+    code = (
+        "import subprocess, sys\n"
+        "sys.modules['jax'] = None\n"
+        "calls = []\n"
+        "real_run, real_popen = subprocess.run, subprocess.Popen\n"
+        "subprocess.run = lambda *a, **k: calls.append(a) or real_run(*a, **k)\n"
+        "subprocess.Popen = lambda *a, **k: calls.append(a) or real_popen(*a, **k)\n"
+        "import importlib\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "from krakenuniq_tpu_torch import _native_build\n"
+        "assert not calls and _native_build._module is None, calls\n"
+        "mod = _native_build.native()\n"
+        "assert mod.__name__ == 'kuniq_native_torch', mod\n"
+        "assert mod.__file__.startswith(_native_build.BUILD_DIR), mod.__file__\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'krakenuniq_tpu/kuniq_native' not in maps\n"
+        "assert 'kuniq_native_torch' in maps\n"
+        "bad = [m for m in sys.modules if m == 'krakenuniq_tpu' or m.startswith('krakenuniq_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
