@@ -25,9 +25,13 @@ Phases, each raising on failure:
      (both counts of a unit in one launch, over the 503-id pool, over the
      dense 2.4M-id space with zipf-skewed ids and over 58,112 and 58,113
      ids, the edge of its shared-memory form), pack_runs in its three row
-     layouts and the packed-input kmer_front at the unit and span shapes
-     (reads that overflow the run slots, ambiguous runs, reads shorter
-     than k); each
+     layouts and with the fused HLL feed (`compact+hll`; on a package
+     without the feed, its kernel plus the torch ops that built the feed,
+     timed over every card record of a call) and the packed-input
+     kmer_front at the unit and span shapes (reads that overflow the run
+     slots, ambiguous runs, reads shorter than k, quick-mode feed cuts),
+     pack_runs on a ragged [65535, 130] and on row-sliced planes off the
+     16-byte grid; each
      check times the wrapper call (`ms`, CUDA events, host launch path
      included) and the kernel alone (`device_ms`, torch.profiler, summed
      over a call's launches), and each chd_probe check the one-level
@@ -43,8 +47,12 @@ Phases, each raising on failure:
      classifying the JAX bench's N_READS = 1M zipf-1.5 150 bp reads
      through Classifier.run and write_report with every launch counter reset
      just before and read just after; the calls are checked against each
-     read's true species, and one full span is held against the same step
-     forced to the plain versions;
+     read's true species, one full span is held against the same step
+     forced to the plain versions, each kernel (pack_runs also in the fused
+     form the step launches, equal to the step's rows and feed) is timed on
+     that span's inputs, and one span step's card time is split by
+     operation (`span_step_device_ms_by_op`: busy and first-to-last ms, the
+     idle share between them, the top 8 records by time);
   5. the --device-counters path (the Python host route) on the same loaded
      database: Classifier.with_shared_db(..., device_counters=True)
      classifies the same reads with every launch counter reset just before
@@ -155,18 +163,20 @@ def queued_ms(fn, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
-def device_ms(fn, kname: str, reps: int, per_call: int = 1) -> tuple[float, str]:
+def device_ms(fn, kname: str, reps: int, per_call: int = 1, symbols=None) -> tuple[float, str]:
     """Median card milliseconds of kernel `kname` itself per call of fn(),
     over `reps` calls under torch.profiler: the kernel's own duration on
     the card, without the wrapper's host work or the other kernels fn()
     launches; a call that launches the kernel `per_call` times counts the
-    sum of its launches. A session that lost kernel records is run again
+    sum of its launches (`symbols` overrides SYMBOLS[kname]: ("",) counts
+    every card record). A session that lost kernel records is run again
     with a wider margin (PROFILE_MARGINS_S); when every session lost some,
     the time is queued_ms's. Returns the time and where it came from,
     "profiler" or "events"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    symbols = SYMBOLS[kname] if symbols is None else symbols
     fn()
     torch.cuda.synchronize()
     for margin in PROFILE_MARGINS_S:
@@ -177,7 +187,7 @@ def device_ms(fn, kname: str, reps: int, per_call: int = 1) -> tuple[float, str]
             torch.cuda.synchronize()
             time.sleep(margin)
         evs = sorted((e for e in prof.events()
-                      if e.device_type.name == "CUDA" and any(sym in e.name for sym in SYMBOLS[kname])),
+                      if e.device_type.name == "CUDA" and any(sym in e.name for sym in symbols)),
                      key=lambda e: e.time_range.start)
         if len(evs) == reps * per_call:
             durs = [e.device_time_total for e in evs]
@@ -187,6 +197,49 @@ def device_ms(fn, kname: str, reps: int, per_call: int = 1) -> tuple[float, str]
         log(f"profiler saw {len(evs)} {kname} kernels ({n_card} card records) in {reps} calls "
             f"of {per_call} launches, margin {margin} s")
     return queued_ms(fn, reps), "events"
+
+
+def device_ms_by_op(fn, reps: int, top: int = 8) -> dict:
+    """Where one call of fn() spends its card time: every card record
+    (kernels, copies, sets) of `reps` calls, each call followed by a
+    synchronize, under torch.profiler with device_ms's idle margins (a
+    session whose record counts are not the same for every call is run
+    again with a wider margin). Per call: `busy_ms`, the records' summed
+    durations; `span_ms`, the median time from a call's first record's
+    start to its last record's end, so `idle_share` = 1 - busy/span; and
+    the `top` record names by summed time (`ms`, `count` per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for margin in PROFILE_MARGINS_S:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(margin)
+        evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        names: dict = {}
+        for e in evs:
+            names.setdefault(e.name, []).append(e.device_time_total)
+        if not evs or len(evs) % reps or any(len(d) % reps for d in names.values()):
+            log(f"profiler saw {len(evs)} card records in {reps} calls, margin {margin} s")
+            continue
+        n = len(evs) // reps
+        spans = [(max(e.time_range.end for e in evs[i:i + n]) - min(e.time_range.start for e in evs[i:i + n]))
+                 for i in range(0, len(evs), n)]
+        busy = sum(e.device_time_total for e in evs) / reps / 1e3
+        span = statistics.median(spans) / 1e3
+        ops = sorted(((sum(d) / reps / 1e3, len(d) // reps, name) for name, d in names.items()), reverse=True)
+        return {
+            "busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span if span > 0 else None,
+            "records_per_call": n, "by": "profiler",
+            "top": [{"op": name[:96], "ms": ms, "count": cnt} for ms, cnt, name in ops[:top]],
+        }
+    return {"by": "lost", "busy_ms": None, "span_ms": None, "idle_share": None, "top": []}
 
 
 def max_abs_err(got, want) -> float:
@@ -202,15 +255,37 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, extra=None):
+def card_records(fn) -> int:
+    """The card records (kernels, copies) of one call of fn(): the count of
+    the first profiler session, over device_ms's idle margins, that kept
+    any (late in a long process a session can lose them all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for margin in PROFILE_MARGINS_S:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        n = sum(e.device_type.name == "CUDA" for e in prof.events())
+        if n:
+            return n
+    raise AssertionError("the profiler kept no card record of a call in any session")
+
+
+def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, extra=None, every_op=False):
     """Run the kernel and its plain version on the same inputs, require
     equality, time both (and `library`, one PyTorch call computing the same
     function, where there is one); returns the record. `ms` is the wrapper
     call between CUDA events (host launch path included), `device_ms` the
     kernel's own card time per call (`device_ms`, summed over the call's
-    launches, `launches_per_call`; `device_ms_by` says whether the profiler
-    or queued_ms gave it). `launches` counts this check's launches
-    of the kernel (the run, warm-up and timed calls)."""
+    launches, `launches_per_call`; with `every_op`, over every card record
+    of the call, `records_per_call`; `device_ms_by` says whether the
+    profiler or queued_ms gave it). `launches` counts this check's
+    launches of the kernel (the run, warm-up and timed calls)."""
     import torch
 
     from krakenuniq_tpu_torch import _kernels
@@ -225,7 +300,12 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
     if err != 0:
         raise AssertionError(f"{name} {shape}: kernel differs from plain (max_abs_err {err})")
     ms = time_ms(kernel, reps)
-    dev_ms, dev_by = device_ms(kernel, kname, reps, per_call)
+    if every_op:
+        n_rec = card_records(kernel)
+        dev_ms, dev_by = device_ms(kernel, kname, reps, n_rec, symbols=("",))
+        extra = {**(extra or {}), "records_per_call": n_rec}
+    else:
+        dev_ms, dev_by = device_ms(kernel, kname, reps, per_call)
     rec = {
         "check": name,
         "shape": list(shape),
@@ -303,6 +383,16 @@ def rle_bound(n_kmers, w: int, cols: int) -> dict:
     b = n_kmers.numel()
     valid = float(n_kmers.clamp(min=0, max=w).sum())
     return bound(5 * valid + 12 * b + 4 * b * cols, RLE_OPS_PER_LANE * valid)
+
+
+def rle_hll_bound(n_kmers, w: int, cols: int, stop_given: bool) -> dict:
+    """pack_runs with the fused HLL feed: rle_bound plus the feed's 2 B per
+    lane of [B, W] out and, when hll_stop is its own tensor, its 4 B per
+    read in (the feed's lanes past n_kmers need no input)."""
+    b = n_kmers.numel()
+    valid = float(n_kmers.clamp(min=0, max=w).sum())
+    return bound(5 * valid + 12 * b + 4 * b * cols + 2 * b * w + (4 * b if stop_given else 0),
+                 RLE_OPS_PER_LANE * valid)
 
 
 def probe_bound(valid) -> dict:
@@ -475,12 +565,59 @@ def rle_inputs(b, w, seed, k=31):
     return t(ids), t(amb), t(nk), t(call), t(hits)
 
 
+def quick_stop(nk, w: int, seed: int):
+    """hll_stop for pack_runs inputs: each read's valid lanes, min(n_kmers,
+    W), and for every third read a quick-mode cut below them."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    stop = np.clip(nk.cpu().numpy(), 0, w)
+    cut = np.arange(len(stop)) % 3 == 1
+    stop[cut] = rng.integers(0, stop[cut] + 1)
+    return torch.from_numpy(stop.astype(np.int32)).to(nk.device)
+
+
+def feed_check(ds, label, ids, amb, nk, call, hits, stop, r, reps):
+    """`pack_runs compact+hll`: the compact rows and the span step's u16 HLL
+    feed (lanes below `stop`, None for n_kmers, and not ambiguous) from one
+    pack_runs call; in a package whose pack_runs lacks the feed, the kernel
+    plus the torch ops its step built the feed with ("form" says which).
+    device_ms counts every card record of a call in both forms."""
+    import inspect
+
+    import torch
+
+    w = ids.shape[1]
+
+    def ops():
+        lane = torch.arange(w, device=ids.device)
+        counted = (lane[None, :] < (nk if stop is None else stop)[:, None]) & ~amb
+        return torch.where(counted, ids & 0xFFFF, 0xFFFF).to(torch.int16)
+
+    if "hll16" in inspect.signature(ds.pack_runs).parameters:
+        form = "fused"
+        run = lambda: ds.pack_runs(ids, amb, nk, call, hits, r, "compact", hll16=True, hll_stop=stop)
+        plain = lambda: ds.pack_runs_plain(ids, amb, nk, call, hits, r, "compact", hll16=True, hll_stop=stop)
+    else:
+        form = "kernel + torch ops"
+        run = lambda: (ds.pack_runs(ids, amb, nk, call, hits, r, "compact"), ops())
+        plain = lambda: (ds.pack_runs_plain(ids, amb, nk, call, hits, r, "compact"), ops())
+    return check_kernel(
+        "pack_runs compact+hll" + label, tuple(ids.shape), run, plain, reps=reps,
+        bound=rle_hll_bound(nk, w, ds.pack_runs_cols("compact", r), stop is not None),
+        extra={"max_runs": r, "form": form}, every_op=True,
+    )
+
+
 def phase_span_kernels(k: int, r: int = 8):
     """The span route's two kernels at the unit and span shapes: the
     packed-input kmer_front (the words of pack_input, which lays rows out as
     encode_unit_packed does) and pack_runs in its three row layouts (the
-    wide one through a 2.4M-id map). Skipped, with a note, on a package
-    that has neither."""
+    wide one through a 2.4M-id map) and with the fused HLL feed (quick-mode
+    cuts on a third of the reads), then on a ragged [65535, 130] (a last
+    tile of 15 reads), on row-sliced planes whose base is off the 16-byte
+    grid (ids[1:] at W = 130 starts 8 bytes off), and at W = 482, 33 and
+    4000. Skipped, with a note, on a package that has neither kernel."""
     import torch
 
     from krakenuniq_tpu_torch.classify import device_step as ds
@@ -510,9 +647,34 @@ def phase_span_kernels(k: int, r: int = 8):
                 reps=20, bound=rle_bound(nk, w, ds.pack_runs_cols(layout, r)),
                 extra={"max_runs": r},
             )
+        feed_check(ds, "", ids, amb, nk, call, hits, quick_stop(nk, w, b), r, 20)
         n_runs = ds.pack_runs(ids, amb, nk, call, hits, r, "compact")[:, r] & 0xFFFF
         if not bool((n_runs > r).any()) or not bool((nk == 0).any()):
             raise AssertionError("pack_runs inputs hold no overflow row or no read shorter than k")
+    planes = rle_inputs(65537, 130, 65537)
+    for label, (ids, amb, nk, call, hits) in ((" ragged", [x[:65535] for x in planes]),
+                                               (" misaligned", [x[1:] for x in planes])):
+        b, w = ids.shape
+        check_kernel(
+            f"pack_runs compact{label}", (b, w),
+            lambda: (ds.pack_runs(ids, amb, nk, call, hits, r, "compact"),),
+            lambda: (ds.pack_runs_plain(ids, amb, nk, call, hits, r, "compact"),),
+            reps=10, bound=rle_bound(nk, w, ds.pack_runs_cols("compact", r)),
+            extra={"max_runs": r, "ids_offset_bytes": ids.data_ptr() % 16},
+        )
+        feed_check(ds, label, ids, amb, nk, call, hits, quick_stop(nk, w, b), r, 10)
+    # rows past one step of the kernel's walk (W = 482: several steps, the
+    # previous step's last code carried past its feed words), an odd W with
+    # a ragged last tile, and a W too long for two stages (plain loads)
+    for b, w in ((4096, 482), (65, 33), (256, 4000)):
+        ids, amb, nk, call, hits = rle_inputs(b, w, w)
+        check_kernel(
+            "pack_runs compact", (b, w),
+            lambda: (ds.pack_runs(ids, amb, nk, call, hits, r, "compact"),),
+            lambda: (ds.pack_runs_plain(ids, amb, nk, call, hits, r, "compact"),),
+            reps=5, bound=rle_bound(nk, w, ds.pack_runs_cols("compact", r)), extra={"max_runs": r},
+        )
+        feed_check(ds, "", ids, amb, nk, call, hits, quick_stop(nk, w, b), r, 5)
 
 
 def probe_floor(rows, n_valid: int, seed: int) -> dict:
@@ -1035,6 +1197,17 @@ def phase_main(reps: int):
     )
     if not torch.equal(pack_runs(t_dense, ambig, n_kmers, call_dense, hits, r, "compact"), out_k["packed"]):
         raise AssertionError("pack_runs on the span's planes differs from the step's packed rows")
+    # the fused form the step launches: the rows and the HLL feed at once
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    feed_check(ds, " span", t_dense, ambig, n_kmers, call_dense, hits, None, r, reps)
+    rows_f, feed_f = pack_runs(t_dense, ambig, n_kmers, call_dense, hits, r, "compact", hll16=True)
+    if not (torch.equal(rows_f, out_k["packed"]) and torch.equal(feed_f, out_k["hll_dense"])):
+        raise AssertionError("fused pack_runs on the span's planes differs from the step's packed and hll_dense")
+    # the span step's card time by operation (PERF.md: the rest beyond the
+    # four kernels)
+    by_op = device_ms_by_op(lambda: c._span_step(codes_w, ambig_w, lengths_np), reps=5)
+    log(f"span step on the card: {by_op['busy_ms']} ms busy of {by_op['span_ms']} ms")
     n_ov = int(((out_k["packed"][: len(offs), r] & 0xFFFF) > r).sum())
 
     spans = max(c.n_spans, 1)
@@ -1061,6 +1234,7 @@ def phase_main(reps: int):
         "host_s_per_span": c.host_seconds / spans,
         "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
         "device_s_per_span": c.device_seconds / spans,
+        "span_step_device_ms_by_op": by_op,
         "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
         "classified": n_class,
         "calls_right": n_right,

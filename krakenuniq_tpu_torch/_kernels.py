@@ -50,9 +50,10 @@ SIGNATURES = {
     "hll_regmax": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # table, q, out, n, n_rows, row_words, depth, copies per lane, stream
     "row_gather": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
-    # ids, kmer_ambig, n_kmers, call, hits, map (NULL: none), n_map, out, B,
-    # W, R, layout, row words, stream
-    "pack_runs": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # ids, kmer_ambig, n_kmers, call, hits, map (NULL: none), n_map, out,
+    # hll16 (NULL: no feed), hll_stop (NULL: n_kmers), B, W, R, layout, row
+    # words, stream
+    "pack_runs": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 # launching entry points besides a library's own kuniq_<name>:
 # entry -> (library, C signature)

@@ -1,7 +1,7 @@
-"""Time the candidate designs of two kernels against the kept ones on the card.
+"""Time the candidate designs of three kernels against the kept ones on the card.
 
-`csrc/taxon_counts.cu` and `csrc/row_gather.cu` were each chosen over other
-designs; `tools/variants/*.cu` keeps those candidates (each file includes
+`csrc/taxon_counts.cu`, `csrc/row_gather.cu` and `csrc/pack_runs.cu` were
+each chosen over other designs; `tools/variants/*.cu` keeps those candidates (each file includes
 its kernel's source and adds them). This script builds them, runs every
 candidate and the kept kernel (through its wrapper) on the same inputs,
 holds each output equal to the plain PyTorch version, and prints one JSON
@@ -16,7 +16,11 @@ and a flush through 8-block clusters, on one work unit's two counts over
 503, 58,112, 58,113 and 2,400,503 ids and at counts_mxu_exp's shape.
 row_gather: a ring of registers, blocks sized from S on a persistent grid,
 and cp.async.bulk copies, at 8,519,680 and 532,480 16-byte rows and
-8,519,680 512-byte rows of a 1 GiB table. It needs a card and exits with 2
+8,519,680 512-byte rows of a 1 GiB table. pack_runs: one warp per read
+with plain loads (the first design), its ballot walk on the kept ring of
+staged tiles, a thread per read on that ring, and the kept kernel with
+plain loads and other tile sizes and ring depths, at [65536, 130] and
+[4096, 130] in the compact layout. It needs a card and exits with 2
 without one.
 """
 
@@ -36,6 +40,7 @@ import torch
 
 from .. import _kernels
 from ..classify import device_counters as dc
+from ..classify import device_step as ds
 from . import probe_gather as pg
 
 VARIANTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variants")
@@ -45,6 +50,10 @@ ENTRIES = {
     "taxon_counts": ("kuniq_taxon_counts_variant", (_I, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _P)),
     # table, q, out, n, n_rows, row_words, depth, form, threads, stream
     "row_gather": ("kuniq_row_gather_variant", (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P)),
+    # form, tile, stages, ids, kmer_ambig, n_kmers, call, hits, map, n_map,
+    # out, B, W, R, layout, row words, stream
+    "pack_runs": ("kuniq_pack_runs_variant",
+                  (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P)),
 }
 SMEM_OPT_IN = 232_448  # bytes of shared memory one block may opt into on sm_90
 CLUSTER = 8  # blocks per cluster of the cluster flush
@@ -84,23 +93,33 @@ def call(fn, *args) -> None:
         raise RuntimeError(f"variant launch failed with CUDA error {rc}")
 
 
-def device_ms(fn, symbol: str, reps: int) -> float:
+def device_ms(fn, symbol: str, reps: int, per_call: int | None = None) -> float:
     """Median card milliseconds per call of fn() of the kernels whose name
-    holds `symbol`, over `reps` calls under torch.profiler."""
+    holds `symbol`, over `reps` calls under torch.profiler (with idle
+    margins around the calls, wider when a session lost records). With
+    `per_call` (the kernels a call launches), a session that still lost a
+    record at its edge is read by that grouping."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.01)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA" and symbol in e.name),
-                 key=lambda e: e.time_range.start)
-    if not evs or len(evs) % reps:
-        raise AssertionError(f"profiler saw {len(evs)} {symbol} kernels in {reps} calls")
-    per = len(evs) // reps
+    for margin in (0.01, 0.25, 2.0):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA" and symbol in e.name),
+                     key=lambda e: e.time_range.start)
+        if evs and len(evs) % reps == 0:
+            per = len(evs) // reps
+            break
+    else:
+        if per_call is None or len(evs) < per_call * (reps // 2):
+            raise AssertionError(f"profiler saw {len(evs)} {symbol} kernels in {reps} calls")
+        per = per_call
+        evs = evs[len(evs) % per:]
     durs = [e.device_time_total for e in evs]
     return statistics.median(sum(durs[i:i + per]) for i in range(0, len(durs), per)) / 1e3
 
@@ -212,6 +231,60 @@ def run_gather(fn, reps: int, emit, seed: int = 7) -> None:
         del table, q, want
 
 
+def rle_case(b: int, w: int, seed: int, k: int = 31):
+    """One span's pack_runs inputs: runs of zipf-1.5 ids over 503 (lengths
+    1-64), ~1% ambiguous lanes, a quarter of the reads with a fresh id at
+    every lane (overflow rows), half the reads full (W k-mers), a tenth
+    shorter than k, the rest between."""
+    rng = np.random.default_rng(seed)
+    run_len = rng.integers(1, 65, size=(64, w))
+    starts = np.cumsum(run_len, axis=1) - run_len
+    lane_run = np.resize(np.stack([np.searchsorted(s, np.arange(w), side="right") - 1 for s in starts]), (b, w))
+    ids = np.take_along_axis((rng.zipf(1.5, size=(b, w)) % 503).astype(np.int32), lane_run, axis=1)
+    noisy = rng.random(b) < 0.25
+    ids[noisy] = rng.integers(0, 503, size=(int(noisy.sum()), w))
+    amb = rng.random((b, w)) < 0.01
+    lengths = rng.integers(0, w + k, size=b)
+    lengths[: b // 2] = w + k - 1
+    lengths[::10] = rng.integers(0, k, size=len(lengths[::10]))
+    nk = np.maximum(lengths - (k - 1), 0).astype(np.int32)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    calls = rng.integers(0, 503, size=b).astype(np.int32)
+    hits = rng.integers(0, w + 1, size=b).astype(np.int32)
+    return cuda(ids), cuda(amb), cuda(nk), cuda(calls), cuda(hits)
+
+
+def run_pack_runs(fn, reps: int, emit, r: int = 8) -> None:
+    """Each pack_runs design on one span's and one unit's random planes in
+    the compact layout: the kept kernel through its wrapper, one warp per
+    read, the kept tile loop at other (tile, stages), stages 0 being plain
+    loads, a thread per read on the staged tiles and the first design's
+    ballot walk on the ring."""
+    for b, w in ((65536, 130), (4096, 130)):
+        ids, amb, nk, calls, hits = rle_case(b, w, b)
+        want = ds.pack_runs_plain(ids, amb, nk, calls, hits, r, "compact")
+        cols = ds.pack_runs_cols("compact", r)
+
+        def variant(form, tile=16, stages=0):
+            out = torch.empty((b, cols), dtype=torch.int32, device="cuda")
+            call(fn, form, tile, stages, ids, amb, nk, calls, hits, None, 0, out, b, w, r, 0, cols)
+            return out
+
+        designs = [("kept", lambda: ds.pack_runs(ids, amb, nk, calls, hits, r, "compact")),
+                   ("warp per read", lambda: variant(0))]
+        designs += [(f"tile {t}, stages {s}", lambda t=t, s=s: variant(1, t, s))
+                    for t, s in ((16, 0), (8, 3), (16, 2), (16, 4), (32, 3))]
+        designs += [(f"thread per read, tile {t}, stages {s}", lambda t=t, s=s: variant(2, t, s))
+                    for t, s in ((32, 2), (64, 2))]
+        designs += [(f"ballot walk on the ring, tile {t}, stages {s}", lambda t=t, s=s: variant(3, t, s))
+                    for t, s in ((16, 3), (32, 3))]
+        for design, run in designs:
+            if not torch.equal(run(), want):
+                raise AssertionError(f"pack_runs [{b}, {w}] {design}: differs from plain")
+            emit({"kernel": "pack_runs", "shape": [b, w], "layout": "compact", "design": design,
+                  "device_ms": device_ms(run, "pack_runs", reps, per_call=1), "equal": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -220,10 +293,11 @@ def main(argv=None) -> int:
         print("kernel_variants: no CUDA device available", file=sys.stderr)
         return 2
     emit = lambda rec: print(json.dumps(rec), flush=True)
-    _kernels.build(["taxon_counts", "row_gather"])
+    _kernels.build(["taxon_counts", "row_gather", "pack_runs"])
     fns = build()
     run_counts(fns["taxon_counts"], args.reps, emit)
     run_gather(fns["row_gather"], max(5, args.reps // 2), emit)
+    run_pack_runs(fns["pack_runs"], args.reps, emit)
     return 0
 
 
