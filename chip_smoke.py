@@ -31,15 +31,22 @@ Phases, each raising on failure:
      kmer_front at the unit and span shapes (reads that overflow the run
      slots, ambiguous runs, reads shorter than k, quick-mode feed cuts),
      pack_runs on a ragged [65535, 130] and on row-sliced planes off the
-     16-byte grid; each
+     16-byte grid, sparse_stats (the unit, the span with 17 units over
+     pool and dense ids, one giant group, the d == m/4 edge with and
+     without a last duplicate, a cap below the entry count), span_dict
+     (the span over the 2.4M-id space with n_u below, at and above its
+     capacity, ids 0 and T - 1) and taxon_counts and hll_regmax at the
+     span's lanes (pool, and dense ids through a lut); each
      check times the wrapper call (`ms`, CUDA events, host launch path
      included) and the kernel alone (`device_ms`, torch.profiler, summed
-     over a call's launches), and each chd_probe check the one-level
+     over a call's launches and, for sparse_stats and span_dict, over
+     the six kernels of a launch), and each chd_probe check the one-level
      random-row floor (`floor_ms`);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
-     through the span route, the Python host route and --device-counters;
+     through the span route, the Python host route and --device-counters
+     on both;
   4. the main path at full size, on the span route: a synthetic database
      at the JAX bench's default shape (400 species x 25 kbp, BALLAST = 101M
      ballast keys, a 2.4M-node taxonomy, k=31, nt=12) under
@@ -53,20 +60,34 @@ Phases, each raising on failure:
      that span's inputs, and one span step's card time is split by
      operation (`span_step_device_ms_by_op`: busy and first-to-last ms, the
      idle share between them, the top 8 records by time);
-  5. the --device-counters path (the Python host route) on the same loaded
-     database: Classifier.with_shared_db(..., device_counters=True)
-     classifies the same reads with every launch counter reset just before
-     and read just after; its kraken output and report must be byte-equal
-     to phase 4's (so the span route equals the Python route at full
-     size), with taxon_counts and hll_regmax launched once per work unit
-     and no sparse-buffer overflow; one full unit's counter update is held
-     against the same update forced to the plain versions;
+  5. --device-counters on the span route on the same loaded database:
+     Classifier.with_shared_db(..., device_counters=True) classifies the
+     same reads with every launch counter reset just before and read just
+     after; its kraken output and report must be byte-equal to phase 4's,
+     with sparse_stats, taxon_counts, hll_regmax, pack_runs (no HLL feed),
+     kmer_front, chd_probe and scores launched once per span, no
+     Python-route unit and no sparse-buffer overflow; one span's step
+     with the update is held against the same forced to the plain
+     versions, and the three counter kernels are timed on that span's
+     planes;
+  5b. --device-counters on the Python host route (use_native=False), the
+     same reads, byte-equal to phase 4 (so the routes agree at full size),
+     the counter kernels launched once per work unit; one unit's update
+     against the plain update;
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
      the sweep over copies in flight at 16- and 512-byte rows, with the
-     launch counters reset just before and read just after.
-Progress goes to stderr; stdout carries one JSON line per kernel check, the
-phase-4 and phase-5 summaries, one line per probe setting, the kernel table,
-the card line and, last, the device line.
+     launch counters reset just before and read just after;
+  7. value_pool=False on phase 4's database directory (one reload): dense
+     ids over the 2.4M-node taxonomy on the span route with the per-span
+     taxon dictionary (span_dict once per span), byte-equal to phase 4; one
+     span step against the plain one, its card time by operation, span_dict
+     on its planes; then on the first 100,000 reads a dictionary of 64 ids
+     (every span redispatched on the wide rows) and --device-counters under
+     the dictionary, both byte-equal to the default-capacity run.
+Phases run in the order 1-5, 5b, 7, 6. Progress goes to stderr; stdout
+carries one JSON line per kernel check, the summaries of phases 4, 5, 5b
+and 7, one line per probe setting, the kernel table, the card line and,
+last, the device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
 
@@ -133,7 +154,12 @@ SYMBOLS = {
     "hll_regmax": ("hll_regmax_kernel",),
     "row_gather": ("row_gather_kernel",),
     "pack_runs": ("pack_runs_kernel",),
+    "sparse_stats": ("sparse_stats_",),
+    "span_dict": ("span_dict_",),
 }
+# card records of one launch of a library whose entry point runs several
+# kernels in order (one launch is one call of the entry point)
+RECORDS_PER_LAUNCH = {"sparse_stats": 6, "span_dict": 6}
 
 
 # Idle seconds kept before and after the timed calls of one profiler
@@ -255,10 +281,10 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def card_records(fn) -> int:
+def card_records(fn) -> int | None:
     """The card records (kernels, copies) of one call of fn(): the count of
     the first profiler session, over device_ms's idle margins, that kept
-    any (late in a long process a session can lose them all)."""
+    any; None when every session lost them all (late in a long process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -273,7 +299,8 @@ def card_records(fn) -> int:
         n = sum(e.device_type.name == "CUDA" for e in prof.events())
         if n:
             return n
-    raise AssertionError("the profiler kept no card record of a call in any session")
+    log("the profiler kept no card record of a call in any session")
+    return None
 
 
 def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, extra=None, every_op=False):
@@ -294,6 +321,7 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
     before = _kernels.LAUNCHES[kname]
     got = kernel()
     per_call = _kernels.LAUNCHES[kname] - before
+    records = per_call * RECORDS_PER_LAUNCH.get(kname, 1)
     want = plain()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -302,10 +330,13 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
     ms = time_ms(kernel, reps)
     if every_op:
         n_rec = card_records(kernel)
-        dev_ms, dev_by = device_ms(kernel, kname, reps, n_rec, symbols=("",))
+        if n_rec is None:
+            dev_ms, dev_by = queued_ms(kernel, reps), "events"
+        else:
+            dev_ms, dev_by = device_ms(kernel, kname, reps, n_rec, symbols=("",))
         extra = {**(extra or {}), "records_per_call": n_rec}
     else:
-        dev_ms, dev_by = device_ms(kernel, kname, reps, per_call)
+        dev_ms, dev_by = device_ms(kernel, kname, reps, records)
     rec = {
         "check": name,
         "shape": list(shape),
@@ -314,6 +345,7 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
         "device_ms": dev_ms,
         "device_ms_by": dev_by,
         "launches_per_call": per_call,
+        "records_per_call": records,
         "plain_ms": time_ms(plain, max(3, reps // 4)),
         "launches": _kernels.LAUNCHES[kname] - before,
     }
@@ -423,6 +455,30 @@ def regmax_bound(lanes, slots) -> dict:
     return bound(9 * lanes.numel() + 2 * touched, 16 * float(lanes.sum()))
 
 
+# sparse_stats' integer operations per sorted lane after the sort: the key
+# and its group against both neighbours (4 compares of 64-bit values, 8),
+# the flags (4), the segmented scan (count, max, group count: 4), the
+# decision and emit tests (4): ~20
+STATS_OPS_PER_LANE = 20
+
+
+def stats_bound(n: int, n_distinct: int, buf_len: int) -> dict:
+    """The `sparse_stats` kernel's function after the sort: the sorted key
+    (8 B) in per lane, the stream position (8 B) only at each pair's last
+    lane (the `n_distinct` distinct keys that are not pads; the kernel
+    reads no other), the buffer (8 B a slot, pads included) and the two
+    counts out; STATS_OPS_PER_LANE operations per lane. The sort before it
+    is timed apart (`library_ms`)."""
+    return bound(8 * n + 8 * n_distinct + 8 * buf_len + 8, STATS_OPS_PER_LANE * n)
+
+
+def dict_bound(n: int, b: int, cap: int, with_call: bool) -> dict:
+    """`span_dict`: each id of the [B, W] plane and the [B] calls in (4 B),
+    each local id out (4 B, the calls' too when remapped) and the lut (4 B
+    a slot); ~4 operations per id (range test, flag, rank read, cap test)."""
+    return bound(4 * (n + b) + 4 * (n + (b if with_call else 0)) + 4 * (cap + 1), 4 * (n + b))
+
+
 def gather_bound(n: int, row_bytes: int) -> dict:
     """A 4 B index in, one row read and one row written per query."""
     return bound(n * (4 + 2 * row_bytes), 0)
@@ -530,6 +586,12 @@ def phase_kernels(k: int):
     phase_span_kernels(k)
     phase_probe_kernel()
     phase_counter_kernels()
+    from krakenuniq_tpu_torch.classify import device_step
+
+    if hasattr(device_step, "span_dict"):
+        phase_dict_stats_kernels()
+    else:
+        log("this package has no span_dict or sparse_stats kernel")
     return phase_gather_kernel()
 
 
@@ -906,6 +968,137 @@ def phase_counter_kernels(p: int = 12):
     regmax_check(zeros(p), taxa, t(flagged.view(np.int32)), lanes, None, p, reps=10, label=" flag values")
 
 
+def stats_planes(b, w, n_units, ids, seed):
+    """One update's sparse-stats inputs on the card: zipf-1.5 taxa drawn
+    from `ids` (the most frequent first), random encodings on the five most
+    frequent (they go dense in a unit), a few hundred distinct ones on the
+    rest (they stay sparse), ~90% counted lanes, and rows split into
+    n_units consecutive work units."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pick = (rng.zipf(1.5, size=(b, w)) - 1) % len(ids)
+    taxa = np.asarray(ids)[pick].astype(np.int32)
+    enc = rng.integers(0, 1 << 32, size=(b, w), dtype=np.uint64).astype(np.uint32)
+    tail = pick >= 5
+    enc[tail] = (rng.integers(0, 300, size=int(tail.sum())).astype(np.uint32) << 7) | 3
+    lanes = rng.random((b, w)) < 0.9
+    unit = np.repeat(np.arange(n_units), -(-b // n_units))[:b]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return t(taxa), t(enc.view(np.int32)), t(lanes), t(unit.astype(np.int64))
+
+
+def stats_check(label, taxa, enc, lanes, unit, p, cap, reps):
+    """sparse_stats (torch.sort, then the kernel) against sparse_stats_core
+    (the plain torch chain, its second sort included), on the whole buffer
+    and both counts. device_ms is the kernel's six launches; library_ms the
+    torch.sort the wrapper calls, on the same keys; the bound is the
+    kernel's work after the sort (stats_bound)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import sparse_exact as se
+
+    run = lambda: se.sparse_stats(taxa, enc, lanes, unit, p, cap)
+    _, n_p, n_e = run()
+    keys = se._stats_keys(taxa, enc, lanes, unit) ^ se._SIGN
+    n = taxa.numel()
+    n_distinct = int(torch.unique(keys[keys != (se._PAD ^ se._SIGN)]).numel())
+    return check_kernel(
+        "sparse_stats" + label, tuple(taxa.shape), run,
+        lambda: se.sparse_stats_core(taxa, enc, lanes, unit, p, cap), reps=reps,
+        bound=stats_bound(n, n_distinct, min(cap, n)), library=lambda: torch.sort(keys, stable=True),
+        extra={"p": p, "cap": cap, "units": int(unit.unique().numel()), "n_pairs": int(n_p),
+               "n_events": int(n_e), "n_distinct_keys": n_distinct, "bound_of": "the kernel after the sort"},
+    )
+
+
+def dict_check(label, ids, calls, n_ids, cap, with_call, reps):
+    """span_dict against span_dict_plain (the JAX package's sort, cumsum,
+    searchsorted and scatter in torch); library_ms: torch.unique of the
+    plane, sorted, with the inverse."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import span_dict, span_dict_plain
+
+    run = lambda: span_dict(ids, calls, n_ids, cap, with_call)
+    plain = lambda: span_dict_plain(ids, calls, n_ids, cap, with_call)
+    drop = lambda out: tuple(x for x in out if x is not None)
+    n_u = int(run()[0][-1])
+    return check_kernel(
+        "span_dict" + label, tuple(ids.shape), lambda: drop(run()), lambda: drop(plain()), reps=reps,
+        bound=dict_bound(ids.numel(), calls.numel(), cap, with_call),
+        library=lambda: torch.unique(ids, sorted=True, return_inverse=True),
+        extra={"n_ids": n_ids, "cap": cap, "n_u": n_u, "with_call": with_call},
+    )
+
+
+def phase_dict_stats_kernels(p: int = 12):
+    """The span counters' and the span dictionary's kernels, each against
+    its plain version: sparse_stats at the unit [4096, 160] (one unit over
+    the 503-id pool), at the span [65536, 130] with 17 units (pool ids, and
+    dense ids scattered over the 2.4M-id space), on one giant group (every
+    lane of a one-unit span one taxon), at the d == m/4 edge with and
+    without a last duplicate (p = 6) and with a cap below the entry count;
+    span_dict at the span over the 2.4M-id space with n_u below, at and
+    above its capacity (ids 0 and T - 1 among them, calls remapped or not);
+    taxon_counts (both counts in one launch) and hll_regmax (through a lut)
+    at the span's lanes, over the pool and over the dense space."""
+    import torch
+
+    rng = np.random.default_rng(21)
+    t_ids = PAD_NODES + 503
+    pool = np.arange(503)
+    dense = np.sort(rng.choice(t_ids, 503, replace=False))
+    dense[0] = 0
+    for label, (b, w, units, ids, cap) in {
+        " unit": (4096, 160, 1, pool, 1 << 21), " span": (65536, 130, 17, pool, 1 << 21),
+        " span dense": (65536, 130, 17, dense, 1 << 21),
+    }.items():
+        stats_check(label, *stats_planes(b, w, units, ids, b + units), p, cap, reps=10)
+    taxa, enc, lanes, unit = stats_planes(65536, 130, 17, pool, 5)
+    rec = stats_check(" span", taxa, enc, lanes, unit, p, 1 << 21, reps=3)
+    stats_check(" cap below", taxa, enc, lanes, unit, p, (rec["n_pairs"] + rec["n_events"]) // 2, reps=3)
+    zeros = torch.zeros_like(taxa)
+    stats_check(" giant group", zeros, enc, torch.ones_like(lanes), torch.zeros_like(unit), p, 1 << 21, reps=3)
+    for dup in (False, True):
+        stream = np.arange(1, 17, dtype=np.uint32)
+        if dup:
+            stream = np.concatenate([stream, stream[:1]])
+        one = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        rec = stats_check(f" edge dup={dup}", one(np.full((1, len(stream)), 3, np.int32)),
+                          one(stream[None, :].view(np.int32)), one(np.ones((1, len(stream)), bool)),
+                          one(np.zeros(1, np.int64)), 6, 4096, reps=3)
+        if (rec["n_events"] == 1) != dup:
+            raise AssertionError(f"sparse_stats threshold edge (dup={dup}): {rec['n_events']} events")
+
+    b, w, cap = 65536, 130, 1 << 15
+    for label, n_kinds in ((" below", 3000), (" at", cap), (" above", 40_000)):
+        kinds = np.unique(np.concatenate([[0, t_ids - 1],
+                                          rng.choice(np.arange(1, t_ids - 1), n_kinds - 2, replace=False)]))
+        ids = kinds[(rng.zipf(1.3, size=(b, w)) - 1) % len(kinds)].astype(np.int32)
+        ids.reshape(-1)[: len(kinds)] = kinds  # every kind occurs: n_u = n_kinds
+        calls = kinds[rng.integers(0, len(kinds), size=b)].astype(np.int32)
+        ti, tc = torch.from_numpy(ids).cuda(), torch.from_numpy(calls).cuda()
+        for with_call in (True, False):
+            rec = dict_check(label, ti, tc, t_ids, cap, with_call, reps=10)
+        if rec["n_u"] != len(kinds):
+            raise AssertionError(f"span_dict{label}: n_u {rec['n_u']} != {len(kinds)}")
+
+    # the counter kernels at the span's lanes ([65536] calls, [65536, 130]
+    # k-mers), zipf-1.5: over the pool, and over the dense space with the
+    # register rows through a lut
+    lut = np.zeros(t_ids, np.int32)
+    lut[dense] = np.arange(503, dtype=np.int32)
+    for label, ids, n_ids, lt in ((" span pair", pool, 503, None), (" span dense pair", dense, t_ids, lut)):
+        taxa, enc, lanes, _ = stats_planes(b, w, 17, ids, 9)
+        calls = torch.from_numpy(ids[(rng.zipf(1.5, size=b) - 1) % 503].astype(np.int32)).cuda()
+        valid = torch.from_numpy(rng.random(b) < 0.95).cuda()
+        counts_check([(calls, valid), (taxa, lanes)], n_ids, reps=10, label=label)
+        reg0 = torch.zeros((503, 1 << p), dtype=torch.uint8, device="cuda")
+        regmax_check(reg0, taxa, enc, lanes, None if lt is None else torch.from_numpy(lt).cuda(), p, reps=10,
+                     label=label.replace(" pair", ""))
+
+
 def phase_gather_kernel(depth: int = 16):
     """row_gather at the probe tool's defaults (a 1 GiB table, 8,519,680
     random queries) for 16-byte rows (the CHD row) and 512-byte rows, and
@@ -983,7 +1176,7 @@ def probe_check(db, keys, n_queries=8_500_000, seed=5):
 
 def phase_goldens():
     """The goldens through the span route, the Python host route
-    (use_native=False) and --device-counters (on the Python route)."""
+    (use_native=False) and --device-counters on both routes."""
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
     for dbs, kraken_name, report_name in (
@@ -991,7 +1184,8 @@ def phase_goldens():
         (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv"),
     ):
         for route, opts in (("span", {}), ("python", {"use_native": False}),
-                            ("python", {"device_counters": True})):
+                            ("span", {"device_counters": True}),
+                            ("python", {"device_counters": True, "use_native": False})):
             c = Classifier(
                 [os.path.join(GOLDEN, d) for d in dbs],
                 ClassifyOptions(print_progress=False, device="cuda", **opts),
@@ -1009,7 +1203,7 @@ def phase_goldens():
                 raise AssertionError("golden run overflowed the sparse buffer")
             log(f"golden {kraken_name} + {report_name} ({route} route, {opts}): byte-equal")
     emit({"check": "goldens", "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"],
-          "routes": ["span", "python", "python + device_counters"], "equal": True})
+          "routes": ["span", "python", "span + device_counters", "python + device_counters"], "equal": True})
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1249,18 +1443,254 @@ def phase_main(reps: int):
 # ------------------------------------------------------------------ phase 5
 
 
+def same_bytes(pairs) -> None:
+    """Each (a, b) file pair holds the same bytes."""
+    for a, b in pairs:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{os.path.basename(a)} differs from {os.path.basename(b)}")
+
+
+def timed_run(c, reads, out_path, report_path):
+    """Classifier.run and write_report with every launch counter reset just
+    before and read just after: (run_s, classify_s, launches, peak bytes)."""
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t = time.time()
+    with open(out_path, "w") as kf:
+        c.run([reads], kraken_fh=kf)
+    classify_s = time.time() - t
+    with open(report_path, "w") as rf:
+        c.write_report(rf)
+    torch.cuda.synchronize()
+    return time.time() - t, classify_s, dict(_kernels.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def count_step_equal(c, codes, ambig, lengths, n_span, bounds) -> None:
+    """One span's step with the counter update (classify_and_count_core)
+    against the same forced to the plain versions, each on copies of the
+    counters' state: the outputs, the state and the sparse buffer."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import classify_and_count_core
+
+    dc = c.dev_counters
+    results = []
+    for plain in (False, True):
+        state = [x.clone() for x in dc.state()]
+        out, sp = classify_and_count_core(
+            *state, dc.lut, c._db_planes, c._taxid_table, c._io, c._parent, c._root_dense,
+            c._upload(codes.view(np.int32)), c._upload(ambig.view(np.int32)), c._upload(lengths), n_span,
+            c._upload(c._unit_id_rows(bounds, codes.shape[0])), c._cfg_packed, dc.p, dc.sparse_cap,
+            dc.counts_only, plain=plain,
+        )
+        results.append((out, state, sp))
+    torch.cuda.synchronize()
+    (ko, ks, kp), (po, ps, pp) = results
+    for key in po:
+        if not torch.equal(ko[key], po[key]):
+            raise AssertionError(f"span: kernel count step differs from plain in {key!r}")
+    for name, g, w in zip(("registers", "kmer_counts", "read_counts", "sparse buf", "n_pairs", "n_events"),
+                          (*ks, *kp), (*ps, *pp)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"span: kernel count step differs from plain in {name}")
+
+
+def span_planes(c, codes, ambig, lengths, bounds):
+    """The counters' planes of one span (taxa_dense, enc, hll_lanes,
+    call_dense) and its per-row unit ids, on the card."""
+    import dataclasses
+
+    cfg = dataclasses.replace(c._cfg_packed, outputs=("taxa_dense", "enc", "hll_lanes", "call_dense"))
+    out = c._span_step(codes, ambig, lengths, cfg=cfg)
+    return out, c._upload(c._unit_id_rows(bounds, codes.shape[0])).long()
+
+
+def phase_span_counters(run4, reps: int):
+    """--device-counters on the span route, on phase 4's loaded database and
+    reads: byte-equal to phase 4, each span one launch of each kernel of
+    the step and the update, no Python-route unit, no sparse overflow; one
+    span's fused step against the plain one; the counter kernels at that
+    span's planes."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier
+
+    c = Classifier.with_shared_db(run4["c"], device_counters=True)
+    dc = c.dev_counters
+    if c.route != "span" or "hll_dense" in c._cfg_packed.outputs:
+        raise AssertionError(f"phase 5 takes the {c.route} route with outputs {c._cfg_packed.outputs}")
+    if dc.host_stats or dc.sparse_cap == 0 or dc.lut is not None:
+        raise AssertionError("phase 5 should run the pool layout with device sparse stats")
+    db_dir = os.path.dirname(run4["kraken"])
+    out_path, report_path = os.path.join(db_dir, "kraken_dcs.out"), os.path.join(db_dir, "report_dcs.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    log(f"span counters: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
+    per_span = ("sparse_stats", "taxon_counts", "hll_regmax", "pack_runs", "kmer_front", "chd_probe", "scores")
+    if c.n_units or c.n_spans == 0 or any(launches[k] != c.n_spans for k in per_span):
+        raise AssertionError(f"span counters: {c.n_units} Python-route units, {c.n_spans} spans, "
+                             f"launches {launches}")
+    if dc.tracker.overflows:
+        raise AssertionError(f"{dc.tracker.overflows} sparse-buffer overflows: host fallback taken")
+    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
+    log("span counters kraken output and report: byte-equal to phase 4's")
+
+    kind, buf, offs, bounds, _ = next(c._iter_native_spans(run4["reads"]))
+    codes, ambig, lengths = c._encode_span(buf, offs)
+    count_step_equal(c, codes, ambig, lengths, len(offs), bounds)
+    b, w = codes.shape[0], 16 * codes.shape[1] - c.k + 1
+    log(f"span [{b}, {w}] ({len(offs)} reads, {len(bounds) - 1} units): kernel count step == plain")
+    planes, unit = span_planes(c, codes, ambig, lengths, bounds)
+    taxa, enc, lanes = planes["taxa_dense"], planes["enc"], planes["hll_lanes"]
+    row_valid = torch.arange(b, device="cuda") < len(offs)
+    stats = stats_check(" phase-5 span", taxa, enc, lanes, unit, dc.p, dc.sparse_cap, reps=reps // 5)
+    counts = counts_check([(planes["call_dense"], row_valid), (taxa, lanes)], dc.n_taxa, reps, " phase-5 span pair")
+    regmax = regmax_check(torch.zeros_like(dc.reg), taxa, enc, lanes, None, dc.p, reps, " phase-5 span")
+    t = time.time()
+    c.finalized_counts()
+    finalize_s = time.time() - t
+    spans = max(c.n_spans, 1)
+    emit({
+        "phase": "span_counters",
+        "route": c.route,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "classify_s": classify_s,
+        "finalize_s": finalize_s,
+        "spans": c.n_spans,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "sparse_entries_per_span": dc.sparse_entries / spans,
+        "sparse_union": dc.tracker.n_union,
+        "sparse_overflows": dc.tracker.overflows,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+    })
+    return {"sparse_stats": stats, "taxon_counts": counts, "hll_regmax": regmax}, launches
+
+
+def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
+    """value_pool=False on phase 4's database directory (a reload: dense ids
+    over the 2.4M-node taxonomy): the span route with the per-span taxon
+    dictionary, byte-equal to phase 4, with one span step held against the
+    plain one, its card time by operation and span_dict at its planes;
+    then, on the first n_sub reads, a dictionary too small for any span
+    (every span redispatched on the wide rows) and --device-counters under
+    the dictionary, both byte-equal to the default-capacity run of the same
+    reads."""
+    import dataclasses
+
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    db_dir = os.path.dirname(run4["kraken"])
+    t = time.time()
+    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", value_pool=False))
+    load_s = time.time() - t
+    if c.route != "span" or not c._cfg_packed.local_dict or c._pool is not None:
+        raise AssertionError("value_pool=False should take the span route with the span dictionary")
+    out_path, report_path = os.path.join(db_dir, "kraken_dict.out"), os.path.join(db_dir, "report_dict.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    log(f"span dictionary: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
+    per_span = ("span_dict", "pack_runs", "kmer_front", "chd_probe", "scores")
+    if c.n_units or c.dict_overflows or any(launches[k] != c.n_spans for k in per_span):
+        raise AssertionError(f"span dictionary: {c.n_units} Python-route units, {c.dict_overflows} "
+                             f"overflows, launches {launches} for {c.n_spans} spans")
+    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
+    log("span dictionary kraken output and report: byte-equal to phase 4's")
+
+    kind, buf, offs, bounds, _ = next(c._iter_native_spans(run4["reads"]))
+    codes, ambig, lengths = c._encode_span(buf, offs)
+    out_k = c._span_step(codes, ambig, lengths)
+    out_p = c._span_step(codes, ambig, lengths, plain=True)
+    torch.cuda.synchronize()
+    for key in out_p:
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"dictionary span: kernel step differs from plain step in {key!r}")
+    n_u = int(out_k["lut"][-1])
+    by_op = device_ms_by_op(lambda: c._span_step(codes, ambig, lengths), reps=5)
+    cfg = dataclasses.replace(c._cfg_packed, outputs=("taxa_dense", "call_dense"))
+    planes = c._span_step(codes, ambig, lengths, cfg=cfg)
+    rec = dict_check(" phase-7 span", planes["taxa_dense"], planes["call_dense"], c._taxid_table.shape[0],
+                     c._cfg_packed.dict_capacity, True, reps)
+
+    sub = os.path.join(db_dir, f"reads_{n_sub}.fa")
+    if not os.path.exists(sub):
+        with open(run4["reads"]) as f, open(sub + ".tmp", "w") as g:
+            for i, line in enumerate(f):
+                if i >= 2 * n_sub:
+                    break
+                g.write(line)
+        os.replace(sub + ".tmp", sub)
+    runs = {}
+    for name, opts in (("default", {}), ("wide", {"dict_capacity": 64}), ("counters", {"device_counters": True})):
+        ci = Classifier.with_shared_db(c, **opts)
+        paths = (os.path.join(db_dir, f"kraken_sub_{name}.out"), os.path.join(db_dir, f"report_sub_{name}.tsv"))
+        r_s, _, r_launches, _ = timed_run(ci, sub, *paths)
+        runs[name] = {"paths": paths, "run_s": r_s, "reads_per_s": ci.total_sequences / r_s, "spans": ci.n_spans,
+                      "dict_overflows": ci.dict_overflows, "launches": r_launches}
+        if ci.n_units or (ci.dict_overflows == ci.n_spans) != (name == "wide") or ci.n_spans == 0:
+            raise AssertionError(f"{name} run: {ci.n_units} units, {ci.dict_overflows} of {ci.n_spans} "
+                                 "spans redispatched")
+        if name == "counters" and (ci.dev_counters.tracker.overflows or ci.dev_counters.lut is None):
+            raise AssertionError("counters under the dictionary: sparse overflow or no lut layout")
+        if name != "default":
+            same_bytes(zip(paths, runs["default"]["paths"]))
+    log(f"{n_sub} reads: the wide redispatch and the counters under the dictionary equal the default run")
+    spans = max(c.n_spans, 1)
+    emit({
+        "phase": "dense_ids",
+        "route": c.route,
+        "taxonomy_nodes": int(c.taxonomy.size),
+        "dict_capacity": c._cfg_packed.dict_capacity,
+        "load_s": load_s,
+        "load_steps_s": c.dbs[0].timings,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "classify_s": classify_s,
+        "spans": c.n_spans,
+        "n_u_span0": n_u,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "span_step_device_ms_by_op": by_op,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+        "subset": {name: {k: v for k, v in r.items() if k != "paths"} for name, r in runs.items()},
+    })
+    del c
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def phase_counters(run4, reps: int):
-    """--device-counters on phase 4's loaded database and reads."""
+    """--device-counters on the Python route (use_native=False) on phase
+    4's loaded database and reads."""
     import torch
 
     from krakenuniq_tpu_torch import _kernels
     from krakenuniq_tpu_torch.classify import Classifier
     from krakenuniq_tpu_torch.classify.device_counters import update_core
-    from krakenuniq_tpu_torch.classify.sparse_exact import sparse_stats_core
+    from krakenuniq_tpu_torch.classify.sparse_exact import sparse_stats
 
-    c = Classifier.with_shared_db(run4["c"], device_counters=True)
+    c = Classifier.with_shared_db(run4["c"], device_counters=True, use_native=False)
     if c.route != "python":
-        raise AssertionError(f"phase 5 takes the {c.route} route")
+        raise AssertionError(f"phase 5b takes the {c.route} route")
     dc = c.dev_counters
     if dc.host_stats or dc.sparse_cap == 0 or dc.lut is not None:
         raise AssertionError("phase 5 should run the pool layout with device sparse stats")
@@ -1283,7 +1713,7 @@ def phase_counters(run4, reps: int):
     log(f"device counters: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
     units = c.n_units
     want = {"taxon_counts": units, "hll_regmax": units, "scores": units,
-            "kmer_front": units, "chd_probe": units}
+            "kmer_front": units, "chd_probe": units, "sparse_stats": units}
     if any(launches[k] != v for k, v in want.items()) or units == 0:
         raise AssertionError(f"device-counters path launches {launches}, want {want}")
     if dc.tracker.overflows:
@@ -1318,10 +1748,10 @@ def phase_counters(run4, reps: int):
     taxa, lanes = out["taxa_dense"], out["hll_lanes"]
     counts = counts_check([(out["call_dense"], row_valid), (taxa, lanes)], dc.n_taxa, reps, " unit pair")
     regmax = regmax_check(dc.reg, taxa, out["enc"], lanes, None, dc.p, reps)
-    # the rest of the unit's update: the plain-torch sparse stats, and the
-    # host's fetch-and-fold of the report (finalize: one state fetch)
+    # the rest of the unit's update: the sparse stats (sort and kernel),
+    # and the host's fetch-and-fold of the report (finalize: one state fetch)
     stats_ms = time_ms(
-        lambda: sparse_stats_core(taxa, out["enc"], lanes, unit_id, dc.p, dc.sparse_cap), reps
+        lambda: sparse_stats(taxa, out["enc"], lanes, unit_id, dc.p, dc.sparse_cap), reps
     )
     t = time.time()
     c.finalized_counts()
@@ -1329,7 +1759,8 @@ def phase_counters(run4, reps: int):
 
     n_units = max(units, 1)
     emit({
-        "phase": "device_counters",
+        "phase": "device_counters_python_route",
+        "route": c.route,
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
@@ -1379,6 +1810,8 @@ KERNELS = {
     "hll_regmax": ("krakenuniq_tpu_torch/csrc/hll_regmax.cu", "krakenuniq_tpu/classify/device_counters.py:109"),
     "row_gather": ("krakenuniq_tpu_torch/csrc/row_gather.cu", "tools/probe_dma_exp.py:42"),
     "pack_runs": ("krakenuniq_tpu_torch/csrc/pack_runs.cu", "krakenuniq_tpu/classify/device_step.py:408"),
+    "sparse_stats": ("krakenuniq_tpu_torch/csrc/sparse_stats.cu", "krakenuniq_tpu/classify/sparse_exact.py:79"),
+    "span_dict": ("krakenuniq_tpu_torch/csrc/span_dict.cu", "krakenuniq_tpu/classify/device_step.py:286"),
 }
 
 
@@ -1420,13 +1853,15 @@ def main(argv=None) -> int:
         return 0
     phase_goldens()
     recs, launches, main_run = phase_main(reps=50)
-    dc_recs, dc_launches = phase_counters(main_run, reps=50)
+    sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
+    phase_counters(main_run, reps=20)
+    recs["span_dict"], dict_launches = phase_dense_ids(main_run, reps=20)
     probe_launches = phase_probe()
-    recs.update(dc_recs)
+    recs.update(sc_recs)
     recs["row_gather"] = gather_rec
     # each kernel's launches come from the run of the path it serves
-    launches = {**launches, "taxon_counts": dc_launches["taxon_counts"],
-                "hll_regmax": dc_launches["hll_regmax"], "row_gather": probe_launches["row_gather"]}
+    launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats")},
+                "span_dict": dict_launches["span_dict"], "row_gather": probe_launches["row_gather"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,11 +9,14 @@ and an unchanged one is reused. `build()` compiles every source at once, one
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
-hash_lookup.hash_lookup_kmers, resolve.scores, device_counters.taxon_counts,
-device_counters.hll_regmax, tools.probe_gather.row_gather) call it exactly
+device_step.span_dict, hash_lookup.hash_lookup_kmers, resolve.scores,
+device_counters.taxon_counts, device_counters.hll_regmax,
+sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
 where they launch, so a run can show that its main path went through the
-kernels. A library may hold a second launching entry point (`ENTRIES`);
-its launches count under the library's name.
+kernels. One launch is one call of a library's entry point, which may run
+several kernels in order on the stream (sparse_stats and span_dict run
+six). A library may hold a second launching entry point (`ENTRIES`); its
+launches count under the library's name.
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ SIGNATURES = {
     # hll16 (NULL: no feed), hll_stop (NULL: n_kmers), B, W, R, layout, row
     # words, stream
     "pack_runs": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # sorted sign-flipped keys, their permutation, n, th, buf, buf length,
+    # n_pairs, n_events, scratch, stream
+    "sparse_stats": (_P, _P, _L, _I, _P, _L, _P, _P, _P, _P),
+    # ids, n, calls, B, T, cap, lut, local, local_call (NULL: no call
+    # remap), scratch, stream
+    "span_dict": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 # launching entry points besides a library's own kuniq_<name>:
 # entry -> (library, C signature)

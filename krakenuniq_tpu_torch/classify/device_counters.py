@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..hll import HLL, ReadCounts
+from ..hll import HLL, ExactCounter, ReadCounts
 from ..ints import clz64
-from .sparse_exact import SparseTracker, sparse_stats_core, sparse_stats_host
+from .sparse_exact import SparseTracker, sparse_stats, sparse_stats_core, sparse_stats_host
 
 
 def taxon_counts_plain(acc: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -185,8 +185,9 @@ def update_core(
     run's only copy) and returns them, followed by the sparse stats. The
     JAX package's three register layouts are one kernel here: `lut` None
     is its identity pool, a lut its two translated forms."""
+    stats = sparse_stats_core if plain else sparse_stats
     sp = (
-        sparse_stats_core(taxa_dense, enc, hll_lanes, unit_id, p, sparse_cap)
+        stats(taxa_dense, enc, hll_lanes, unit_id, p, sparse_cap)
         if sparse_cap > 0 and not counts_only
         else ()
     )
@@ -208,6 +209,7 @@ class DeviceCounters:
         p: int = 12,
         pool_dense: np.ndarray | None = None,
         sparse_cap: int = 1 << 17,
+        counts_only: bool = False,
         host_stats: bool = False,
         device="cuda",
     ):
@@ -215,20 +217,27 @@ class DeviceCounters:
         distinct database values (misses count under 0). None: register rows
         are the id space (value-pool ids). sparse_cap: per-update buffer
         slots for the sparse-exact stats (0 = estimate-compat only).
-        host_stats: keep the sparse-regime tracking but compute the stats on
-        the HOST from the fetched planes -- still bit-exact, used when ids
-        exceed the device packing's 2^TAXON_BITS taxon field. device: where
-        the state lives, the card unless the caller asks for the CPU (the
-        Classifier passes its own device)."""
+        counts_only: read and k-mer counters only, over a one-row register
+        pool and with no sparse tracking (--exact: the distinct-k-mer sets
+        fold on the host). host_stats: keep the sparse-regime tracking but
+        compute the stats on the HOST from the fetched planes -- still
+        bit-exact, used when ids exceed the device packing's 2^TAXON_BITS
+        taxon field. device: where the state lives, the card unless the
+        caller asks for the CPU (the Classifier passes its own device)."""
         self.p = p
         self.m = 1 << p
         self.n_taxa = n_taxa
         self.device = torch.device(device)
-        self.host_stats = host_stats
-        self.sparse_cap = 0 if host_stats else sparse_cap
-        self.tracker = SparseTracker() if (self.sparse_cap > 0 or host_stats) else None
+        self.counts_only = counts_only
+        self.host_stats = host_stats and not counts_only
+        self.sparse_cap = 0 if (counts_only or self.host_stats) else sparse_cap
+        self.tracker = SparseTracker(device) if (self.sparse_cap > 0 or self.host_stats) else None
+        self.sparse_entries = 0  # buffer slots folded by finish_sp (pairs and events)
         dev = self.device
-        if pool_dense is None:
+        if counts_only:
+            self.pool = np.zeros(1, dtype=np.int64)  # the register plane is unused
+            self.lut = None
+        elif pool_dense is None:
             self.pool = np.arange(n_taxa, dtype=np.int64)
             self.lut = None
         else:
@@ -242,6 +251,10 @@ class DeviceCounters:
         self.kmer_counts = torch.zeros(n_taxa, dtype=torch.int64, device=dev)
         self.read_counts = torch.zeros(n_taxa, dtype=torch.int64, device=dev)
 
+    def state(self):
+        """The state tensors, which the update changes in place."""
+        return self.reg, self.kmer_counts, self.read_counts
+
     def update(self, taxa_dense, enc, hll_lanes, call_dense, row_valid, unit_id=None) -> None:
         """Fold one work unit's device planes into the state. Consumes the
         sparse-exact buffer synchronously; a buffer overflow redoes the
@@ -251,49 +264,81 @@ class DeviceCounters:
         if self.host_stats:
             self.consume_host(taxa_dense, enc, hll_lanes, unit_id)
         out = update_core(
-            self.reg, self.kmer_counts, self.read_counts, self.lut,
-            taxa_dense, enc, hll_lanes, call_dense, row_valid, self.p,
-            unit_id, self.sparse_cap,
+            *self.state(), self.lut, taxa_dense, enc, hll_lanes, call_dense, row_valid, self.p,
+            unit_id, self.sparse_cap, self.counts_only,
         )
         if self.sparse_cap > 0 and not self.consume_sp(out[3:]):
             self.consume_host(taxa_dense, enc, hll_lanes, unit_id)
 
     def consume_sp(self, sp) -> bool:
-        """Fold one device sparse-stats buffer, fetching only its USED
-        prefix; False = overflow, the caller must fall back to host stats."""
-        buf, n_p, n_e = sp
-        n_p, n_e = int(n_p), int(n_e)
-        if n_p + n_e > buf.shape[0]:
-            self.tracker.overflows += 1
-            return False
-        used = buf[: n_p + n_e].cpu().numpy().view(np.uint64)
-        return self.tracker.consume_buffer(used, n_p, n_e)
+        """Fold one sparse-stats buffer's USED prefix; False = overflow,
+        the caller must fall back to host stats."""
+        return self.finish_sp(self.start_sp(sp))
 
-    def consume_host(self, taxa_dense, enc, hll_lanes, unit_id) -> None:
+    def start_sp(self, sp, stream=None) -> dict:
+        """Start the fetch of a sparse-stats buffer's two counts: on the
+        card, a copy into pinned host memory on `stream` (after the work
+        queued on the current stream) that the host does not wait for.
+        Returns what finish_sp reads."""
+        buf, n_p, n_e = sp
+        if buf.device.type != "cuda":
+            return {"buf": buf, "counts": (n_p, n_e), "event": None}
+        stream = stream or torch.cuda.current_stream(buf.device)
+        stream.wait_stream(torch.cuda.current_stream(buf.device))
+        counts = torch.empty(2, dtype=torch.int32, pin_memory=True)
+        with torch.cuda.stream(stream):
+            counts[0].copy_(n_p, non_blocking=True)
+            counts[1].copy_(n_e, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        # n_p and n_e stay referenced until finish_sp has waited for the
+        # copy: the fetch stream reads them
+        return {"buf": buf, "counts": counts, "event": event, "device_counts": (n_p, n_e)}
+
+    def finish_sp(self, pending) -> bool:
+        """Read a started buffer's counts and fold its USED prefix into the
+        tracker on the device; False = overflow, the caller must fall back
+        to host stats."""
+        if pending["event"] is not None:
+            pending["event"].synchronize()
+        n_p, n_e = (int(x) for x in pending["counts"])
+        if not self.tracker.consume_buffer(pending["buf"], n_p, n_e):
+            return False
+        self.sparse_entries += n_p + n_e
+        return True
+
+    def consume_host(self, taxa_dense, enc, hll_lanes, unit_id=None, unit_bounds=None) -> None:
         """Host-side sparse stats of one update's planes (fetched here),
-        split into work units by row (the overflow and host-stats form)."""
-        u = unit_id.cpu().numpy()
-        bounds = [0, *(np.flatnonzero(u[1:] != u[:-1]) + 1).tolist(), len(u)]
+        split into work units by row: at `unit_bounds` (row offsets), or
+        where `unit_id` changes (the overflow and host-stats form)."""
+        if unit_bounds is None:
+            u = unit_id.cpu().numpy()
+            unit_bounds = [0, *(np.flatnonzero(u[1:] != u[:-1]) + 1).tolist(), len(u)]
         self.tracker.add(*sparse_stats_host(
             taxa_dense.cpu().numpy(), enc.cpu().numpy().view(np.uint32),
-            hll_lanes.cpu().numpy(), bounds, self.m // 4,
+            hll_lanes.cpu().numpy(), unit_bounds, self.m // 4,
         ))
 
     def finalize(self, taxid_of_dense: np.ndarray) -> dict[int, ReadCounts]:
         """Fetch the device state and build the taxon_counts map. With
         sparse tracking, taxa that never went dense in any work unit get a
         SPARSE HLL holding the union of their units' distinct encodings --
-        the exact final state of the reference's unit-merge fold."""
+        the exact final state of the reference's unit-merge fold. With
+        counts_only, each taxon's k-mer set is an empty ExactCounter: the
+        caller's host fold supplies the sets."""
         kmer_counts = self.kmer_counts.cpu().numpy()
         read_counts = self.read_counts.cpu().numpy()
         active = np.flatnonzero((kmer_counts > 0) | (read_counts > 0))
         pool_row = np.full(self.n_taxa, -1, np.int64)
         pool_row[self.pool] = np.arange(len(self.pool))
         regs_all = self.reg.cpu().numpy()  # [P, m]: one bulk transfer
+        dense_ever = self.tracker.dense_ever if self.tracker is not None else set()
         out: dict[int, ReadCounts] = {}
         for dense in active.tolist():
             nk = int(kmer_counts[dense])
-            if self.tracker is not None and dense not in self.tracker.dense_ever:
+            if self.counts_only:
+                h = ExactCounter()
+            elif self.tracker is not None and dense not in dense_ever:
                 h = HLL(self.p, sparse=True)
                 h.sparse_set = self.tracker.sparse_set_of(dense)
                 h.n_observed = nk

@@ -5,7 +5,11 @@ for the resident CHD-hash path:
   2-bit windows (or the span route's packed words) -> canonical k-mers ->
   murmur hashes + HLL encodings (`kmer_front` kernel) -> CHD lookup per
   database, hierarchically (`chd_probe` kernel) -> per-read tree resolution
-  (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel).
+  (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel),
+  over a per-span taxon dictionary when the ids pass u16 (`span_dict`
+  kernel). `classify_and_count_core` adds the --device-counters update
+  (`taxon_counts`, `hll_regmax` and `sparse_stats` kernels) on the same
+  stream.
 
 The returned dict carries what the host text/report layer needs, with the
 JAX step's keys: uint32 planes come back as int32 bit patterns (read them on
@@ -15,6 +19,7 @@ int16 bit patterns (`.view(np.uint16)`).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -301,6 +306,70 @@ def pack_runs(ids, kmer_ambig, n_kmers, call, hits, max_runs: int, layout: str, 
     return (out, feed) if hll16 else out
 
 
+_LUT_PAD = 1 << 30  # above any dense id: keeps the span dictionary sorted
+
+
+def _span_dict_check(ids, calls, n_ids: int, cap: int) -> None:
+    if ids.dim() != 2 or calls.shape != ids.shape[:1]:
+        raise ValueError("span_dict: need [B, W] ids and [B] calls")
+    if not 0 < cap < 0xFFFF or n_ids <= 0:
+        raise ValueError(f"span_dict: need 0 < cap < 0xFFFF (the u16 sentinel) and n_ids > 0 (cap={cap})")
+
+
+def span_dict_plain(ids, calls, n_ids: int, cap: int, with_call: bool = True):
+    """Plain version of `span_dict`: the JAX package's sort, cumsum,
+    searchsorted and scatter (krakenuniq_tpu/classify/device_step.py:
+    286-370, without the mesh merge) in torch."""
+    _span_dict_check(ids, calls, n_ids, cap)
+    dev = ids.device
+    s = torch.sort(torch.cat([ids.reshape(-1), calls])).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    ranks = torch.cumsum(first, 0, dtype=torch.int32)
+    n_u = ranks[-1]
+    targets = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
+    idx = torch.searchsorted(ranks, targets)
+    lut = torch.where(targets <= n_u, s[idx.clamp(max=s.numel() - 1)], _LUT_PAD)
+    remap = torch.zeros(n_ids, dtype=torch.int32, device=dev)
+    keep = (lut >= 0) & (lut < n_ids)  # the scatter's mode="drop"
+    remap[lut[keep].long()] = torch.arange(cap, dtype=torch.int32, device=dev)[keep]
+    local = remap[ids.long()]
+    local_call = remap[calls.long()] if with_call else None
+    return torch.cat([lut, n_u[None]]), local, local_call
+
+
+def span_dict(ids, calls, n_ids: int, cap: int, with_call: bool = True):
+    """The span's taxon dictionary and its local ids: (lut int32 [cap + 1]:
+    the sorted distinct values of ids (int32 [B, W] dense ids in [0,
+    n_ids)) and calls (int32 [B]), the first `cap` of them, padded with
+    2^30, and their count last; local int32 [B, W]: each id's rank in it,
+    0 past cap; local_call int32 [B] likewise, None without `with_call`).
+    CUDA tensors launch the `span_dict` kernel (csrc/span_dict.cu); CPU
+    tensors run `span_dict_plain`."""
+    if ids.device.type == "cpu":
+        return span_dict_plain(ids, calls, n_ids, cap, with_call)
+    _span_dict_check(ids, calls, n_ids, cap)
+    dev = _kernels.check_cuda("span_dict", ids=ids, calls=calls)
+    if ids.dtype != torch.int32 or calls.dtype != torch.int32:
+        raise TypeError("span_dict: ids and calls must be int32")
+    lut = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    local = torch.empty_like(ids)
+    local_call = torch.empty_like(calls) if with_call else None
+    words = _kernels.entry("span_dict", "kuniq_span_dict_scratch", (ctypes.c_int,))(n_ids)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    _kernels.launch("span_dict", dev, ids, ids.numel(), calls, calls.numel(), n_ids, cap, lut, local,
+                    local_call, scratch)
+    return lut, local, local_call
+
+
+def hll_pairs_feed(ids, enc, hll_lanes):
+    """The wide rows' u64 HLL feed as int64 bits: id<<32 | enc on the
+    counted lanes, all ones elsewhere (krakenuniq_tpu/classify/
+    device_step.py:392-402)."""
+    pairs = (ids.to(torch.int64) << 32) | (enc.to(torch.int64) & 0xFFFFFFFF)
+    return torch.where(hll_lanes, pairs, torch.full_like(pairs, -1))
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     k: int
@@ -316,10 +385,17 @@ class StepConfig:
     # the host formats them from taxa_dense / ambig
     max_runs: int = 0
     # RLE rows of dense id<<16 | amb<<15 | len words and the u16 hll_dense
-    # feed (ids below 2^16: the value pool, or a small taxonomy). The step's
-    # wide rows and u64 feed (False) come with the span taxon dictionary
-    # (ROADMAP queue 1, item 5); pack_runs has the wide layout already
+    # feed (ids below 2^16: the value pool, a small taxonomy, or local_dict);
+    # False: the wide rows (taxids through taxid_table) and the u64
+    # hll_pairs feed, the dictionary's overflow route
     dense_runs: bool = False
+    # with dense_runs: a per-span taxon dictionary (`span_dict`) over every
+    # id the span can emit; rows and the hll_dense feed carry local ids and
+    # out["lut"] maps them back ([dict_capacity + 1], the count last). A
+    # span with more distinct ids than dict_capacity (< 0xFFFF, the u16
+    # sentinel) is redispatched on the wide rows by the host
+    local_dict: bool = False
+    dict_capacity: int = 1 << 15
     # restrict the returned dict to these keys (None = all)
     outputs: tuple | None = None
 
@@ -405,34 +481,104 @@ def classify_step_core(
         out["processed"] = processed
     # HLL: every processed non-ambiguous k-mer is counted, including misses
     # under taxon 0 (classify.cpp:939)
+    hll_lanes = processed & ~kmer_ambig if asked("hll_lanes") or asked("hll_pairs") else None
     if asked("hll_lanes"):
-        out["hll_lanes"] = processed & ~kmer_ambig
+        out["hll_lanes"] = hll_lanes
     if asked("taxa"):
         # stored values are device ids; original taxids for the hit-list
         # planes (taxid_table[0] == 0, so misses map to 0). A full-plane
         # gather: the span route leaves it out and maps rows on the host.
         out["taxa"] = taxid_table[taxon_dense.long()]
-    if cfg.max_runs > 0:
-        if not cfg.dense_runs:
-            raise NotImplementedError(
-                "the step's wide RLE rows come with the span taxon dictionary "
-                "(ROADMAP queue 1, item 5)"
+    if cfg.max_runs > 0 and cfg.dense_runs:
+        if asked("packed") or asked("hll_dense") or asked("lut"):
+            # runs group on dense ids (injective, so the boundaries equal the
+            # original ids'), or on the span dictionary's local ids (injective
+            # on the span); the compact layout carries the dense (local) call,
+            # the quick one the original call. The same pass emits the host's
+            # HLL feed when asked, 6 B per lane with the encoding: a u16 id on
+            # the counted lanes, 0xFFFF elsewhere. The processed lanes are a
+            # prefix of each read (quick mode's hits_before never falls), so the
+            # feed takes their count: n_kmers, or the quick cut.
+            layout = "dense" if cfg.quick else "compact"
+            ids, row_call = taxon_dense, call if cfg.quick else call_dense
+            if cfg.local_dict:
+                dictf = span_dict_plain if plain else span_dict
+                out["lut"], ids, local_call = dictf(
+                    taxon_dense, call_dense, taxid_table.shape[0], cfg.dict_capacity, not cfg.quick
+                )
+                if not cfg.quick:
+                    row_call = local_call
+            hll16 = asked("hll_dense")
+            hll_stop = processed.sum(dim=1, dtype=torch.int32) if cfg.quick and hll16 else None
+            rows = (pack_runs_plain if plain else pack_runs)(
+                ids, kmer_ambig, n_kmers[:, 0], row_call, total_hits, cfg.max_runs, layout,
+                hll16=hll16, hll_stop=hll_stop,
             )
-        # runs group on dense ids (injective, so the boundaries equal the
-        # original ids'); the compact layout carries the dense call, the
-        # quick one the original call. The same pass emits the host's HLL
-        # feed, 6 B per lane with the encoding: a u16 id on the counted
-        # lanes, 0xFFFF elsewhere. The processed lanes are a prefix of each
-        # read (quick mode's hits_before never falls), so the feed takes
-        # their count: n_kmers, or the quick cut.
-        layout = "dense" if cfg.quick else "compact"
-        hll_stop = processed.sum(dim=1, dtype=torch.int32) if cfg.quick else None
-        out["packed"], out["hll_dense"] = (pack_runs_plain if plain else pack_runs)(
-            taxon_dense, kmer_ambig, n_kmers[:, 0],
-            call_dense if layout == "compact" else call, total_hits, cfg.max_runs, layout,
-            hll16=True, hll_stop=hll_stop,
-        )
-        out["hll_enc"] = enc
+            if hll16:
+                out["packed"], out["hll_dense"] = rows
+            else:
+                out["packed"] = rows
+            out["hll_enc"] = enc
+    elif cfg.max_runs > 0:
+        # the wide rows: runs of dense ids, each run's value mapped to its
+        # taxid through taxid_table at [B, R]; the u64 feed carries dense ids
+        if asked("packed"):
+            out["packed"] = (pack_runs_plain if plain else pack_runs)(
+                taxon_dense, kmer_ambig, n_kmers[:, 0], call, total_hits, cfg.max_runs, "wide",
+                taxid_table,
+            )
+        if asked("hll_pairs"):
+            out["hll_pairs"] = hll_pairs_feed(taxon_dense, enc, hll_lanes)
     if cfg.outputs is not None:
         out = {key: out[key] for key in cfg.outputs}
     return out
+
+
+def classify_and_count_core(
+    reg: torch.Tensor,  # uint8 [P, m] register pool (updated in place)
+    kmer_counts: torch.Tensor,  # int64 [T] (updated in place)
+    read_counts: torch.Tensor,  # int64 [T] (updated in place)
+    lut: torch.Tensor | None,  # int32 [T] id -> register row; None: rows are ids
+    db_planes,
+    taxid_table: torch.Tensor,
+    io: torch.Tensor,
+    parent: torch.Tensor,
+    root_dense: int,
+    codes: torch.Tensor,
+    ambig: torch.Tensor,
+    lengths: torch.Tensor,
+    n_valid: int,  # rows [0, n_valid) hold reads (their calls are counted)
+    unit_id: torch.Tensor | None,  # integer [B]: work-unit index per row (< 64)
+    cfg: StepConfig,
+    p: int,
+    sparse_cap: int = 0,
+    counts_only: bool = False,
+    plain: bool = False,
+):
+    """The step with the --device-counters update after it on the same
+    stream, after the JAX package's _classify_and_count_core
+    (krakenuniq_tpu/classify/device_step.py:538-603): the step returns the
+    planes the update reads (taxa_dense, enc, hll_lanes, call_dense) besides
+    cfg.outputs, `update_core` folds them into the state in place, and only
+    cfg.outputs return, with the sparse-stats buffer (buf, n_pairs,
+    n_events; () when not tracked). Nothing waits for the card. The update
+    keys on the global dense ids, under a span dictionary too."""
+    from .device_counters import update_core
+
+    counted = ("taxa_dense", "enc", "hll_lanes", "call_dense")
+    outputs = None if cfg.outputs is None else (
+        tuple(cfg.outputs) + tuple(k for k in counted if k not in cfg.outputs)
+    )
+    out = classify_step_core(
+        db_planes, taxid_table, io, parent, root_dense, codes, ambig, lengths,
+        dataclasses.replace(cfg, outputs=outputs), plain=plain,
+    )
+    b = out["call_dense"].shape[0]
+    row_valid = torch.arange(b, device=out["call_dense"].device) < n_valid
+    state = update_core(
+        reg, kmer_counts, read_counts, lut, out["taxa_dense"], out["enc"], out["hll_lanes"],
+        out["call_dense"], row_valid, p, unit_id, sparse_cap, counts_only, plain=plain,
+    )
+    if cfg.outputs is not None:
+        out = {key: out[key] for key in cfg.outputs}
+    return out, state[3:]

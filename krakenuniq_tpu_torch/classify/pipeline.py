@@ -11,11 +11,16 @@ single-device, CHD-hash path. Reads are cut into work units (greedy >=
     (`pack_runs`) and the u16/u32 HLL feed, which come back on a side
     stream into pinned buffers while newer spans run (PIPELINE_DEPTH in
     flight); the host folds the HLL feed per work unit and formats the
-    kraken lines in C++;
+    kraken lines in C++. With `device_counters` the step updates the
+    device counters in the same stream instead of emitting the feed, and
+    the host folds only the span's sparse-stats buffer. Id spaces past u16
+    (no value pool over a large taxonomy) take a per-span taxon dictionary
+    (`local_dict`); a span past its capacity is redispatched on the wide
+    rows;
   * the Python host route: each unit is padded into a bucketed (B, LB)
     batch, classified by one step and formatted in Python. It serves
-    `use_native=False`, `device_counters` (the counts and HLL registers
-    stay on the device, classify/device_counters.py) and id spaces past u16.
+    `use_native=False` and the span route's fallback chunks (multi-line
+    FASTA, overlong reads).
 
 Long reads, out-of-core tables, UID databases and meshes of the JAX package
 are later slices.
@@ -50,7 +55,7 @@ from ..kmer import encode_batch
 from ..report import DEFAULT_COLS, NO_HLL_COLS, TaxReport
 from ..taxonomy import Taxonomy
 from .accumulate import TaxonCounter
-from .device_step import StepConfig, classify_step_core
+from .device_step import StepConfig, classify_and_count_core, classify_step_core
 from .output import kraken_line
 from .sparse_exact import MAX_UNITS
 
@@ -68,8 +73,7 @@ MAX_RUNS = 8
 PIPELINE_DEPTH = 3
 _CHUNK_BYTES = 32 << 20  # input bytes parsed per native chunk
 _FETCH_GRID = 8192  # span rows are fetched in multiples of this
-# the span step's outputs: RLE rows, the planes of overflow rows, the HLL feed
-_SPAN_OUTPUTS = ("packed", "taxa_dense", "ambig", "hll_enc", "hll_dense")
+# the span step's per-row outputs the host fetches (RLE rows, the HLL feed)
 _SPAN_FETCH = ("packed", "hll_enc", "hll_dense")
 # reference bug compatibility: -p never reaches an HLL constructor, every
 # counter runs at precision 12 (hyperloglogplus.hpp:87, classify.cpp:289,
@@ -98,7 +102,11 @@ class ClassifyOptions:
     sparse_cap: int = 1 << 21
     # value pool (db/pool.py): index the device id space by the databases'
     # LCA-closed value set when it fits u16; False forces dense taxonomy ids
+    # (and the per-span dictionary on the span route past 65,535 ids)
     value_pool: bool = True
+    # per-span taxon dictionary capacity (< 0xFFFF): a span touching more
+    # distinct taxa is redispatched on the wide RLE rows
+    dict_capacity: int = 1 << 15
     # the span route (native parser, packed spans, RLE rows); False takes
     # the Python host route
     use_native: bool = True
@@ -255,35 +263,6 @@ class Classifier:
             quick=self.opts.quick,
             min_hits=self.opts.min_hits,
         )
-        # the span route, exactly where the JAX package takes dense_runs
-        # without a span dictionary: the id space fits u16 and the counters
-        # stay on the host (the JAX package's exact mode is not ported)
-        self.route, self._route_note = "python", None
-        if self.opts.use_native:
-            if self.opts.device_counters:
-                self._route_note = (
-                    "note: --device-counters runs on the Python host route; the span "
-                    "route's fused counter update is ROADMAP queue 1, item 4"
-                )
-            elif pool is None and tax.size > 0xFFFF:
-                self._route_note = (
-                    "note: the id space exceeds u16 without the value pool; the Python "
-                    "host route runs it until the per-span taxon dictionary "
-                    "(ROADMAP queue 1, item 5)"
-                )
-            else:
-                self.route = "span"
-        self._cfg_packed = dataclasses.replace(
-            self._cfg,
-            packed_input=True,
-            max_runs=MAX_RUNS,
-            dense_runs=True,
-            outputs=_SPAN_OUTPUTS,
-        )
-        # D2H copies of the spans' rows and HLL feed run on their own stream
-        self._fetch_stream = (
-            torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
-        )
         # device-counters sparse tracking: ids past the device packing's
         # 2^TAXON_BITS taxon field fall back to HOST-computed per-unit stats
         # -- slower (three planes fetched) but still bit-exact
@@ -302,6 +281,50 @@ class Classifier:
                 "host (slower, still bit-exact)",
                 file=sys.stderr,
             )
+        # the span route, as in the JAX package (krakenuniq_tpu/classify/
+        # pipeline.py:597-701): compact RLE rows of u16 ids, through a
+        # per-span taxon dictionary when the id space passes u16
+        self.route = "span" if self.opts.use_native else "python"
+        local_dict = pool is None and tax.size > 0xFFFF
+        if local_dict and not 0 < self.opts.dict_capacity < 0xFFFF:
+            raise ValueError(f"dict_capacity must be in (0, 0xFFFF), got {self.opts.dict_capacity}")
+        if self.opts.device_counters:
+            # the counts and registers update on the card in the step's
+            # stream; the host reads the rows and the overflow rows' planes
+            span_outputs = ("packed", "taxa_dense", "ambig")
+            if self._dc_host_stats:
+                span_outputs += ("enc", "hll_lanes")
+        else:
+            span_outputs = ("packed", "taxa_dense", "ambig", "hll_enc", "hll_dense")
+        if local_dict:
+            span_outputs += ("lut",)
+        self._cfg_packed = dataclasses.replace(
+            self._cfg,
+            packed_input=True,
+            max_runs=MAX_RUNS,
+            dense_runs=True,
+            local_dict=local_dict,
+            dict_capacity=self.opts.dict_capacity,
+            outputs=span_outputs,
+        )
+        # the dictionary's overflow program: the same span on the wide rows
+        # (taxids) with the u64 feed in place of the u16 one
+        self._cfg_packed_wide = None
+        if local_dict:
+            wide = tuple(k for k in span_outputs if k not in ("hll_enc", "hll_dense", "lut"))
+            if "hll_dense" in span_outputs:
+                wide += ("hll_pairs",)
+            self._cfg_packed_wide = dataclasses.replace(
+                self._cfg_packed, dense_runs=False, local_dict=False, outputs=wide
+            )
+        # the sparse buffer's overflow program: the planes of the host stats
+        self._cfg_sparse_fb = dataclasses.replace(
+            self._cfg_packed, outputs=("taxa_dense", "enc", "hll_lanes")
+        )
+        # D2H copies of the spans' rows and HLL feed run on their own stream
+        self._fetch_stream = (
+            torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
+        )
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -315,15 +338,18 @@ class Classifier:
         # fetch) and of the host's share of each work unit (encode,
         # accumulate, format). Span route: the host's seconds, by stage in
         # span_host_seconds (encode; step: the launches and the resolve's
-        # waits on the card; fold; format; not the wait for the fetch), the
-        # card's (CUDA events around upload and step; the step's wall on the
-        # CPU) and the fetch copies' (CUDA events on the fetch stream).
+        # waits on the card; counters: the sparse buffer's fetch and fold
+        # and its overflow fallback; fold: the host's HLL fold; format; not
+        # the wait for the fetch), the card's (CUDA events around upload and
+        # step; the step's wall on the CPU) and the fetch copies' (CUDA
+        # events on the fetch stream).
         self.device_seconds = 0.0
         self.host_seconds = 0.0
         self.fetch_seconds = 0.0
-        self.span_host_seconds = {"encode": 0.0, "step": 0.0, "fold": 0.0, "format": 0.0}
+        self.span_host_seconds = {"encode": 0.0, "step": 0.0, "counters": 0.0, "fold": 0.0, "format": 0.0}
         self.n_units = 0
         self.n_spans = 0
+        self.dict_overflows = 0  # spans redispatched on the wide rows
 
     def _init_counters(self) -> None:
         self.counter = TaxonCounter(HLL_P)
@@ -372,8 +398,6 @@ class Classifier:
     def run(self, input_paths: list[str], kraken_fh=None, classified_fh=None,
             unclassified_fh=None) -> None:
         t0 = time.time()
-        if self._route_note:
-            print(self._route_note, file=sys.stderr)
         for path in input_paths:
             if self.route == "span":
                 self._run_native(path, kraken_fh, classified_fh, unclassified_fh)
@@ -605,10 +629,11 @@ class Classifier:
         b = _bucket(len(offs), 1024, step=8)
         return native().encode_unit_packed(buf, np.ascontiguousarray(offs), lb, b)
 
-    def _span_step(self, codes, ambig, lengths, plain: bool = False):
-        """The span step on encode_unit_packed's arrays; returns the
-        _SPAN_OUTPUTS device tensors. `plain=True` runs every kernel's plain
-        version (for holding the kernels against them)."""
+    def _span_step(self, codes, ambig, lengths, plain: bool = False, cfg: StepConfig | None = None):
+        """The span step on encode_unit_packed's arrays; returns the device
+        tensors of cfg.outputs (default: the span config's). `plain=True`
+        runs every kernel's plain version (for holding the kernels against
+        them)."""
         return classify_step_core(
             self._db_planes,
             self._taxid_table,
@@ -618,9 +643,43 @@ class Classifier:
             self._upload(codes.view(np.int32)),
             self._upload(ambig.view(np.int32)),
             self._upload(lengths),
-            self._cfg_packed,
+            cfg or self._cfg_packed,
             plain=plain,
         )
+
+    def _span_count_step(self, codes, ambig, lengths, n_span: int, unit_bounds, plain: bool = False):
+        """The span step with the device counters' update on the same
+        stream (classify_and_count_core): returns the span config's outputs
+        and the sparse-stats buffer (() when not tracked)."""
+        dc = self.dev_counters
+        return classify_and_count_core(
+            *dc.state(),
+            dc.lut,
+            self._db_planes,
+            self._taxid_table,
+            self._io,
+            self._parent,
+            self._root_dense,
+            self._upload(codes.view(np.int32)),
+            self._upload(ambig.view(np.int32)),
+            self._upload(lengths),
+            n_span,
+            self._upload(self._unit_id_rows(unit_bounds, codes.shape[0])),
+            self._cfg_packed,
+            dc.p,
+            dc.sparse_cap,
+            dc.counts_only,
+            plain=plain,
+        )
+
+    @staticmethod
+    def _unit_id_rows(unit_bounds, b: int) -> np.ndarray:
+        """Per-row work-unit index (uint8 [b]); padded rows inherit the last
+        unit (they hold no counted lanes)."""
+        ub = np.asarray(unit_bounds, np.int64)
+        ids = np.repeat(np.arange(len(ub) - 1, dtype=np.uint8), np.diff(ub))
+        last = ids[-1] if len(ids) else np.uint8(0)
+        return np.concatenate([ids, np.full(b - len(ids), last, np.uint8)])
 
     def _lap(self, stage: str, t0: float) -> float:
         """Charge the host seconds since t0 to a span stage; returns now."""
@@ -630,8 +689,8 @@ class Classifier:
         return t1
 
     def _start_native_span(self, buf, offs, unit_bounds, fastq):
-        """Encode one span, launch its step and start its fetch; returns the
-        state _finish_native_span reads."""
+        """Encode one span, launch its step (with the counters' update) and
+        start its fetch; returns the state _finish_native_span reads."""
         n_span = len(offs)
         t = time.perf_counter()
         offs = np.ascontiguousarray(offs)
@@ -643,7 +702,11 @@ class Classifier:
         if cuda:
             step_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             step_evs[0].record()
-        out = self._span_step(codes, ambig, lengths)
+        sp = ()
+        if self.dev_counters is not None:
+            out, sp = self._span_count_step(codes, ambig, lengths, n_span, unit_bounds)
+        else:
+            out = self._span_step(codes, ambig, lengths)
         if cuda:
             step_evs[1].record()
         else:  # the step ran on the host: it is the device's time
@@ -651,40 +714,48 @@ class Classifier:
             self.device_seconds += t1 - t
             t = t1
         host, fetch_evs = self._slice_and_prefetch(out, codes.shape[0], n_span)
+        sp_pending = self.dev_counters.start_sp(sp, self._fetch_stream) if sp else None
         self._lap("step", t)
         # `out` stays referenced until the finish has waited for the fetch:
-        # the copies read it on the fetch stream
+        # the copies read it on the fetch stream. The host arrays stay for a
+        # redispatch (a dictionary or sparse-buffer overflow).
         return {
             "buf": buf, "offs": offs, "unit_bounds": unit_bounds, "fastq": fastq,
             "seq_lens": seq_lens, "n_span": n_span, "out": out, "host": host,
-            "fetch_evs": fetch_evs, "step_evs": step_evs,
+            "fetch_evs": fetch_evs, "step_evs": step_evs, "sp": sp_pending,
+            "feed": (codes, ambig, lengths),
         }
 
     def _slice_and_prefetch(self, out: dict, b: int, n_span: int):
-        """Start the copies of the rows the host reads (the RLE rows and the
-        HLL feed) down to an 8192-row grid: a tail span's padded rows are not
-        fetched. On a card the copies go on the fetch stream, after the step,
-        into pinned buffers, and do not block the host; returns the host
-        tensors and the (start, end) events of the copies (None on the CPU)."""
+        """Start the copies of what the host reads: the RLE rows and the HLL
+        feed down to an 8192-row grid (a tail span's padded rows are not
+        fetched) and the span dictionary. On a card the copies go on the
+        fetch stream, after the step, into pinned buffers, and do not block
+        the host; returns the host tensors and the (start, end) events of
+        the copies (None on the CPU)."""
         rows = min(b, -(-n_span // _FETCH_GRID) * _FETCH_GRID)
+        src = {key: out[key][:rows] for key in _SPAN_FETCH if key in out}
+        if "lut" in out:
+            src["lut"] = out["lut"]
         if self.device.type != "cuda":
-            return {key: out[key][:rows] for key in _SPAN_FETCH}, None
+            return src, None
         stream = self._fetch_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         host = {}
         with torch.cuda.stream(stream):
             evs[0].record(stream)
-            for key in _SPAN_FETCH:
-                src = out[key][:rows]
-                host[key] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-                host[key].copy_(src, non_blocking=True)
+            for key, t in src.items():
+                host[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host[key].copy_(t, non_blocking=True)
             evs[1].record(stream)
         return host, evs
 
     def _finish_native_span(self, st, kraken_fh, classified_fh, unclassified_fh) -> None:
-        """Wait for one span's fetch, fold its HLL feed per work unit and
-        write its kraken lines (overflow rows from the device planes)."""
+        """Wait for one span's fetch, fold its HLL feed per work unit (or,
+        with device counters, its sparse-stats buffer) and write its kraken
+        lines (overflow rows from the device planes). A span past the
+        dictionary's capacity is run again on the wide rows first."""
         from .._native_build import native
 
         if st["fetch_evs"] is not None:
@@ -696,28 +767,73 @@ class Classifier:
         opts = self.opts
         buf, offs_c, seq_lens, n_span = st["buf"], st["offs"], st["seq_lens"], st["n_span"]
         out, host = st["out"], st["host"]
-        id_map = self._taxids_host  # u16 dense ids -> taxids
-        r = self._cfg_packed.max_runs
-        # compact row: runs(R) | call_dense<<16 | n_runs; quick (dense)
-        # row: runs(R) | call | hits<<16 | n_runs
-        packed = np.ascontiguousarray(host["packed"].numpy().view(np.uint32)[:n_span])
-        if opts.quick:
-            calls = packed[:, r].copy()
-            n_runs = packed[:, r + 1] & np.uint32(0xFFFF)
-        else:
-            calls = id_map[(packed[:, r] >> np.uint32(16)).astype(np.int64)]
-            n_runs = packed[:, r] & np.uint32(0xFFFF)
-        n_kmers = np.maximum(seq_lens - (self.k - 1), 0).astype(np.int32)
-
-        # per-unit HLL fold (work-unit semantics): u32 encodings and u16 ids
-        # (0xFFFF: lane not counted)
-        hd = host["hll_dense"].numpy().view(np.uint16)[:n_span]
-        he = host["hll_enc"].numpy().view(np.uint32)[:n_span]
         bounds = st["unit_bounds"]
-        for s_, e_ in zip(bounds[:-1], bounds[1:]):
-            m = hd[s_:e_] != np.uint16(0xFFFF)
-            self.counter.process_unit(id_map[hd[s_:e_][m].astype(np.int64)], he[s_:e_][m], calls[s_:e_])
-        t = self._lap("fold", t)
+        redispatch = lambda cfg: self._span_step(*st["feed"], cfg=cfg)  # noqa: E731
+        cfg = self._cfg_packed
+        id_map = self._taxids_host  # u16 dense (or local) ids -> taxids
+        if cfg.local_dict:
+            lut = host["lut"].numpy()
+            n_u = int(lut[-1])
+            if n_u > cfg.dict_capacity:
+                # more distinct taxa than the dictionary holds: the wide rows
+                # (rare); the counters were updated by the first dispatch
+                cfg = self._cfg_packed_wide
+                out = redispatch(cfg)
+                self.dict_overflows += 1
+                host = {key: out[key][:n_span].cpu() for key in ("packed", "hll_pairs") if key in out}
+            else:
+                id_map = self._taxids_host[lut[:n_u].astype(np.int64)]
+        r = cfg.max_runs
+        # compact row: runs(R) | call_dense<<16 | n_runs; quick (dense)
+        # row: runs(R) | call | hits<<16 | n_runs; wide row: run_vals(R) |
+        # lens2(R/2) | call | n_kmers | hits<<16 | n_runs
+        packed = np.ascontiguousarray(host["packed"].numpy().view(np.uint32)[:n_span])
+        if not cfg.dense_runs:
+            meta = r + r // 2
+            calls = packed[:, meta].copy()
+            n_kmers = packed[:, meta + 1].astype(np.int32)
+            n_runs = packed[:, meta + 2] & np.uint32(0xFFFF)
+        else:
+            if opts.quick:
+                calls = packed[:, r].copy()
+                n_runs = packed[:, r + 1] & np.uint32(0xFFFF)
+            else:
+                calls = id_map[(packed[:, r] >> np.uint32(16)).astype(np.int64)]
+                n_runs = packed[:, r] & np.uint32(0xFFFF)
+            n_kmers = np.maximum(seq_lens - (self.k - 1), 0).astype(np.int32)
+
+        dc = self.dev_counters
+        if dc is not None:
+            # the counts and registers were updated in the step's stream;
+            # the sparse-regime stats fold here
+            if st["sp"] is not None and not dc.finish_sp(st["sp"]):
+                fb = redispatch(self._cfg_sparse_fb)
+                dc.consume_host(fb["taxa_dense"][:n_span], fb["enc"][:n_span], fb["hll_lanes"][:n_span],
+                                unit_bounds=bounds)
+            if dc.host_stats:
+                dc.consume_host(out["taxa_dense"][:n_span], out["enc"][:n_span],
+                                out["hll_lanes"][:n_span], unit_bounds=bounds)
+            t = self._lap("counters", t)
+        elif cfg.dense_runs:
+            # per-unit HLL fold (work-unit semantics): u32 encodings and u16
+            # ids (0xFFFF: lane not counted)
+            hd = host["hll_dense"].numpy().view(np.uint16)[:n_span]
+            he = host["hll_enc"].numpy().view(np.uint32)[:n_span]
+            for s_, e_ in zip(bounds[:-1], bounds[1:]):
+                m = hd[s_:e_] != np.uint16(0xFFFF)
+                self.counter.process_unit(id_map[hd[s_:e_][m].astype(np.int64)], he[s_:e_][m], calls[s_:e_])
+            t = self._lap("fold", t)
+        else:
+            # the wide rows' u64 feed: dense id<<32 | encoding, all ones on
+            # the lanes not counted
+            pairs = host["hll_pairs"].numpy().view(np.uint64)
+            for s_, e_ in zip(bounds[:-1], bounds[1:]):
+                flat = pairs[s_:e_].reshape(-1)
+                flat = flat[flat != np.uint64(0xFFFFFFFFFFFFFFFF)]
+                taxa = self._taxids_host[(flat >> np.uint64(32)).astype(np.int64)]
+                self.counter.process_unit(taxa, (flat & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                                          calls[s_:e_])
+            t = self._lap("fold", t)
 
         if kraken_fh is not None:
             # rows with more runs than R: their planes gathered on the device,
@@ -735,7 +851,7 @@ class Classifier:
                     np.ascontiguousarray(calls[ov_rows], dtype=np.uint32),
                     np.ascontiguousarray(seq_lens[ov_rows]),
                     np.ascontiguousarray(n_kmers[ov_rows]),
-                    np.ascontiguousarray(id_map[dense_rows.astype(np.int64)]),
+                    np.ascontiguousarray(self._taxids_host[dense_rows.astype(np.int64)]),
                     np.ascontiguousarray(ambig_rows),
                     False,
                     np.ascontiguousarray(n_kmers[ov_rows]),  # hits: unused (not quick)
@@ -755,9 +871,9 @@ class Classifier:
                 bool(opts.only_classified_output),
                 ov_rows.astype(np.int64),
                 ov_lines,
-                True,
+                cfg.dense_runs,
                 self.k,
-                id_map,
+                id_map if cfg.dense_runs else None,
             )
             if hasattr(kraken_fh, "buffer"):
                 kraken_fh.flush()  # text written through the wrapper goes first

@@ -26,17 +26,23 @@ position occurs more than once in the unit.
 sort of the lanes by (unit, taxon, encoding) key, whose permutation is the
 stream position, segmented scans for per-pair and per-group statistics,
 then a second sort that compacts the distinct pairs of stayed-sparse groups
-and the went-dense taxon events into one buffer the host fetches (only its
-used prefix). Keys are uint64 bit patterns held in int64; both sorts flip
+and the went-dense taxon events into one buffer (its used prefix folds
+into the SparseTracker). Keys are uint64 bit patterns held in int64; both sorts flip
 the sign bit so that they order as unsigned (the pad key is all ones and
-the event tag is bit 63: both must sort LAST).
+the event tag is bit 63: both must sort LAST). It is the plain version of
+`sparse_stats`, which on the card keeps the first sort (torch.sort) and
+does everything after it in the `sparse_stats` kernel (csrc/
+sparse_stats.cu), the second sort included.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..ints import lsr
 
 _PAD_INT = 0xFFFFFFFFFFFFFFFF
@@ -76,6 +82,21 @@ def _seg_cummax(reset: torch.Tensor, vals: torch.Tensor, val_bits: int) -> torch
     return (m & ((1 << val_bits) - 1)) - 1
 
 
+def _stats_keys(taxa_dense, enc, hll_lanes, unit_id) -> torch.Tensor:
+    """The flat sort keys unit<<57 | taxon<<32 | enc of the counted lanes,
+    the pad (all ones) elsewhere."""
+    b, w = taxa_dense.shape
+    if not 0 < b * w < (1 << 29):
+        raise ValueError(f"sparse stats over {b * w} lanes: need 0 < B*W < 2^29 (the scan packing)")
+    unit = unit_id.to(torch.int64)[:, None]
+    key = (
+        (unit << (32 + TAXON_BITS))
+        | (taxa_dense.to(torch.int64) << 32)
+        | (enc.to(torch.int64) & 0xFFFFFFFF)
+    )
+    return torch.where(hll_lanes, key, torch.full_like(key, _PAD)).reshape(-1)
+
+
 def sparse_stats_core(
     taxa_dense: torch.Tensor,  # int32 [B, W] (0 = miss, counted like any taxon)
     enc: torch.Tensor,  # int32 [B, W]: uint32 HLL encodings as bit patterns
@@ -89,20 +110,13 @@ def sparse_stats_core(
 
     buf[:n_pairs] holds pair keys unit<<57|taxon<<32|enc (distinct pairs of
     groups that stayed sparse), buf[n_pairs:n_pairs+n_events] holds event
-    keys 1<<63|unit<<25|taxon (groups that went dense). If
-    n_pairs + n_events > cap the buffer is truncated and the caller must
-    fall back to host stats for the whole span."""
+    keys 1<<63|unit<<25|taxon (groups that went dense), the rest pads (all
+    ones). If n_pairs + n_events > cap the buffer is truncated and the
+    caller must fall back to host stats for the whole span. The plain
+    version of `sparse_stats`."""
     th = (1 << p) // 4
-    b, w = taxa_dense.shape
-    n = b * w
-    assert n < (1 << 29), "span lane count exceeds the scan packing"
-    unit = unit_id.to(torch.int64)[:, None]
-    key = (
-        (unit << (32 + TAXON_BITS))
-        | (taxa_dense.to(torch.int64) << 32)
-        | (enc.to(torch.int64) & 0xFFFFFFFF)
-    )
-    keyf = torch.where(hll_lanes, key, torch.full_like(key, _PAD)).reshape(-1)
+    keyf = _stats_keys(taxa_dense, enc, hll_lanes, unit_id)
+    n = keyf.numel()
     # a STABLE sort keeps equal keys in stream order, so its permutation is
     # each sorted lane's stream position (jax.lax.sort is stable by default)
     ks, ps = _usort(keyf, stable=True)
@@ -145,6 +159,34 @@ def sparse_stats_core(
     )
 
 
+def sparse_stats(taxa_dense, enc, hll_lanes, unit_id, p: int, cap: int):
+    """`sparse_stats_core`'s result. CUDA tensors sort the keys with
+    torch.sort and launch the `sparse_stats` kernel on the sorted keys and
+    their permutation (csrc/sparse_stats.cu); CPU tensors run
+    `sparse_stats_core`."""
+    if taxa_dense.device.type == "cpu":
+        return sparse_stats_core(taxa_dense, enc, hll_lanes, unit_id, p, cap)
+    dev = _kernels.check_cuda("sparse_stats", taxa_dense=taxa_dense, enc=enc, hll_lanes=hll_lanes,
+                              unit_id=unit_id)
+    if taxa_dense.dtype != torch.int32 or enc.dtype != torch.int32 or hll_lanes.dtype != torch.bool:
+        raise TypeError("sparse_stats: taxa_dense and enc must be int32, hll_lanes bool")
+    if enc.shape != taxa_dense.shape or hll_lanes.shape != taxa_dense.shape or unit_id.shape != taxa_dense.shape[:1]:
+        raise ValueError("sparse_stats: need [B, W] taxa_dense, enc, hll_lanes and [B] unit_id")
+    if cap <= 0 or not 2 <= p <= 18:
+        raise ValueError(f"sparse_stats: need cap > 0 and 2 <= p <= 18 (cap={cap}, p={p})")
+    # the kernel reads the keys as sorted here: sign-flipped, so that int64
+    # order is their unsigned order
+    sk, ps = torch.sort(_stats_keys(taxa_dense, enc, hll_lanes, unit_id) ^ _SIGN, stable=True)
+    n = sk.numel()
+    buf = torch.empty(min(cap, n), dtype=torch.int64, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    words = _kernels.entry("sparse_stats", "kuniq_sparse_stats_scratch", (ctypes.c_longlong,))(n)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    _kernels.launch("sparse_stats", dev, sk, ps, n, (1 << p) // 4, buf, buf.numel(), counts[0], counts[1],
+                    scratch)
+    return buf, counts[0], counts[1]
+
+
 def sparse_stats_host(
     taxa_dense: np.ndarray,  # int32 [rows, W] or flat per-lane (with lanes mask)
     enc: np.ndarray,  # uint32
@@ -183,57 +225,79 @@ def sparse_stats_host(
 
 
 class SparseTracker:
-    """Host-side fold of the per-span sparse statistics.
+    """Fold of the per-span sparse statistics, kept on the counters' device.
 
-    State: the set of dense ids that ever went dense, and the union of
-    distinct (taxon, encoding) pairs of stayed-sparse groups as one sorted
-    u64 array (taxon << 32 | enc). Spans APPEND their pair keys to a pending
-    list; deduplication is amortized (compact when the appended volume
-    doubles the known union), so the fold stays O(U log U) overall."""
+    State: the dense ids that ever went dense, and the union of distinct
+    (taxon, encoding) pairs of stayed-sparse groups as one sorted int64
+    tensor of keys taxon << 32 | enc (taxon < 2^31: every key is below
+    2^63, so its int64 order is its unsigned order). Spans APPEND their
+    pair keys and event ids on the device; deduplication is amortized
+    (compact when the appended volume doubles the known union), so the fold
+    stays O(U log U) overall, and nothing comes to the host until finalize
+    reads `dense_ever` and `sparse_set_of`."""
 
-    def __init__(self):
-        self.dense_ever: set[int] = set()
-        self._union = np.empty(0, np.uint64)
-        self._parts: list[np.ndarray] = []
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self._union = torch.empty(0, dtype=torch.int64, device=self.device)
+        self._parts: list[torch.Tensor] = []
         self._n_pending = 0
+        self._events: list[torch.Tensor] = []
+        self._host: np.ndarray | None = None  # the union on the host, for finalize
         self.overflows = 0
 
     def add(self, pair_taxa: np.ndarray, pair_encs: np.ndarray, dense_taxa) -> None:
-        self.dense_ever.update(int(x) for x in np.unique(np.asarray(dense_taxa)))
-        if len(pair_taxa):
-            keys = (pair_taxa.astype(np.uint64) << np.uint64(32)) | pair_encs.astype(
-                np.uint64
-            )
+        """Fold host arrays (the host-stats form)."""
+        keys = (pair_taxa.astype(np.uint64) << np.uint64(32)) | pair_encs.astype(np.uint64)
+        self._add(
+            torch.from_numpy(keys.view(np.int64)).to(self.device),
+            torch.from_numpy(np.array(dense_taxa, np.int64)).to(self.device),
+        )
+
+    def _add(self, keys: torch.Tensor, dense_taxa: torch.Tensor) -> None:
+        self._host = None
+        self._events.append(dense_taxa)
+        if keys.numel():
             self._parts.append(keys)
-            self._n_pending += len(keys)
-            if self._n_pending > max(1 << 22, 2 * len(self._union)):
+            self._n_pending += keys.numel()
+            if self._n_pending > max(1 << 22, 2 * self._union.numel()):
                 self._compact()
 
     def _compact(self) -> None:
         if self._parts:
-            self._union = np.unique(np.concatenate([self._union] + self._parts))
+            self._union = torch.unique(torch.cat([self._union, *self._parts]), sorted=True)
             self._parts = []
             self._n_pending = 0
 
-    def consume_buffer(self, buf: np.ndarray, n_pairs: int, n_events: int) -> bool:
-        """Fold one device buffer (uint64); False = truncated (the caller must
-        fall back to host stats for the span)."""
-        if n_pairs + n_events > len(buf):
+    @property
+    def n_union(self) -> int:
+        """Distinct pairs in the union (compacts it)."""
+        self._compact()
+        return self._union.numel()
+
+    def consume_buffer(self, buf: torch.Tensor, n_pairs: int, n_events: int) -> bool:
+        """Fold one `sparse_stats` buffer (int64 uint64 bit patterns, on the
+        tracker's device) without a copy to the host; False = truncated
+        (the caller must fall back to host stats for the span)."""
+        if n_pairs + n_events > buf.shape[0]:
             self.overflows += 1
             return False
-        pairs = buf[:n_pairs]
-        taxa = ((pairs >> np.uint64(32)) & np.uint64((1 << TAXON_BITS) - 1)).astype(np.int64)
-        encs = (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        events = buf[n_pairs : n_pairs + n_events]
-        ev_taxa = (events & np.uint64((1 << TAXON_BITS) - 1)).astype(np.int64)
-        self.add(taxa, encs, ev_taxa)
+        taxon_mask = (1 << TAXON_BITS) - 1
+        self._add(buf[:n_pairs] & ((taxon_mask << 32) | 0xFFFFFFFF), buf[n_pairs : n_pairs + n_events] & taxon_mask)
         return True
+
+    @property
+    def dense_ever(self) -> set[int]:
+        """The dense ids that went dense in any work unit."""
+        if not self._events:
+            return set()
+        self._events = [torch.unique(torch.cat(self._events))]
+        return set(self._events[0].tolist())
 
     def sparse_set_of(self, dense_id: int) -> np.ndarray:
         """Sorted distinct encodings of a (never-dense) taxon."""
-        self._compact()
-        lo = np.uint64(dense_id) << np.uint64(32)
-        hi = np.uint64(dense_id + 1) << np.uint64(32)
-        s = np.searchsorted(self._union, lo, side="left")
-        e = np.searchsorted(self._union, hi, side="left")
-        return (self._union[s:e] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        if self._host is None:
+            self._compact()
+            self._host = self._union.cpu().numpy()
+        s = np.searchsorted(self._host, dense_id << 32, side="left")
+        e = np.searchsorted(self._host, (dense_id + 1) << 32, side="left")
+        return (self._host[s:e] & 0xFFFFFFFF).astype(np.uint32)

@@ -481,12 +481,13 @@ def test_device_counters_approx_mode(jax_host):
         np.testing.assert_array_equal(hd.M, dev[taxid].kmers.M, err_msg=str(taxid))
 
 
-def test_device_counters_overflow_mode():
-    """A 4-slot sparse buffer overflows on every unit: each unit's stats are
-    redone on the host, the overflow is counted and the report stays
-    byte-equal."""
-    c, kraken, report = _port(device_counters=True, sparse_cap=4)
-    assert c.dev_counters.tracker.overflows == c.n_units > 0
+@pytest.mark.parametrize("use_native", [True, False], ids=["span", "python"])
+def test_device_counters_overflow_mode(use_native):
+    """A 4-slot sparse buffer overflows on every update (a span on the span
+    route, a work unit on the Python route): its stats are redone on the
+    host, the overflow is counted and the report stays byte-equal."""
+    c, kraken, report = _port(device_counters=True, sparse_cap=4, use_native=use_native)
+    assert c.dev_counters.tracker.overflows == (c.n_spans if use_native else c.n_units) > 0
     assert kraken == _golden("kraken.out")
     assert report == _golden("report.tsv")
 

@@ -95,7 +95,7 @@ def test_kernel_wrappers_refuse_cpu_launch():
         _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
-        "pack_runs",
+        "pack_runs", "sparse_stats", "span_dict",
     }
     assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.LAUNCHES)
 

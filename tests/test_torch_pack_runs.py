@@ -192,3 +192,21 @@ def test_span_step_returns_lanes_only_when_asked(quick, min_hits, extra):
     for key in outputs:
         w = np.asarray(want[key])
         np.testing.assert_array_equal(got[key].numpy().view(w.dtype), w, err_msg=key)
+
+
+@pytest.mark.parametrize("quick,min_hits", [(False, 1), (True, 2)], ids=["compact", "quick"])
+def test_span_step_launches_the_feed_only_when_asked(quick, min_hits, monkeypatch):
+    """Without hll_dense among the outputs (the device-counters span) the
+    step packs its rows without the feed, and the rows equal those of the
+    step with the feed."""
+    from krakenuniq_tpu_torch.classify import device_step
+
+    feeds = []
+    real = device_step.pack_runs
+    monkeypatch.setattr(device_step, "pack_runs", lambda *a, **k: feeds.append(k["hll16"]) or real(*a, **k))
+    with_feed, _ = _golden_span(quick, min_hits, SPAN)
+    without, want = _golden_span(quick, min_hits, ("packed", "taxa_dense", "ambig"))
+    assert feeds == [True, False]
+    assert tuple(without) == ("packed", "taxa_dense", "ambig")
+    assert torch.equal(with_feed["packed"], without["packed"])
+    np.testing.assert_array_equal(without["packed"].numpy().view(np.uint32), np.asarray(want["packed"]))

@@ -2,9 +2,10 @@
 against the JAX package, integer for integer: `pack_runs_plain` against
 `_pack_runs` in its three row layouts, `unpack_input` and the packed-input
 k-mer front against `unpack_input` and the JAX front, the span step config
-of `classify_step_core` against the JAX step with the same options on the
-golden databases, and the native CHD placement against the JAX package's
-native `chd_place` built from native/kuniq_native.cpp."""
+of `classify_step_core` (compact and wide rows) against the JAX step with
+the same options on the golden databases, and the native CHD placement
+against the JAX package's native `chd_place` built from
+native/kuniq_native.cpp."""
 
 import dataclasses
 import importlib.util
@@ -183,26 +184,39 @@ def test_span_step_matches_jax(dbs, quick, min_hits):
     assert (packed[:, :8] != 0).any()
 
 
-def test_span_step_wide_rows_not_yet_in_the_step():
-    """RLE rows without dense ids (the wide layout and its u64 HLL feed)
-    belong to the span taxon dictionary's route: the step refuses them
-    rather than emit a feed no route reads."""
+@pytest.mark.parametrize("quick", [False, True], ids=["resolve", "quick"])
+def test_span_step_wide_rows_not_yet_in_the_step(quick):
+    """The step's wide RLE rows (dense_runs=False: run values mapped to
+    taxids through taxid_table) and their u64 hll_pairs feed, the span
+    dictionary's overflow route, equal the JAX step's."""
     codes, ambig, lengths = _span_feed(b=64)
-    jc = JaxClassifier([DATA], JaxOptions(print_progress=False, use_native=False))
+    jc = JaxClassifier([DATA], JaxOptions(print_progress=False, use_native=False, quick=quick))
+    outputs = ("packed", "taxa_dense", "ambig", "hll_pairs")
+    jcfg = dataclasses.replace(jc._cfg, packed_input=True, max_runs=8, outputs=outputs)
+    want = classify_step(
+        jc._db_planes, jc._taxid_table, jc._tin, jc._tout, jc._parent, jc._root_dense,
+        codes, ambig, lengths, jcfg,
+    )
     planes = (
         device_db_from_host(
             tuple(np.asarray(p) for p in jc.dbs[0].hash_table), jc.dbs[0].hash_lb, jc._pool,
             jc.k, jc.nt, "cpu",
         ).hash_table,
     )
-    cfg = StepConfig(k=jc.k, max_depth=jc._cfg.max_depth, packed_input=True, max_runs=8)
+    cfg = StepConfig(k=jc.k, max_depth=jc._cfg.max_depth, quick=quick, packed_input=True, max_runs=8,
+                     outputs=outputs)
     t = lambda a: T(np.array(a).view(np.int32))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        classify_step_core(
-            planes, t(jc._taxid_table), torch.stack([t(jc._tin), t(jc._tout)], dim=1),
-            t(jc._parent), int(jc._root_dense),
-            T(codes.view(np.int32)), T(ambig.view(np.int32)), T(lengths), cfg,
-        )
+    got = classify_step_core(
+        planes, t(jc._taxid_table), torch.stack([t(jc._tin), t(jc._tout)], dim=1),
+        t(jc._parent), int(jc._root_dense),
+        T(codes.view(np.int32)), T(ambig.view(np.int32)), T(lengths), cfg,
+    )
+    assert tuple(got) == outputs
+    for key in outputs:
+        w = np.asarray(want[key])
+        np.testing.assert_array_equal(got[key].numpy().view(w.dtype), w, err_msg=key)
+    pairs = np.asarray(want["hll_pairs"])
+    assert (pairs != np.uint64(0xFFFFFFFFFFFFFFFF)).any() and (pairs == np.uint64(0xFFFFFFFFFFFFFFFF)).any()
 
 
 @pytest.fixture(scope="module")

@@ -162,7 +162,7 @@ def test_tracker_consumes_device_buffer():
     unit_id = np.repeat(np.arange(3, dtype=np.uint8), 4)
     (jb, jp, je), (tb, tp, te) = _both(taxa, enc, lanes, unit_id, 4096)
     tr, jtr = TS.SparseTracker(), JS.SparseTracker()
-    assert tr.consume_buffer(tb[: tp + te], tp, te)
+    assert tr.consume_buffer(torch.from_numpy(tb[: tp + te].view(np.int64)), tp, te)
     assert jtr.consume_buffer(jb[: jp + je], jp, je)
     assert tr.dense_ever == jtr.dense_ever
     for t in range(6):
@@ -171,10 +171,58 @@ def test_tracker_consumes_device_buffer():
 
 def test_tracker_overflow_flag():
     tr = TS.SparseTracker()
-    buf = np.zeros(4, np.uint64)
+    buf = torch.zeros(4, dtype=torch.int64)
     assert not tr.consume_buffer(buf, 3, 2)  # 5 > 4 slots
     assert tr.overflows == 1
 
 
 def test_constants_match_jax():
     assert (TS.TAXON_BITS, TS.UNIT_BITS, TS.MAX_UNITS) == (JS.TAXON_BITS, JS.UNIT_BITS, JS.MAX_UNITS)
+
+
+def _span_planes(rng, b, w, n_units, n_taxa):
+    """zipf-1.5 taxa over n_taxa ids; random encodings on the five most
+    frequent taxa (they go dense), a few hundred distinct ones on the tail
+    (it stays sparse)."""
+    taxa = (rng.zipf(1.5, size=(b, w)) % n_taxa).astype(np.int32)
+    enc = rng.integers(0, 1 << 32, size=(b, w), dtype=np.uint64).astype(np.uint32)
+    tail = taxa >= 5
+    enc[tail] = (rng.integers(0, 300, size=int(tail.sum())).astype(np.uint32) << 7) | 3
+    lanes = rng.random((b, w)) < 0.9
+    unit_id = np.repeat(np.arange(n_units), -(-b // n_units))[:b].astype(np.uint8)
+    return taxa, enc, lanes, unit_id
+
+
+def _both_p12(taxa, enc, lanes, unit_id, cap):
+    args = (torch.from_numpy(taxa), torch.from_numpy(enc.view(np.int32)), torch.from_numpy(lanes),
+            torch.from_numpy(unit_id.astype(np.int64)), 12, cap)
+    jb, jp, je = jax.jit(JS.sparse_stats_core, static_argnums=(4, 5))(
+        jnp.asarray(taxa), jnp.asarray(enc), jnp.asarray(lanes), jnp.asarray(unit_id), 12, cap)
+    got = TS.sparse_stats(*args)  # the wrapper takes the plain version on the CPU
+    assert all(torch.equal(g, w) for g, w in zip(got, TS.sparse_stats_core(*args)))
+    tb, tp, te = got
+    assert (int(tp), int(te)) == (int(jp), int(je))
+    np.testing.assert_array_equal(tb.numpy().view(np.uint64), np.asarray(jb))
+    return int(tp), int(te)
+
+
+@pytest.mark.parametrize("case", ["64-units", "giant-group", "cap-edge"])
+def test_sparse_stats_span_shapes_match_jax(case):
+    """Span-like inputs at p = 12: 64 work units of zipf taxa; one unit whose
+    every lane is one taxon (one group across the whole plane); and a cap at
+    the emitted count and one below it (truncation)."""
+    rng = np.random.default_rng(["64-units", "giant-group", "cap-edge"].index(case))
+    if case == "giant-group":
+        taxa = np.zeros((512, 130), np.int32)
+        enc = rng.integers(0, 1 << 32, size=taxa.shape, dtype=np.uint64).astype(np.uint32)
+        n_p, n_e = _both_p12(taxa, enc, np.ones(taxa.shape, bool), np.zeros(512, np.uint8), 1 << 21)
+        assert (n_p, n_e) == (0, 1)
+        return
+    planes = _span_planes(rng, 4096 if case == "64-units" else 1024, 130, 64 if case == "64-units" else 3, 503)
+    n_p, n_e = _both_p12(*planes, 1 << 21)
+    assert n_p > 0 and n_e > 0
+    if case == "64-units":
+        assert n_e >= 64  # every unit's most frequent taxon goes dense
+    else:
+        for cap in (n_p + n_e, n_p + n_e - 1, n_p - 1):
+            _both_p12(*planes, cap)
