@@ -31,17 +31,22 @@ Phases, each raising on failure:
      kmer_front at the unit and span shapes (reads that overflow the run
      slots, ambiguous runs, reads shorter than k, quick-mode feed cuts),
      pack_runs on a ragged [65535, 130] and on row-sliced planes off the
-     16-byte grid, sparse_stats (the unit, the span with 17 units over
-     pool and dense ids, one giant group, the d == m/4 edge with and
-     without a last duplicate, a cap below the entry count), span_dict
-     (the span over the 2.4M-id space with n_u below, at and above its
-     capacity, ids 0 and T - 1) and taxon_counts and hll_regmax at the
-     span's lanes (pool, and dense ids through a lut); each
-     check times the wrapper call (`ms`, CUDA events, host launch path
-     included) and the kernel alone (`device_ms`, torch.profiler, summed
-     over a call's launches and, for sparse_stats and span_dict, over
-     the six kernels of a launch), and each chd_probe check the one-level
-     random-row floor (`floor_ms`);
+     16-byte grid, sparse_stats and its key build sparse_keys (the unit,
+     the span with 17 units over pool and dense ids, one giant group, a
+     stayed-sparse group of many duplicates across several tiles, a span
+     with no counted lane, the d == m/4 edge with and without a last
+     duplicate, a cap below the entry count), span_dict (the span over the
+     2.4M-id space, T not a multiple of 32, with n_u below, at and above
+     its capacity, ids 0, 31, 32 and T - 1, ids outside [0, T), and 0
+     with the top 400 ids, which cluster in few bitmap words) and
+     taxon_counts and hll_regmax at the span's lanes (pool, and dense ids
+     through a lut); each check times the wrapper call (`ms`, CUDA events,
+     host launch path included) and the kernel alone (`device_ms`,
+     torch.profiler, summed over a call's launches and over the card
+     records of a launch, RECORDS_PER_LAUNCH of the package under test),
+     each sparse_stats check also the whole wrapper call's card time
+     (`call_device_ms`: key build, sort and stats), and each chd_probe
+     check the one-level random-row floor (`floor_ms`);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
@@ -155,11 +160,21 @@ SYMBOLS = {
     "row_gather": ("row_gather_kernel",),
     "pack_runs": ("pack_runs_kernel",),
     "sparse_stats": ("sparse_stats_",),
-    "span_dict": ("span_dict_",),
+    "sparse_keys": ("sparse_keys_",),
+    # span_dict clears its bitmap with a memset on the stream
+    "span_dict": ("span_dict_", "Memset"),
 }
-# card records of one launch of a library whose entry point runs several
-# kernels in order (one launch is one call of the entry point)
-RECORDS_PER_LAUNCH = {"sparse_stats": 6, "span_dict": 6}
+
+
+def records_per_launch(kname: str) -> int:
+    """Card records of one launch of an entry point that runs several
+    kernels in order (one launch is one call of the entry point), as the
+    package under test declares them; an older package, without the
+    table, ran six for sparse_stats and for span_dict."""
+    from krakenuniq_tpu_torch import _kernels
+
+    table = getattr(_kernels, "RECORDS_PER_LAUNCH", {"sparse_stats": 6, "span_dict": 6})
+    return table.get(kname, 1)
 
 
 # Idle seconds kept before and after the timed calls of one profiler
@@ -321,7 +336,7 @@ def check_kernel(name, shape, kernel, plain, reps, bound=None, library=None, ext
     before = _kernels.LAUNCHES[kname]
     got = kernel()
     per_call = _kernels.LAUNCHES[kname] - before
-    records = per_call * RECORDS_PER_LAUNCH.get(kname, 1)
+    records = per_call * records_per_launch(kname)
     want = plain()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -460,16 +475,26 @@ def regmax_bound(lanes, slots) -> dict:
 # the flags (4), the segmented scan (count, max, group count: 4), the
 # decision and emit tests (4): ~20
 STATS_OPS_PER_LANE = 20
+# sparse_keys' per lane: the row and column (2), three shifts, two ors, the
+# pad select and the sign flip (7)
+KEYS_OPS_PER_LANE = 9
 
 
 def stats_bound(n: int, n_distinct: int, buf_len: int) -> dict:
-    """The `sparse_stats` kernel's function after the sort: the sorted key
+    """The `sparse_stats` kernels' function after the sort: the sorted key
     (8 B) in per lane, the stream position (8 B) only at each pair's last
-    lane (the `n_distinct` distinct keys that are not pads; the kernel
-    reads no other), the buffer (8 B a slot, pads included) and the two
-    counts out; STATS_OPS_PER_LANE operations per lane. The sort before it
-    is timed apart (`library_ms`)."""
+    lane (the `n_distinct` distinct keys that are not pads; the kernels
+    read no other), the buffer (8 B a slot, pads included) and the two
+    counts out; STATS_OPS_PER_LANE operations per lane. The key build and
+    the sort before it are timed apart (the sparse_keys record, `sort_ms`)."""
     return bound(8 * n + 8 * n_distinct + 8 * buf_len + 8, STATS_OPS_PER_LANE * n)
+
+
+def keys_bound(b: int, w: int, unit_bytes: int) -> dict:
+    """`sparse_keys`: a taxon and an encoding (4 B each) and a lane flag (1
+    B) in and the key (8 B) out per lane, a unit id in per row;
+    KEYS_OPS_PER_LANE operations per lane."""
+    return bound(17 * b * w + unit_bytes * b, KEYS_OPS_PER_LANE * b * w)
 
 
 def dict_bound(n: int, b: int, cap: int, with_call: bool) -> dict:
@@ -988,12 +1013,18 @@ def stats_planes(b, w, n_units, ids, seed):
     return t(taxa), t(enc.view(np.int32)), t(lanes), t(unit.astype(np.int64))
 
 
-def stats_check(label, taxa, enc, lanes, unit, p, cap, reps):
-    """sparse_stats (torch.sort, then the kernel) against sparse_stats_core
-    (the plain torch chain, its second sort included), on the whole buffer
-    and both counts. device_ms is the kernel's six launches; library_ms the
-    torch.sort the wrapper calls, on the same keys; the bound is the
-    kernel's work after the sort (stats_bound)."""
+def stats_check(label, taxa, enc, lanes, unit, p, cap, reps, by_op=False):
+    """sparse_stats (the key build, torch.sort, then the stats kernels)
+    against sparse_stats_core (the plain torch chain, its second sort
+    included), on the whole buffer and both counts. device_ms is the stats
+    kernels after the sort (RECORDS_PER_LAUNCH of the package under test);
+    call_device_ms every card record of one wrapper call (the key build as
+    a kernel or as torch ops, the sort, the stats), so that packages that
+    build the keys differently compare the same work; sort_ms the
+    torch.sort the wrapper calls, on the same keys (no PyTorch call
+    computes the function: library_ms stays unset); with `by_op`, the
+    call's card records by operation (`call_by_op`). The bound is the
+    kernels' work after the sort (stats_bound)."""
     import torch
 
     from krakenuniq_tpu_torch.classify import sparse_exact as se
@@ -1003,25 +1034,51 @@ def stats_check(label, taxa, enc, lanes, unit, p, cap, reps):
     keys = se._stats_keys(taxa, enc, lanes, unit) ^ se._SIGN
     n = taxa.numel()
     n_distinct = int(torch.unique(keys[keys != (se._PAD ^ se._SIGN)]).numel())
+    n_rec = card_records(run)
+    if n_rec is None:
+        call_ms, call_by = queued_ms(run, reps), "events"
+    else:
+        call_ms, call_by = device_ms(run, "sparse_stats", reps, n_rec, symbols=("",))
+    extra = {"p": p, "cap": cap, "units": int(unit.unique().numel()), "n_pairs": int(n_p),
+             "n_events": int(n_e), "n_distinct_keys": n_distinct, "bound_of": "the kernels after the sort",
+             "sort_ms": time_ms(lambda: torch.sort(keys, stable=True), max(3, reps // 4)),
+             "call_device_ms": call_ms, "call_device_ms_by": call_by, "call_records": n_rec}
+    if by_op:
+        extra["call_by_op"] = device_ms_by_op(run, reps=5, top=12)
     return check_kernel(
         "sparse_stats" + label, tuple(taxa.shape), run,
         lambda: se.sparse_stats_core(taxa, enc, lanes, unit, p, cap), reps=reps,
-        bound=stats_bound(n, n_distinct, min(cap, n)), library=lambda: torch.sort(keys, stable=True),
-        extra={"p": p, "cap": cap, "units": int(unit.unique().numel()), "n_pairs": int(n_p),
-               "n_events": int(n_e), "n_distinct_keys": n_distinct, "bound_of": "the kernel after the sort"},
+        bound=stats_bound(n, n_distinct, min(cap, n)), extra=extra,
     )
 
 
-def dict_check(label, ids, calls, n_ids, cap, with_call, reps):
+def keys_check(label, taxa, enc, lanes, unit, reps):
+    """sparse_keys (the key build alone, as sparse_stats launches it before
+    its sort) against the torch ops it replaces; skipped, with a note, on a
+    package whose sparse_stats builds the keys with torch ops."""
+    from krakenuniq_tpu_torch.classify import sparse_exact as se
+
+    if not hasattr(se, "sparse_keys"):
+        log("this package builds sparse_stats' keys with torch ops (no sparse_keys kernel)")
+        return None
+    return check_kernel(
+        "sparse_keys" + label, tuple(taxa.shape), lambda: (se.sparse_keys(taxa, enc, lanes, unit),),
+        lambda: (se._stats_keys(taxa, enc, lanes, unit) ^ se._SIGN,), reps=reps,
+        bound=keys_bound(*taxa.shape, unit.element_size()), extra={"unit_dtype": str(unit.dtype)},
+    )
+
+
+def dict_check(label, ids, calls, n_ids, cap, with_call, reps, plain_fn=None):
     """span_dict against span_dict_plain (the JAX package's sort, cumsum,
-    searchsorted and scatter in torch); library_ms: torch.unique of the
+    searchsorted and scatter in torch), or `plain_fn` (ids outside [0, T),
+    which span_dict_plain does not take); library_ms: torch.unique of the
     plane, sorted, with the inverse."""
     import torch
 
     from krakenuniq_tpu_torch.classify.device_step import span_dict, span_dict_plain
 
     run = lambda: span_dict(ids, calls, n_ids, cap, with_call)
-    plain = lambda: span_dict_plain(ids, calls, n_ids, cap, with_call)
+    plain = lambda: (plain_fn or span_dict_plain)(ids, calls, n_ids, cap, with_call)
     drop = lambda out: tuple(x for x in out if x is not None)
     n_u = int(run()[0][-1])
     return check_kernel(
@@ -1060,6 +1117,19 @@ def phase_dict_stats_kernels(p: int = 12):
     stats_check(" cap below", taxa, enc, lanes, unit, p, (rec["n_pairs"] + rec["n_events"]) // 2, reps=3)
     zeros = torch.zeros_like(taxa)
     stats_check(" giant group", zeros, enc, torch.ones_like(lanes), torch.zeros_like(unit), p, 1 << 21, reps=3)
+    # one unit's taxon 7 over three tiles of lanes (4096 each) and more, from
+    # 900 encodings: it stays sparse (900 < m/4 = 1024) with 900 pairs
+    dup = torch.from_numpy((rng.integers(0, 900, size=(128, 130)).astype(np.uint32) << 7 | 5).view(np.int32))
+    rec = stats_check(" sparse across tiles", torch.full((128, 130), 7, dtype=torch.int32, device="cuda"),
+                      dup.cuda(), torch.ones((128, 130), dtype=torch.bool, device="cuda"),
+                      torch.zeros(128, dtype=torch.uint8, device="cuda"), p, 1 << 21, reps=3)
+    if (rec["n_pairs"], rec["n_events"]) != (int(dup.unique().numel()), 0):
+        raise AssertionError(f"sparse_stats across tiles: {rec['n_pairs']} pairs, {rec['n_events']} events")
+    rec = stats_check(" no counted lane", taxa, enc, torch.zeros_like(lanes), unit, p, 1 << 21, reps=3)
+    if (rec["n_pairs"], rec["n_events"]) != (0, 0):
+        raise AssertionError(f"sparse_stats without counted lanes: {rec['n_pairs']}, {rec['n_events']}")
+    for dt in (torch.uint8, torch.int32, torch.int64):
+        keys_check(f" span {str(dt)[6:]}", taxa, enc, lanes, unit.to(dt), reps=10)
     for dup in (False, True):
         stream = np.arange(1, 17, dtype=np.uint32)
         if dup:
@@ -1073,8 +1143,8 @@ def phase_dict_stats_kernels(p: int = 12):
 
     b, w, cap = 65536, 130, 1 << 15
     for label, n_kinds in ((" below", 3000), (" at", cap), (" above", 40_000)):
-        kinds = np.unique(np.concatenate([[0, t_ids - 1],
-                                          rng.choice(np.arange(1, t_ids - 1), n_kinds - 2, replace=False)]))
+        edge = [0, 31, 32, t_ids - 1]  # a word's first and last bit, the next word, T - 1 (T % 32 = 23)
+        kinds = np.unique(np.concatenate([edge, rng.choice(np.arange(33, t_ids - 1), n_kinds - 4, replace=False)]))
         ids = kinds[(rng.zipf(1.3, size=(b, w)) - 1) % len(kinds)].astype(np.int32)
         ids.reshape(-1)[: len(kinds)] = kinds  # every kind occurs: n_u = n_kinds
         calls = kinds[rng.integers(0, len(kinds), size=b)].astype(np.int32)
@@ -1083,6 +1153,22 @@ def phase_dict_stats_kernels(p: int = 12):
             rec = dict_check(label, ti, tc, t_ids, cap, with_call, reps=10)
         if rec["n_u"] != len(kinds):
             raise AssertionError(f"span_dict{label}: n_u {rec['n_u']} != {len(kinds)}")
+    # a span's ids as phase 7 sees them: 0 and the 400 species at the top of
+    # the dense space (chip_smoke's database puts them there), a few words
+    # of the bitmap that every block marks
+    kinds = np.concatenate([[0], np.arange(t_ids - 400, t_ids)])
+    ids = kinds[(rng.zipf(1.3, size=(b, w)) - 1) % len(kinds)].astype(np.int32)
+    calls = kinds[rng.integers(0, len(kinds), size=b)].astype(np.int32)
+    dict_check(" clustered", torch.from_numpy(ids).cuda(), torch.from_numpy(calls).cuda(), t_ids, cap, True, reps=10)
+    # ids outside [0, T) are no entry and remap to 0: held against the
+    # bitmap mirror (span_dict_plain does not take them)
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    if hasattr(ds, "span_dict_bitmap"):
+        bad = ti.clone()
+        bad.view(-1)[::97] = -5
+        bad.view(-1)[1::89] = t_ids
+        rec = dict_check(" outside [0, T)", bad, tc, t_ids, cap, True, reps=10, plain_fn=ds.span_dict_bitmap)
 
     # the counter kernels at the span's lanes ([65536] calls, [65536, 130]
     # k-mers), zipf-1.5: over the pool, and over the dense space with the
@@ -1508,7 +1594,7 @@ def span_planes(c, codes, ambig, lengths, bounds):
 
     cfg = dataclasses.replace(c._cfg_packed, outputs=("taxa_dense", "enc", "hll_lanes", "call_dense"))
     out = c._span_step(codes, ambig, lengths, cfg=cfg)
-    return out, c._upload(c._unit_id_rows(bounds, codes.shape[0])).long()
+    return out, c._upload(c._unit_id_rows(bounds, codes.shape[0]))
 
 
 def phase_span_counters(run4, reps: int):
@@ -1531,7 +1617,8 @@ def phase_span_counters(run4, reps: int):
     out_path, report_path = os.path.join(db_dir, "kraken_dcs.out"), os.path.join(db_dir, "report_dcs.tsv")
     run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
     log(f"span counters: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
-    per_span = ("sparse_stats", "taxon_counts", "hll_regmax", "pack_runs", "kmer_front", "chd_probe", "scores")
+    per_span = ("sparse_keys", "sparse_stats", "taxon_counts", "hll_regmax", "pack_runs", "kmer_front", "chd_probe",
+                "scores")
     if c.n_units or c.n_spans == 0 or any(launches[k] != c.n_spans for k in per_span):
         raise AssertionError(f"span counters: {c.n_units} Python-route units, {c.n_spans} spans, "
                              f"launches {launches}")
@@ -1548,7 +1635,8 @@ def phase_span_counters(run4, reps: int):
     planes, unit = span_planes(c, codes, ambig, lengths, bounds)
     taxa, enc, lanes = planes["taxa_dense"], planes["enc"], planes["hll_lanes"]
     row_valid = torch.arange(b, device="cuda") < len(offs)
-    stats = stats_check(" phase-5 span", taxa, enc, lanes, unit, dc.p, dc.sparse_cap, reps=reps // 5)
+    stats = stats_check(" phase-5 span", taxa, enc, lanes, unit, dc.p, dc.sparse_cap, reps=reps // 5, by_op=True)
+    keys = keys_check(" phase-5 span", taxa, enc, lanes, unit, reps)
     counts = counts_check([(planes["call_dense"], row_valid), (taxa, lanes)], dc.n_taxa, reps, " phase-5 span pair")
     regmax = regmax_check(torch.zeros_like(dc.reg), taxa, enc, lanes, None, dc.p, reps, " phase-5 span")
     t = time.time()
@@ -1576,7 +1664,7 @@ def phase_span_counters(run4, reps: int):
         "launches": launches,
         "equal_to_phase4": True,
     })
-    return {"sparse_stats": stats, "taxon_counts": counts, "hll_regmax": regmax}, launches
+    return {"sparse_stats": stats, "sparse_keys": keys, "taxon_counts": counts, "hll_regmax": regmax}, launches
 
 
 def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
@@ -1713,7 +1801,7 @@ def phase_counters(run4, reps: int):
     log(f"device counters: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
     units = c.n_units
     want = {"taxon_counts": units, "hll_regmax": units, "scores": units,
-            "kmer_front": units, "chd_probe": units, "sparse_stats": units}
+            "kmer_front": units, "chd_probe": units, "sparse_stats": units, "sparse_keys": units}
     if any(launches[k] != v for k, v in want.items()) or units == 0:
         raise AssertionError(f"device-counters path launches {launches}, want {want}")
     if dc.tracker.overflows:
@@ -1811,6 +1899,7 @@ KERNELS = {
     "row_gather": ("krakenuniq_tpu_torch/csrc/row_gather.cu", "tools/probe_dma_exp.py:42"),
     "pack_runs": ("krakenuniq_tpu_torch/csrc/pack_runs.cu", "krakenuniq_tpu/classify/device_step.py:408"),
     "sparse_stats": ("krakenuniq_tpu_torch/csrc/sparse_stats.cu", "krakenuniq_tpu/classify/sparse_exact.py:79"),
+    "sparse_keys": ("krakenuniq_tpu_torch/csrc/sparse_stats.cu", "krakenuniq_tpu/classify/sparse_exact.py:101"),
     "span_dict": ("krakenuniq_tpu_torch/csrc/span_dict.cu", "krakenuniq_tpu/classify/device_step.py:286"),
 }
 
@@ -1860,7 +1949,7 @@ def main(argv=None) -> int:
     recs.update(sc_recs)
     recs["row_gather"] = gather_rec
     # each kernel's launches come from the run of the path it serves
-    launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats")},
+    launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats", "sparse_keys")},
                 "span_dict": dict_launches["span_dict"], "row_gather": probe_launches["row_gather"]}
 
     rows = []

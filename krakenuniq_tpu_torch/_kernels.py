@@ -13,10 +13,11 @@ device_step.span_dict, hash_lookup.hash_lookup_kmers, resolve.scores,
 device_counters.taxon_counts, device_counters.hll_regmax,
 sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
 where they launch, so a run can show that its main path went through the
-kernels. One launch is one call of a library's entry point, which may run
-several kernels in order on the stream (sparse_stats and span_dict run
-six). A library may hold a second launching entry point (`ENTRIES`); its
-launches count under the library's name.
+kernels. One launch is one call of an entry point, which may put several
+records on the card in order on the stream (`RECORDS_PER_LAUNCH`). A
+library may hold other launching entry points (`ENTRIES`); each counts
+under the name its entry gives: the packed kmer_front under kmer_front,
+sparse_stats' key build under its own name, sparse_keys.
 """
 
 from __future__ import annotations
@@ -58,20 +59,27 @@ SIGNATURES = {
     # words, stream
     "pack_runs": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # sorted sign-flipped keys, their permutation, n, th, buf, buf length,
-    # n_pairs, n_events, scratch, stream
+    # n_pairs, n_events, scratch (cleared by sparse_keys), stream
     "sparse_stats": (_P, _P, _L, _I, _P, _L, _P, _P, _P, _P),
     # ids, n, calls, B, T, cap, lut, local, local_call (NULL: no call
     # remap), scratch, stream
     "span_dict": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 # launching entry points besides a library's own kuniq_<name>:
-# entry -> (library, C signature)
+# entry -> (library, C signature, the LAUNCHES name it counts under)
 ENTRIES = {
     # packed words in, the kmer_front kernel's outputs out
-    "kmer_front_packed": ("kmer_front", SIGNATURES["kmer_front"]),
+    "kmer_front_packed": ("kmer_front", SIGNATURES["kmer_front"], "kmer_front"),
+    # taxa, enc, lanes, unit ids, bytes of a unit id, B, W, keys, scratch,
+    # stream: the sort keys of sparse_stats
+    "sparse_keys": ("sparse_stats", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P), "sparse_keys"),
 }
+# card records of one launch of an entry point that puts several on the
+# stream: sparse_stats' decide and emit kernels; span_dict's bitmap clear
+# (a memset) and its mark, scan and remap kernels
+RECORDS_PER_LAUNCH = {"sparse_stats": 2, "span_dict": 4}
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+LAUNCHES = {name: 0 for name in (*SIGNATURES, *(counter for _, _, counter in ENTRIES.values()))}
 _libs: dict = {}  # name -> the loaded library
 _fns: dict = {}  # symbol -> a loaded entry point, argtypes bound
 _sms: dict = {}  # device index -> its SM count
@@ -169,7 +177,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     `device`'s current stream; tensors in `args` are passed by data
     pointer, None as NULL. Raises on a refused launch. Enters the device's
     context only when another device is current."""
-    lib, sig = ENTRIES.get(name, (name, SIGNATURES.get(name)))
+    lib, sig, counter = ENTRIES.get(name, (name, SIGNATURES.get(name), name))
     fn = entry(lib, f"kuniq_{name}", sig)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     current = torch.cuda.current_device()
@@ -182,4 +190,4 @@ def launch(name: str, device: torch.device, *args) -> None:
             rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[lib] += 1
+    LAUNCHES[counter] += 1

@@ -338,14 +338,59 @@ def span_dict_plain(ids, calls, n_ids: int, cap: int, with_call: bool = True):
     return torch.cat([lut, n_u[None]]), local, local_call
 
 
+def _popc32(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of each u32 held in an int64 tensor (the SWAR popcount)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def span_dict_bitmap(ids, calls, n_ids: int, cap: int, with_call: bool = True, super_words: int = 1024):
+    """`span_dict`'s result by the algorithm of its kernels (csrc/
+    span_dict.cu), in plain torch: a bit per id of [0, n_ids) set by every
+    id of the plane and the calls (ids outside are no entry and remap to 0),
+    the set bits counted per superblock of `super_words` words, each word's
+    first rank (the superblocks before it plus the words before it in its
+    superblock), lut[rank] = id below cap, and each id's rank as its word's
+    first rank plus the popcount of the word's bits below it."""
+    _span_dict_check(ids, calls, n_ids, cap)
+    dev = ids.device
+    x = torch.cat([ids.reshape(-1), calls]).to(torch.int64)
+    ok = (x >= 0) & (x < n_ids)
+    n_words = (n_ids + 31) // 32
+    bit = torch.zeros(n_words * 32, dtype=torch.int64, device=dev)
+    bit[x[ok]] = 1
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    words = (bit.view(n_words, 32) << shifts).sum(dim=1)  # u32 bit patterns
+    pop = _popc32(words)
+    n_supers = -(-n_words // super_words)
+    per_super = torch.zeros(n_supers * super_words, dtype=torch.int64, device=dev)
+    per_super[:n_words] = pop
+    per_super = per_super.view(n_supers, super_words)
+    super_first = torch.cumsum(per_super.sum(dim=1), 0) - per_super.sum(dim=1)
+    first = (super_first[:, None] + torch.cumsum(per_super, 1) - per_super).reshape(-1)[:n_words]
+    n_u = int(pop.sum())
+    lut = torch.full((cap + 1,), _LUT_PAD, dtype=torch.int32, device=dev)
+    set_ids = torch.nonzero(bit).reshape(-1)[:cap]  # ascending: rank order
+    lut[: set_ids.numel()] = set_ids.to(torch.int32)
+    lut[cap] = n_u
+    xs = torch.where(ok, x, torch.zeros_like(x))
+    w = xs >> 5
+    rank = first[w] + _popc32(words[w] & ((1 << (xs & 31)) - 1))
+    local = torch.where(ok & (rank < cap), rank, torch.zeros_like(rank)).to(torch.int32)
+    n = ids.numel()
+    return lut, local[:n].view(ids.shape), local[n:] if with_call else None
+
+
 def span_dict(ids, calls, n_ids: int, cap: int, with_call: bool = True):
     """The span's taxon dictionary and its local ids: (lut int32 [cap + 1]:
     the sorted distinct values of ids (int32 [B, W] dense ids in [0,
     n_ids)) and calls (int32 [B]), the first `cap` of them, padded with
     2^30, and their count last; local int32 [B, W]: each id's rank in it,
     0 past cap; local_call int32 [B] likewise, None without `with_call`).
-    CUDA tensors launch the `span_dict` kernel (csrc/span_dict.cu); CPU
-    tensors run `span_dict_plain`."""
+    CUDA tensors launch the `span_dict` kernels (csrc/span_dict.cu: a bit
+    per id, the popcount ranks); CPU tensors run `span_dict_plain`."""
     if ids.device.type == "cpu":
         return span_dict_plain(ids, calls, n_ids, cap, with_call)
     _span_dict_check(ids, calls, n_ids, cap)

@@ -30,9 +30,10 @@ and the went-dense taxon events into one buffer (its used prefix folds
 into the SparseTracker). Keys are uint64 bit patterns held in int64; both sorts flip
 the sign bit so that they order as unsigned (the pad key is all ones and
 the event tag is bit 63: both must sort LAST). It is the plain version of
-`sparse_stats`, which on the card keeps the first sort (torch.sort) and
-does everything after it in the `sparse_stats` kernel (csrc/
-sparse_stats.cu), the second sort included.
+`sparse_stats`, which on the card builds the keys in one kernel
+(`sparse_keys`), keeps the first sort (torch.sort) and does everything
+after it in two kernels (csrc/sparse_stats.cu), the second sort included;
+`sparse_stats_tiles` is the plain mirror of those kernels' tiled algorithm.
 """
 
 from __future__ import annotations
@@ -159,29 +160,137 @@ def sparse_stats_core(
     )
 
 
-def sparse_stats(taxa_dense, enc, hll_lanes, unit_id, p: int, cap: int):
-    """`sparse_stats_core`'s result. CUDA tensors sort the keys with
-    torch.sort and launch the `sparse_stats` kernel on the sorted keys and
-    their permutation (csrc/sparse_stats.cu); CPU tensors run
-    `sparse_stats_core`."""
-    if taxa_dense.device.type == "cpu":
-        return sparse_stats_core(taxa_dense, enc, hll_lanes, unit_id, p, cap)
+def _agg_op(a: tuple, b: tuple) -> tuple:
+    """The kernels' scan operator on (group start seen, pair starts since
+    the last group start, largest pair-end value since it, that group
+    start's sorted lane or -1)."""
+    if b[0]:
+        return b
+    return (a[0], a[1] + b[1], max(a[2], b[2]), a[3])
+
+
+def sparse_stats_tiles(taxa_dense, enc, hll_lanes, unit_id, p: int, cap: int, tile: int = 4096):
+    """`sparse_stats_core`'s result by the algorithm of the `sparse_stats`
+    kernels (csrc/sparse_stats.cu), in plain torch over tiles of `tile`
+    sorted lanes: the sign-flipped keys of the key build, the stable sort,
+    then (A) each tile scanned from the state carried into it (the tiles
+    before it combined back to the nearest one in which a group starts),
+    every group's end lane writing its decision at the group's start lane
+    and adding to the two totals, each tile keeping the group start carried
+    into it; and (B) each lane reading the decision at its group's start
+    and each tile writing its pairs and events after those of the tiles
+    before it (the events after all pairs)."""
+    th = (1 << p) // 4
+    sk, ps = torch.sort(_stats_keys(taxa_dense, enc, hll_lanes, unit_id) ^ _SIGN, stable=True)
+    k = sk ^ _SIGN
+    n = k.numel()
+    pad = torch.full((1,), _PAD, dtype=torch.int64, device=k.device)
+    kp, kn = torch.cat([pad, k[:-1]]), torch.cat([k[1:], pad])
+    g, gp, gn = lsr(k, 32), lsr(kp, 32), lsr(kn, 32)
+    valid = k != _PAD
+    pb, gb = valid & (k != kp), valid & (g != gp)
+    pe, ge = valid & (k != kn), valid & (g != gn)
+    v = torch.where(pe, (ps << 1) | pb.to(torch.int64), torch.full_like(ps, -1))
+    val_bits = max(2, int(n - 1).bit_length() + 2) + 1
+    lane = torch.arange(n, dtype=torch.int64, device=k.device)
+    starts = torch.cummax(torch.where(gb, lane, torch.full_like(lane, -1)), 0).values  # each lane's last group start
+
+    stays = torch.zeros(n, dtype=torch.bool, device=k.device)
+    aggs, head_start, n_pairs, n_events = [], [], 0, 0
+    for t0 in range(0, n, tile):  # (A)
+        carry = (0, 0, -1, -1)
+        for a in reversed(aggs):  # the walk back to the nearest group start
+            carry = _agg_op(a, carry)
+            if a[0]:
+                break
+        head_start.append(carry[3])
+        sl = slice(t0, min(n, t0 + tile))
+        gbt, pbt, get = gb[sl], pb[sl].to(torch.int64), ge[sl]
+        seg = torch.cumsum(gbt.to(torch.int64), 0)
+        cs = torch.cumsum(pbt, 0)
+        d_loc = cs - torch.cummax(torch.where(gbt, cs - pbt, torch.zeros_like(cs)), 0).values
+        e_loc = _seg_cummax(gbt, v[sl], val_bits)
+        head = seg == 0  # before the tile's first group start: the carried group
+        d_run = torch.where(head, carry[1] + d_loc, d_loc)
+        e_run = torch.where(head, torch.clamp(e_loc, min=carry[2]), e_loc)
+        s_run = torch.where(head, torch.full_like(lane[sl], carry[3]), starts[sl])
+        dec = (d_run < th) | ((d_run == th) & ((e_run & 1) == 1))
+        stays[s_run[get]] = dec[get]
+        n_pairs += int(d_run[get & dec].sum())
+        n_events += int((get & ~dec).sum())
+        flag = bool(seg[-1] > 0)
+        aggs.append((int(flag), int(d_loc[-1]), int(e_loc[-1]), int(starts[sl][-1]) if flag else -1))
+
+    buf = torch.full((min(cap, n),), _PAD, dtype=torch.int64, device=k.device)
+    before = (0, 0)  # pairs and events of the tiles before this one
+    for i, carried in enumerate(head_start):  # (B)
+        sl = slice(i * tile, min(n, (i + 1) * tile))
+        in_tile = torch.where(gb[sl], lane[sl], torch.full_like(lane[sl], -1))
+        gs = torch.clamp(torch.cummax(in_tile, 0).values, min=carried)
+        s_lane = stays[gs.clamp(min=0)]
+        ep, ee = pb[sl] & s_lane, ge[sl] & ~s_lane
+        for emit, key, first in ((ep, k[sl], before[0]), (ee, _SIGN | g[sl], n_pairs + before[1])):
+            pos = first + torch.cumsum(emit.to(torch.int64), 0) - 1
+            keep = emit & (pos < buf.numel())
+            buf[pos[keep]] = key[keep]
+        before = (before[0] + int(ep.sum()), before[1] + int(ee.sum()))
+    dev = k.device
+    return buf, torch.tensor(n_pairs, dtype=torch.int32, device=dev), torch.tensor(n_events, dtype=torch.int32,
+                                                                                   device=dev)
+
+
+# bytes of a unit id the key build reads as it is; other types go as int64
+_UNIT_BYTES = {torch.uint8: 1, torch.int32: 4, torch.int64: 8}
+
+
+def _stats_check(taxa_dense, enc, hll_lanes, unit_id) -> torch.device:
     dev = _kernels.check_cuda("sparse_stats", taxa_dense=taxa_dense, enc=enc, hll_lanes=hll_lanes,
                               unit_id=unit_id)
     if taxa_dense.dtype != torch.int32 or enc.dtype != torch.int32 or hll_lanes.dtype != torch.bool:
         raise TypeError("sparse_stats: taxa_dense and enc must be int32, hll_lanes bool")
     if enc.shape != taxa_dense.shape or hll_lanes.shape != taxa_dense.shape or unit_id.shape != taxa_dense.shape[:1]:
         raise ValueError("sparse_stats: need [B, W] taxa_dense, enc, hll_lanes and [B] unit_id")
+    b, w = taxa_dense.shape
+    if not 0 < b * w < (1 << 29):
+        raise ValueError(f"sparse stats over {b * w} lanes: need 0 < B*W < 2^29 (the scan packing)")
+    return dev
+
+
+def sparse_keys(taxa_dense, enc, hll_lanes, unit_id, scratch=None) -> torch.Tensor:
+    """The flat sort keys of `sparse_stats`, sign-flipped (int64 [B*W]:
+    `_stats_keys` ^ the sign bit, so that their int64 order is their
+    unsigned order). CUDA tensors launch the `sparse_keys` kernel (csrc/
+    sparse_stats.cu), which also clears the look-back state of `scratch`
+    (kuniq_sparse_stats_scratch words, or None) for the `sparse_stats`
+    kernels; CPU tensors run the torch ops."""
+    if taxa_dense.device.type == "cpu":
+        return _stats_keys(taxa_dense, enc, hll_lanes, unit_id) ^ _SIGN
+    dev = _stats_check(taxa_dense, enc, hll_lanes, unit_id)
+    if unit_id.dtype not in _UNIT_BYTES:
+        unit_id = unit_id.to(torch.int64)
+    b, w = taxa_dense.shape
+    keys = torch.empty(b * w, dtype=torch.int64, device=dev)
+    _kernels.launch("sparse_keys", dev, taxa_dense, enc, hll_lanes, unit_id, _UNIT_BYTES[unit_id.dtype], b, w,
+                    keys, scratch)
+    return keys
+
+
+def sparse_stats(taxa_dense, enc, hll_lanes, unit_id, p: int, cap: int):
+    """`sparse_stats_core`'s result. CUDA tensors launch the key build
+    (`sparse_keys`), sort the keys with torch.sort and launch the
+    `sparse_stats` kernels on the sorted keys and their permutation (csrc/
+    sparse_stats.cu); CPU tensors run `sparse_stats_core`."""
+    if taxa_dense.device.type == "cpu":
+        return sparse_stats_core(taxa_dense, enc, hll_lanes, unit_id, p, cap)
+    dev = _stats_check(taxa_dense, enc, hll_lanes, unit_id)
     if cap <= 0 or not 2 <= p <= 18:
         raise ValueError(f"sparse_stats: need cap > 0 and 2 <= p <= 18 (cap={cap}, p={p})")
-    # the kernel reads the keys as sorted here: sign-flipped, so that int64
-    # order is their unsigned order
-    sk, ps = torch.sort(_stats_keys(taxa_dense, enc, hll_lanes, unit_id) ^ _SIGN, stable=True)
-    n = sk.numel()
-    buf = torch.empty(min(cap, n), dtype=torch.int64, device=dev)
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    n = taxa_dense.numel()
     words = _kernels.entry("sparse_stats", "kuniq_sparse_stats_scratch", (ctypes.c_longlong,))(n)
     scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    sk, ps = torch.sort(sparse_keys(taxa_dense, enc, hll_lanes, unit_id, scratch), stable=True)
+    buf = torch.empty(min(cap, n), dtype=torch.int64, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
     _kernels.launch("sparse_stats", dev, sk, ps, n, (1 << p) // 4, buf, buf.numel(), counts[0], counts[1],
                     scratch)
     return buf, counts[0], counts[1]

@@ -1,7 +1,8 @@
-"""Time the candidate designs of three kernels against the kept ones on the card.
+"""Time the candidate designs of five kernels against the kept ones on the card.
 
-`csrc/taxon_counts.cu`, `csrc/row_gather.cu` and `csrc/pack_runs.cu` were
-each chosen over other designs; `tools/variants/*.cu` keeps those candidates (each file includes
+`csrc/taxon_counts.cu`, `csrc/row_gather.cu`, `csrc/pack_runs.cu`,
+`csrc/sparse_stats.cu` and `csrc/span_dict.cu` were each chosen over other
+designs; `tools/variants/*.cu` keeps those candidates (each file includes
 its kernel's source and adds them). This script builds them, runs every
 candidate and the kept kernel (through its wrapper) on the same inputs,
 holds each output equal to the plain PyTorch version, and prints one JSON
@@ -20,8 +21,17 @@ and cp.async.bulk copies, at 8,519,680 and 532,480 16-byte rows and
 with plain loads (the first design), its ballot walk on the kept ring of
 staged tiles, a thread per read on that ring, and the kept kernel with
 plain loads and other tile sizes and ring depths, at [65536, 130] and
-[4096, 130] in the compact layout. It needs a card and exits with 2
-without one.
+[4096, 130] in the compact layout. sparse_stats: the kept tile bodies on
+a persistent grid that copies the next tile's keys while it works on the
+current one, after the kept key build and torch.sort, on a span's
+[65536, 130] (17 units) and a unit's [4096, 160] counted lanes (their
+`device_ms` counts the kernels after the sort). span_dict: marking by
+__match_any_sync (the first design), behind a block's table of ids (a lane
+a thread, a first sighting reading its word from the L2 or not), and the
+remap without evict-first hints, on a span's [65536, 130] zipf-1.3 ids
+over 400, 3,000 and 40,000 of 2,400,503 ids and over the top 400 with 0
+(`device_ms` counts the three kernels, not the memset every form runs). It
+needs a card and exits with 2 without one.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from .. import _kernels
 from ..classify import device_counters as dc
 from ..classify import device_step as ds
+from ..classify import sparse_exact as se
 from . import probe_gather as pg
 
 VARIANTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variants")
@@ -54,6 +65,10 @@ ENTRIES = {
     # out, B, W, R, layout, row words, stream
     "pack_runs": ("kuniq_pack_runs_variant",
                   (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P)),
+    # form, then kuniq_sparse_stats' arguments
+    "sparse_stats": ("kuniq_sparse_stats_variant", (_I, _P, _P, _L, _I, _P, _L, _P, _P, _P, _P)),
+    # form, then kuniq_span_dict's arguments
+    "span_dict": ("kuniq_span_dict_variant", (_I, _P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
 }
 SMEM_OPT_IN = 232_448  # bytes of shared memory one block may opt into on sm_90
 CLUSTER = 8  # blocks per cluster of the cluster flush
@@ -285,6 +300,79 @@ def run_pack_runs(fn, reps: int, emit, r: int = 8) -> None:
                   "device_ms": device_ms(run, "pack_runs", reps, per_call=1), "equal": True})
 
 
+def stats_case(b: int, w: int, n_units: int, seed: int):
+    """One update's sparse-stats planes: zipf-1.5 taxa over 503, random
+    encodings on the five most frequent (they go dense), a few hundred on
+    the rest (they stay sparse), ~90% counted lanes, rows in n_units
+    consecutive work units."""
+    rng = np.random.default_rng(seed)
+    taxa = ((rng.zipf(1.5, size=(b, w)) - 1) % 503).astype(np.int32)
+    enc = rng.integers(0, 1 << 32, size=(b, w), dtype=np.uint64).astype(np.uint32)
+    tail = taxa >= 5
+    enc[tail] = (rng.integers(0, 300, size=int(tail.sum())).astype(np.uint32) << 7) | 3
+    unit = np.repeat(np.arange(n_units), -(-b // n_units))[:b].astype(np.uint8)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return cuda(taxa), cuda(enc.view(np.int32)), cuda(rng.random((b, w)) < 0.9), cuda(unit)
+
+
+def run_sparse_stats(fn, reps: int, emit, p: int = 12, cap: int = 1 << 21) -> None:
+    """Each sparse_stats design after the kept key build (which clears the
+    scratch's look-back state) and torch.sort, on a span's and a unit's
+    planes."""
+    for (b, w, units) in ((65536, 130, 17), (4096, 160, 1)):
+        taxa, enc, lanes, unit = stats_case(b, w, units, b)
+        want = se.sparse_stats_core(taxa, enc, lanes, unit, p, cap)
+        n = b * w
+        words = _kernels.entry("sparse_stats", "kuniq_sparse_stats_scratch", (_L,))(n)
+        scratch = torch.empty(words, dtype=torch.int64, device="cuda")
+        sk, ps = torch.sort(se.sparse_keys(taxa, enc, lanes, unit, scratch), stable=True)
+
+        def variant(form):
+            se.sparse_keys(taxa, enc, lanes, unit, scratch)
+            buf = torch.empty(min(cap, n), dtype=torch.int64, device="cuda")
+            counts = torch.empty(2, dtype=torch.int32, device="cuda")
+            call(fn, form, sk, ps, n, (1 << p) // 4, buf, buf.numel(), counts[0], counts[1], scratch)
+            return buf, counts[0], counts[1]
+
+        for form, design in ((0, "kept"), (1, "pipelined, persistent")):
+            if not all(torch.equal(g, x) for g, x in zip(variant(form), want)):
+                raise AssertionError(f"sparse_stats [{b}, {w}] {design}: differs from plain")
+            emit({"kernel": "sparse_stats", "shape": [b, w], "units": units, "design": design,
+                  "device_ms": device_ms(lambda: variant(form), "sparse_stats_", reps), "equal": True})
+
+
+def run_span_dict(fn, reps: int, emit, cap: int = 1 << 15, t: int = 2_400_503, seed: int = 21) -> None:
+    """Each span_dict design on a span's ids, zipf-1.3 over 400, 3,000 and
+    40,000 distinct ids scattered over the dense space, and over the 400
+    ids at its top with 0 (a span's species cluster there, as chip_smoke's
+    database lays them out), and its calls."""
+    rng = np.random.default_rng(seed)
+    words = _kernels.entry("span_dict", "kuniq_span_dict_scratch", (_I,))(t)
+    scratch = torch.empty(words, dtype=torch.int32, device="cuda")
+    for n_kinds, clustered in ((400, False), (3000, False), (40_000, False), (401, True)):
+        if clustered:
+            kinds = np.concatenate([[0], np.arange(t - n_kinds + 1, t)])
+        else:
+            kinds = np.unique(rng.choice(t, n_kinds, replace=False))
+        ids = torch.from_numpy(kinds[(rng.zipf(1.3, size=(65536, 130)) - 1) % len(kinds)].astype(np.int32)).cuda()
+        calls = torch.from_numpy(kinds[rng.integers(0, len(kinds), size=65536)].astype(np.int32)).cuda()
+        want = ds.span_dict_plain(ids, calls, t, cap)
+
+        def variant(form):
+            lut = torch.empty(cap + 1, dtype=torch.int32, device="cuda")
+            local, local_call = torch.empty_like(ids), torch.empty_like(calls)
+            call(fn, form, ids, ids.numel(), calls, calls.numel(), t, cap, lut, local, local_call, scratch)
+            return lut, local, local_call
+
+        for form, design in ((0, "kept"), (1, "match_any marking"), (4, "a table of ids"),
+                             (2, "a table of ids, marking without the read"), (3, "remap without evict-first")):
+            if not all(torch.equal(g, x) for g, x in zip(variant(form), want)):
+                raise AssertionError(f"span_dict {n_kinds} ids {design}: differs from plain")
+            emit({"kernel": "span_dict", "shape": [65536, 130], "n_u": n_kinds, "clustered": clustered,
+                  "design": design, "device_ms": device_ms(lambda: variant(form), "span_dict_", reps),
+                  "equal": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -293,11 +381,13 @@ def main(argv=None) -> int:
         print("kernel_variants: no CUDA device available", file=sys.stderr)
         return 2
     emit = lambda rec: print(json.dumps(rec), flush=True)
-    _kernels.build(["taxon_counts", "row_gather", "pack_runs"])
+    _kernels.build(list(ENTRIES))
     fns = build()
     run_counts(fns["taxon_counts"], args.reps, emit)
     run_gather(fns["row_gather"], max(5, args.reps // 2), emit)
     run_pack_runs(fns["pack_runs"], args.reps, emit)
+    run_sparse_stats(fns["sparse_stats"], args.reps, emit)
+    run_span_dict(fns["span_dict"], args.reps, emit)
     return 0
 
 

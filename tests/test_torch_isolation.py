@@ -95,9 +95,11 @@ def test_kernel_wrappers_refuse_cpu_launch():
         _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
-        "pack_runs", "sparse_stats", "span_dict",
+        "pack_runs", "sparse_stats", "span_dict", "sparse_keys",
     }
-    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.LAUNCHES)
+    # one library per source; sparse_keys is an entry of sparse_stats' library
+    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.SIGNATURES)
+    assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys"}
 
 
 def test_native_loader_is_the_ports_own():

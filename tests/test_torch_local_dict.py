@@ -20,7 +20,10 @@ from krakenuniq_tpu.classify import ClassifyOptions as JaxOptions
 from krakenuniq_tpu.classify.device_step import classify_step
 from krakenuniq_tpu_torch import _native_build
 from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions, pipeline
-from krakenuniq_tpu_torch.classify.device_step import StepConfig, classify_step_core, span_dict, span_dict_plain
+from krakenuniq_tpu_torch.classify import device_step
+from krakenuniq_tpu_torch.classify.device_step import (
+    StepConfig, classify_step_core, span_dict, span_dict_bitmap, span_dict_plain,
+)
 from krakenuniq_tpu_torch.db.device_db import device_db_from_host
 
 K, NT = 31, 9
@@ -117,6 +120,22 @@ def test_local_dict_step_matches_jax(big_tax_db, jax_big, cap, quick):
         assert (lut[:4] < 1 << 30).all() and lut[4] == lut[-1]
 
 
+@pytest.mark.parametrize("cap", [1 << 15, 4], ids=["fits", "overflow"])
+def test_bitmap_dict_step_matches_jax(big_tax_db, jax_big, cap, monkeypatch):
+    """The span step with the span dictionary built by the kernels'
+    algorithm (span_dict_bitmap: a bit per id, word prefixes, popcount
+    ranks; superblocks of 8 words, so the 120k-id space spans 470) equals
+    the JAX step: lut, rows and the u16 feed."""
+    monkeypatch.setattr(device_step, "span_dict_plain",
+                        lambda *a, **k: span_dict_bitmap(*a, **k, super_words=8))
+    _, reads = big_tax_db
+    got, want = _both_steps(jax_big[False], _feed(reads), dense_runs=True, local_dict=True, dict_capacity=cap,
+                            outputs=LOCAL)
+    for key in LOCAL:
+        w = np.asarray(want[key])
+        np.testing.assert_array_equal(got[key].numpy().view(w.dtype), w, err_msg=key)
+
+
 @pytest.mark.parametrize("quick", [False, True], ids=["resolve", "quick"])
 def test_wide_step_matches_jax(big_tax_db, jax_big, quick):
     """The wide rows (run values through the 120k-id taxid table) and the
@@ -154,6 +173,59 @@ def test_span_dict_plain_edges(cap, n_kinds):
     np.testing.assert_array_equal(local.numpy(), want)
     np.testing.assert_array_equal(local_call.numpy(), np.vectorize(lambda x: rank[x] if rank[x] < cap else 0)(calls))
     assert span_dict_plain(T(ids), T(calls), t_ids, cap, with_call=False)[2] is None
+
+
+@pytest.mark.parametrize("t_ids", [120_000, 120_013], ids=["T%32=0", "T%32=13"])
+@pytest.mark.parametrize("cap,n_kinds", [(1 << 15, 300), (300, 300), (299, 300), (16, 5000)],
+                         ids=["below", "at", "above", "far-above"])
+def test_span_dict_bitmap_edges(cap, n_kinds, t_ids):
+    """The kernels' algorithm against span_dict_plain and the ranks by hand:
+    n_u below, at and past the capacity, with ids 0, 31, 32 (a word's first
+    and last bit, the next word) and T - 1, T a multiple of 32 and not, and
+    superblocks of 1, 3 and 1024 words."""
+    rng = np.random.default_rng(n_kinds + cap + t_ids)
+    edge = [0, 31, 32, t_ids - 1]
+    kinds = np.unique(np.concatenate([edge, rng.choice(np.arange(33, t_ids - 1), n_kinds - 4, replace=False)]))
+    ids = kinds[rng.integers(0, len(kinds), size=(64, 100))].astype(np.int32)
+    ids.reshape(-1)[: len(kinds)] = kinds
+    calls = kinds[rng.integers(0, len(kinds), size=64)].astype(np.int32)
+    want = span_dict_plain(T(ids), T(calls), t_ids, cap)
+    for sw in (1, 3, 1024):
+        got = span_dict_bitmap(T(ids), T(calls), t_ids, cap, super_words=sw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rank = {int(x): i for i, x in enumerate(kinds)}
+    local = want[1].numpy()
+    for x in edge:
+        assert (local[ids == x] == (rank[x] if rank[x] < cap else 0)).all()
+    assert span_dict_bitmap(T(ids), T(calls), t_ids, cap, with_call=False)[2] is None
+
+
+@pytest.mark.parametrize("with_call", [True, False])
+def test_span_dict_bitmap_outside_range(with_call):
+    """Ids outside [0, T) are no entry of the dictionary and remap to 0,
+    as the kernels define them; the ids inside keep their ranks."""
+    rng = np.random.default_rng(4)
+    t_ids, cap = 1000, 64
+    ids = rng.integers(0, t_ids, size=(20, 30)).astype(np.int32)
+    ids[::3, ::7] = -1
+    ids[1::4, 2::5] = t_ids
+    ids[2, 3] = np.iinfo(np.int32).min
+    calls = rng.integers(0, t_ids, size=20).astype(np.int32)
+    calls[::5] = t_ids + 7
+    lut, local, local_call = span_dict_bitmap(T(ids), T(calls), t_ids, cap, with_call=with_call)
+    x = np.concatenate([ids.reshape(-1), calls])
+    kinds = np.unique(x[(x >= 0) & (x < t_ids)])
+    assert int(lut[-1]) == len(kinds)
+    np.testing.assert_array_equal(lut[: min(cap, len(kinds))].numpy(), kinds[:cap])
+    rank = np.full(t_ids, 0, np.int64)
+    rank[kinds] = np.where(np.arange(len(kinds)) < cap, np.arange(len(kinds)), 0)
+    ok = (ids >= 0) & (ids < t_ids)
+    np.testing.assert_array_equal(local.numpy(), np.where(ok, rank[np.clip(ids, 0, t_ids - 1)], 0))
+    if with_call:
+        ok = (calls >= 0) & (calls < t_ids)
+        np.testing.assert_array_equal(local_call.numpy(), np.where(ok, rank[np.clip(calls, 0, t_ids - 1)], 0))
+    else:
+        assert local_call is None
 
 
 @pytest.fixture(scope="module")

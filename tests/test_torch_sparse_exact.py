@@ -226,3 +226,96 @@ def test_sparse_stats_span_shapes_match_jax(case):
     else:
         for cap in (n_p + n_e, n_p + n_e - 1, n_p - 1):
             _both_p12(*planes, cap)
+
+
+def _torch_args(taxa, enc, lanes, unit_id):
+    return (torch.from_numpy(taxa), torch.from_numpy(enc.view(np.int32)), torch.from_numpy(lanes),
+            torch.from_numpy(unit_id))
+
+
+def _hold_tiles(taxa, enc, lanes, unit_id, p, cap, tile):
+    """The tiled mirror of the card's kernels against sparse_stats_core and
+    the JAX package's, integer for integer; returns (n_pairs, n_events)."""
+    args = _torch_args(taxa, enc, lanes, unit_id)
+    got = TS.sparse_stats_tiles(*args, p, cap, tile=tile)
+    want = TS.sparse_stats_core(*args, p, cap)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    jb, jp, je = jax.jit(JS.sparse_stats_core, static_argnums=(4, 5))(
+        jnp.asarray(taxa), jnp.asarray(enc), jnp.asarray(lanes), jnp.asarray(unit_id), p, cap)
+    assert (int(got[1]), int(got[2])) == (int(jp), int(je))
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint64), np.asarray(jb))
+    return int(got[1]), int(got[2])
+
+
+@pytest.mark.parametrize("tile", [8, 64])
+@pytest.mark.parametrize("trial", range(8))
+def test_sparse_stats_tiles_match_jax(trial, tile):
+    """The kernels' algorithm (decide over tiles with the carried segmented
+    state, emit from the last tile with the carried counts) at small tiles,
+    on the trials of test_sparse_stats_core_matches_jax_and_oracle."""
+    rng = np.random.default_rng(trial)
+    b, w = 32, 40
+    unit_id = np.repeat(np.arange(3, dtype=np.uint8), [10, 12, 10])
+    taxa = rng.integers(0, 6, size=(b, w)).astype(np.int32)
+    alphabet = np.where(taxa >= 4, TH - 4, TH + 3)
+    enc = (rng.integers(0, alphabet).astype(np.uint32)) * 7 + 1
+    enc[taxa % 2 == 1] |= np.uint32(1 << 31)
+    lanes = rng.random((b, w)) < 0.8
+    n_p, n_e = _hold_tiles(taxa, enc, lanes, unit_id, P, 4096, tile)
+    assert n_p > 0 and n_e > 0
+
+
+@pytest.mark.parametrize(
+    "case", ["sparse-across-tiles", "no-counted-lane", "edge-no-dup", "edge-last-dup", "cap-below"])
+def test_sparse_stats_tiles_edges(case):
+    """A stayed-sparse group over many tiles of duplicates; no counted
+    lane; d == m/4 with and without a last duplicate, the group's lanes cut
+    across tiles; a cap below the entry count."""
+    rng = np.random.default_rng(5)
+    if case == "sparse-across-tiles":
+        taxa = np.full((16, 40), 2, np.int32)  # 640 lanes of one group: 80 tiles of 8
+        enc = (rng.integers(0, TH - 1, size=taxa.shape).astype(np.uint32) << 7) | 1
+        n_p, n_e = _hold_tiles(taxa, enc, np.ones(taxa.shape, bool), np.zeros(16, np.uint8), P, 4096, 8)
+        assert (n_p, n_e) == (len(np.unique(enc)), 0)
+    elif case == "no-counted-lane":
+        taxa = rng.integers(0, 6, size=(8, 30)).astype(np.int32)
+        enc = rng.integers(1, 1 << 32, size=taxa.shape, dtype=np.uint64).astype(np.uint32)
+        n_p, n_e = _hold_tiles(taxa, enc, np.zeros(taxa.shape, bool), np.zeros(8, np.uint8), P, 4096, 8)
+        assert (n_p, n_e) == (0, 0)
+    elif case.startswith("edge"):
+        stream = np.arange(1, TH + 1, dtype=np.uint32)
+        if case == "edge-last-dup":
+            stream = np.concatenate([stream, stream[:1]])
+        # the group's lanes interleaved with uncounted lanes and another taxon
+        taxa = np.full((1, 3 * len(stream)), 5, np.int32)
+        enc = np.repeat(stream, 3)[None, :]
+        lanes = np.zeros(taxa.shape, bool)
+        lanes[0, ::3] = True
+        taxa[0, 1::3] = 1
+        lanes[0, 1::3] = True
+        for tile in (1, 3, 5):
+            _, n_e = _hold_tiles(taxa, enc, lanes, np.zeros(1, np.uint8), P, 4096, tile)
+            assert (n_e >= 1) == (case == "edge-last-dup")
+    else:
+        planes = _span_planes(rng, 64, 130, 5, 503)
+        n_p, n_e = _hold_tiles(*planes, 12, 1 << 20, 512)
+        for cap in (n_p + n_e - 1, n_p - 1, 1):
+            _hold_tiles(*planes, 12, cap, 512)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32, np.int64])
+def test_sparse_keys_form(dtype):
+    """The key build's output: the JAX package's key unit<<57 | taxon<<32 |
+    enc (uint64, all ones off the counted lanes) with the sign bit flipped,
+    for each unit id type the kernel reads as it is."""
+    rng = np.random.default_rng(9)
+    taxa = rng.integers(0, 1 << 25, size=(6, 7)).astype(np.int32)
+    enc = rng.integers(0, 1 << 32, size=taxa.shape, dtype=np.uint64).astype(np.uint32)
+    lanes = rng.random(taxa.shape) < 0.7
+    unit = rng.integers(0, 64, size=6).astype(dtype)
+    key = ((unit.astype(np.uint64)[:, None] << np.uint64(57)) | (taxa.astype(np.uint64) << np.uint64(32))
+           | enc.astype(np.uint64))
+    want = np.where(lanes, key, np.uint64(TS._PAD_INT)).reshape(-1) ^ np.uint64(1 << 63)
+    got = TS.sparse_keys(*_torch_args(taxa, enc, lanes, unit))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
