@@ -88,10 +88,26 @@ Phases, each raising on failure:
      span step against the plain one, its card time by operation, span_dict
      on its planes; then on the first 100,000 reads a dictionary of 64 ids
      (every span redispatched on the wide rows) and --device-counters under
-     the dictionary, both byte-equal to the default-capacity run.
-Phases run in the order 1-5, 5b, 7, 6. Progress goes to stderr; stdout
-carries one JSON line per kernel check, the summaries of phases 4, 5, 5b
-and 7, one line per probe setting, the kernel table, the card line and,
+     the dictionary, both byte-equal to the default-capacity run;
+  8. out of core on phase 4's database directory (one reload with
+     preload_size = PRELOAD_SIZE, 512 MiB): the database cut into at least
+     4 chunk tables, two of which fit the budget, streamed through the card
+     on the copy stream. The default options on phase 4's reads,
+     byte-equal to phase 4, with chd_probe_acc launched spans x chunks
+     times, kmer_front spans x (chunks + 1), chd_probe never, scores and
+     pack_runs once a span; Classifier.with_shared_db(...,
+     device_counters=True, ooc_group_bytes=256 MiB) (several groups),
+     byte-equal to phase 4; single-buffered on the first 200,000 reads,
+     byte-equal to phase 4's lines for them; the run's spans probed as one
+     group double- and single-buffered in turns (the share of the copies
+     hidden behind the probes); chd_probe_acc against its plain version on
+     the chunk holding most of a span's hits, with a seeded half of the
+     span's merged words already set, and one
+     `ooc` line (budget, chunks, load split, reads/s, host s a span by
+     stage, copy and probe ms a chunk, the hidden share, peak memory).
+Phases run in the order 1-5, 5b, 7, 8, 6. Progress goes to stderr; stdout
+carries one JSON line per kernel check, the summaries of phases 4, 5, 5b,
+7 and 8, one line per probe setting, the kernel table, the card line and,
 last, the device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
@@ -120,6 +136,11 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 # (bench.py:234).
 N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST = 400, 25_000, 2_400_000, 101_000_000
 N_READS = 1_000_000
+# Phase 8: the out-of-core budget (--preload-size 512M), the group budget of
+# its device-counters run and the reads of its single-buffered run
+PRELOAD_SIZE = 512 << 20
+OOC_GROUP_BYTES = 256 << 20
+N_READS_SINGLE = 200_000
 
 T0 = time.time()
 
@@ -155,6 +176,7 @@ SYMBOLS = {
     "scores": ("scores_kernel",),
     "kmer_front": ("kmer_front_kernel", "kmer_front_packed_kernel"),
     "chd_probe": ("chd_probe_kernel",),
+    "chd_probe_acc": ("chd_probe_acc_kernel",),
     "taxon_counts": ("counts_smem_kernel", "counts_global_kernel"),
     "hll_regmax": ("hll_regmax_kernel",),
     "row_gather": ("row_gather_kernel",),
@@ -447,6 +469,18 @@ def probe_bound(valid) -> dict:
     query one 4 B displacement word and one 16 B row; ~24 operations."""
     n, nv = valid.numel(), float(valid.sum())
     return bound(13 * n + 20 * nv, 24 * nv)
+
+
+def probe_acc_bound(valid, acc, planes) -> dict:
+    """`chd_probe_acc`: the acc word (4 B) in per lane; for each lane it
+    probes (valid, acc still 0) the hash and flag (8 + 1 B) in and the 4 B
+    word out; of each table plane a 32 B sector per probed lane, but no
+    more than the plane (each input read once: a chunk's displacement
+    plane, and its row plane when it fits the L2, is read whole in fewer
+    bytes than one sector a lane); ~24 operations per probed lane."""
+    n, probed = valid.numel(), float((valid & (acc == 0)).sum())
+    table = sum(min(p.numel() * p.element_size(), 32 * probed) for p in planes)
+    return bound(4 * n + 13 * probed + table, 24 * probed)
 
 
 def counts_bound(segs, t: int) -> dict:
@@ -1766,6 +1800,186 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
     return rec, launches
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def head_reads(path: str, n: int) -> str:
+    """The first n two-line FASTA records of `path`, in a file beside it."""
+    sub = os.path.join(os.path.dirname(path), f"reads_{n}.fa")
+    if not os.path.exists(sub):
+        with open(path) as f, open(sub + ".tmp", "w") as g:
+            for i, line in enumerate(f):
+                if i >= 2 * n:
+                    break
+                g.write(line)
+        os.replace(sub + ".tmp", sub)
+    return sub
+
+
+def ooc_group_pass(c, feeds, prefetch: bool) -> dict:
+    """One pass of every chunk table for a group of spans (their feeds on
+    the card), double- or single-buffered: the copies' and the probes'
+    summed ms, the group's first-to-last ms on the step stream, and the
+    share of the copy time that did not lengthen the group."""
+    import torch
+
+    c._ooc_prefetch = prefetch
+    torch.cuda.synchronize()
+    before = {kind: len(ms) for kind, ms in c.ooc_timings().items()}
+    c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds], c._cfg_packed)
+    new = {kind: ms[before[kind]:] for kind, ms in c.ooc_timings().items()}
+    up, probe, group = sum(new["upload"]), sum(new["probe"]), new["group"][0]
+    return {"double_buffered": prefetch, "copies": len(new["upload"]), "upload_ms": up, "probe_ms": probe,
+            "group_ms": group, "hidden_share": 1 - max(group - probe, 0.0) / up if up else None}
+
+
+def phase_ooc(run4, reps: int):
+    """Out of core (--preload-size) on phase 4's database directory: the
+    chunk tables streamed through the card, byte-equal to phase 4 with and
+    without device counters, double- and single-buffered; chd_probe_acc
+    against its plain version on one real chunk."""
+    import statistics as st_
+
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain
+
+    db_dir = os.path.dirname(run4["kraken"])
+    t = time.time()
+    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
+    load_s = time.time() - t
+    if c._ooc is None or c.route != "span":
+        raise AssertionError("preload_size = 512 MiB should stream the phase-4 database on the span route")
+    cdb = c._ooc[0]
+    n_chunks, chunk_bytes = cdb.n_chunks, cdb.chunk_bytes()
+    log(f"out of core: {n_chunks} chunks of {chunk_bytes / 1e6:.1f} MB at lr={cdb.lb}, loaded in {load_s:.1f}s "
+        f"{cdb.timings}")
+    if n_chunks < 4 or 2 * chunk_bytes > PRELOAD_SIZE or not c._ooc_prefetch:
+        raise AssertionError(f"out-of-core plan: {n_chunks} chunks of {chunk_bytes} B, "
+                             f"double-buffered {c._ooc_prefetch}, budget {PRELOAD_SIZE}")
+
+    # run 1: the default options, one group of every span
+    out_path, report_path = os.path.join(db_dir, "kraken_ooc.out"), os.path.join(db_dir, "report_ooc.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    spans = c.n_spans
+    log(f"out of core: {c.total_sequences} reads in {run_s:.1f}s, {spans} spans, {c.ooc_groups} groups, "
+        f"launches {launches}")
+    want = {"chd_probe_acc": spans * n_chunks, "kmer_front": spans * (n_chunks + 1), "chd_probe": 0,
+            "scores": spans, "pack_runs": spans}
+    if c.n_units or spans == 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"out of core: {c.n_units} Python-route units, launches {launches}, want {want}")
+    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
+    log("out-of-core kraken output and report: byte-equal to phase 4's")
+    times = c.ooc_timings()
+    run1 = {"reads": c.total_sequences, "run_s": run_s, "classify_s": classify_s, "spans": spans,
+            "groups": c.ooc_groups, "host_s_per_span": c.host_seconds / spans,
+            "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+            "device_s_per_span": c.device_seconds / spans}
+
+    # run 2: device counters in groups of 256 MiB
+    cd = Classifier.with_shared_db(c, device_counters=True, ooc_group_bytes=OOC_GROUP_BYTES)
+    paths = (os.path.join(db_dir, "kraken_ooc_dc.out"), os.path.join(db_dir, "report_ooc_dc.tsv"))
+    r2_s, _, r2_launches, _ = timed_run(cd, run4["reads"], *paths)
+    if cd.ooc_groups < 2 or r2_launches["chd_probe_acc"] != cd.n_spans * n_chunks or r2_launches["chd_probe"]:
+        raise AssertionError(f"out of core, device counters: {cd.ooc_groups} groups, launches {r2_launches}")
+    same_bytes(zip(paths, (run4["kraken"], run4["report"])))
+    run2 = {"run_s": r2_s, "reads_per_s": cd.total_sequences / r2_s, "groups": cd.ooc_groups, "spans": cd.n_spans}
+    log(f"out of core, device counters: {cd.ooc_groups} groups in {r2_s:.1f}s, byte-equal to phase 4's")
+    del cd
+
+    # run 3: single-buffered on the first reads
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    cs = Classifier.with_shared_db(c, ooc_double_buffer=False)
+    if cs._ooc_prefetch:
+        raise AssertionError("ooc_double_buffer=False still prefetches")
+    paths = (os.path.join(db_dir, "kraken_ooc_single.out"), os.path.join(db_dir, "report_ooc_single.tsv"))
+    r3_s, _, _, _ = timed_run(cs, sub, *paths)
+    with open(run4["kraken"], "rb") as f:
+        want_lines = b"".join(line for _, line in zip(range(N_READS_SINGLE), f))
+    with open(paths[0], "rb") as f:
+        if f.read() != want_lines:
+            raise AssertionError("single-buffered out-of-core output differs from phase 4's lines for its reads")
+    run3 = {"reads": cs.total_sequences, "run_s": r3_s, "reads_per_s": cs.total_sequences / r3_s}
+    log(f"out of core, single-buffered: {cs.total_sequences} reads in {r3_s:.1f}s, byte-equal to phase 4's lines")
+    del cs
+
+    # the run's spans as one group, double- and single-buffered in turns
+    feeds = []
+    for kind, buf, offs, _, _ in c._iter_native_spans(run4["reads"]):
+        if kind != "span":
+            raise AssertionError(f"a chunk of the reads took the {kind} path")
+        feeds.append(c._span_feed(*c._encode_span(buf, offs)))
+    first = feeds[0]
+    turns = [ooc_group_pass(c, feeds, pf) for pf in (True, False, False, True)]
+    c._ooc_prefetch = True
+    del feeds
+
+    # chd_probe_acc on the chunk that holds most of the first span's hits,
+    # with a seeded half of the span's merged words set. Hits do not spread
+    # evenly over the chunks: a k-mer's bin is its least scrambled l-mer, so
+    # the genomes' k-mers crowd into low bins, while the ballast keys that
+    # fill the chunks are drawn uniformly over the bins.
+    codes, ambig, lengths = first
+    hashes, _, kmer_ambig = kmer_front_words(codes, ambig, c.k, c._cfg.hll_p)
+    b, w = hashes.shape
+    valid = (torch.arange(w, device="cuda")[None, :] < (lengths - (c.k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    merged = torch.zeros((b, w), dtype=torch.int32, device="cuda")
+    hits_by_chunk = []
+    for ci in range(n_chunks):
+        before = int((merged != 0).sum())
+        hash_lookup_acc(tuple(p.cuda() for p in cdb.chunk_planes[ci]), hashes, valid, merged)
+        hits_by_chunk.append(int((merged != 0).sum()) - before)
+    best = max(range(n_chunks), key=hits_by_chunk.__getitem__)
+    keep = torch.rand((b, w), generator=torch.Generator(device="cuda").manual_seed(11), device="cuda") < 0.5
+    acc0 = torch.where(keep, merged, 0)
+    planes = tuple(p.cuda() for p in cdb.chunk_planes[best])
+    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
+    rec = check_kernel(
+        "chd_probe_acc", (b, w),
+        lambda: (hash_lookup_acc(planes, hashes, valid, acc_k.copy_(acc0)),),
+        lambda: (hash_lookup_acc_plain(planes, hashes, valid, acc_p.copy_(acc0)),),
+        reps=reps, bound=probe_acc_bound(valid, acc0, planes),
+        extra={"restore_ms": time_ms(lambda: acc_k.copy_(acc0), reps), "lanes_set": int((acc0 != 0).sum()),
+               "lanes_probed": int((valid & (acc0 == 0)).sum()), "chunk": best},
+    )
+    if rec["lanes_probed"] < int(valid.sum()) // 4:
+        raise AssertionError(f"chd_probe_acc check probed {rec['lanes_probed']} lanes only")
+    del planes, acc_k, acc_p, acc0, merged, hashes
+
+    upload = times["upload"]
+    emit({
+        "phase": "ooc",
+        "budget": PRELOAD_SIZE,
+        "chunks": n_chunks,
+        "chunk_bytes": chunk_bytes,
+        "lr": cdb.lb,
+        "double_buffered": True,
+        "groups": c.ooc_groups,
+        "load_s": load_s,
+        "load_steps_s": cdb.timings,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        **run1,
+        "upload_ms_per_chunk": st_.median(upload) if upload else None,
+        "upload_gb_per_s": chunk_bytes / st_.median(upload) / 1e6 if upload else None,
+        "probe_ms_per_chunk_pass": st_.median(times["probe"]) if times["probe"] else None,
+        "probe_ms_by_chunk": times["probe"],
+        "span0_hits_by_chunk": hits_by_chunk,
+        "group_ms": times["group"],
+        "group_turns": turns,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+        "device_counters_run": run2,
+        "single_buffered_run": run3,
+    })
+    del c
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def phase_counters(run4, reps: int):
     """--device-counters on the Python route (use_native=False) on phase
     4's loaded database and reads."""
@@ -1894,6 +2108,7 @@ KERNELS = {
     "scores": ("krakenuniq_tpu_torch/csrc/scores.cu", "krakenuniq_tpu/taxonomy/resolve.py:67"),
     "kmer_front": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/classify/device_step.py:154"),
     "chd_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:104"),
+    "chd_probe_acc": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/classify/device_step.py:496"),
     "taxon_counts": ("krakenuniq_tpu_torch/csrc/taxon_counts.cu", "tools/counts_mxu_exp.py:35"),
     "hll_regmax": ("krakenuniq_tpu_torch/csrc/hll_regmax.cu", "krakenuniq_tpu/classify/device_counters.py:109"),
     "row_gather": ("krakenuniq_tpu_torch/csrc/row_gather.cu", "tools/probe_dma_exp.py:42"),
@@ -1945,12 +2160,14 @@ def main(argv=None) -> int:
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
     phase_counters(main_run, reps=20)
     recs["span_dict"], dict_launches = phase_dense_ids(main_run, reps=20)
+    recs["chd_probe_acc"], ooc_launches = phase_ooc(main_run, reps=20)
     probe_launches = phase_probe()
     recs.update(sc_recs)
     recs["row_gather"] = gather_rec
     # each kernel's launches come from the run of the path it serves
     launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats", "sparse_keys")},
-                "span_dict": dict_launches["span_dict"], "row_gather": probe_launches["row_gather"]}
+                "span_dict": dict_launches["span_dict"], "chd_probe_acc": ooc_launches["chd_probe_acc"],
+                "row_gather": probe_launches["row_gather"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

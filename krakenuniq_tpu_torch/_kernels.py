@@ -9,7 +9,8 @@ and an unchanged one is reused. `build()` compiles every source at once, one
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
-device_step.span_dict, hash_lookup.hash_lookup_kmers, resolve.scores,
+device_step.span_dict, hash_lookup.hash_lookup_kmers and hash_lookup_acc,
+resolve.scores,
 device_counters.taxon_counts, device_counters.hll_regmax,
 sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
 where they launch, so a run can show that its main path went through the
@@ -17,7 +18,8 @@ kernels. One launch is one call of an entry point, which may put several
 records on the card in order on the stream (`RECORDS_PER_LAUNCH`). A
 library may hold other launching entry points (`ENTRIES`); each counts
 under the name its entry gives: the packed kmer_front under kmer_front,
-sparse_stats' key build under its own name, sparse_keys.
+sparse_stats' key build under its own name, sparse_keys, and chd_probe's
+out-of-core probe under its own, chd_probe_acc.
 """
 
 from __future__ import annotations
@@ -73,6 +75,9 @@ ENTRIES = {
     # taxa, enc, lanes, unit ids, bytes of a unit id, B, W, keys, scratch,
     # stream: the sort keys of sparse_stats
     "sparse_keys": ("sparse_stats", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P), "sparse_keys"),
+    # disp, rows, hashes, valid, acc (read and written in place), n, lr, lg,
+    # stream: one chunk table's hits folded into the accumulated words
+    "chd_probe_acc": ("chd_probe", SIGNATURES["chd_probe"], "chd_probe_acc"),
 }
 # card records of one launch of an entry point that puts several on the
 # stream: sparse_stats' decide and emit kernels; span_dict's bitmap clear

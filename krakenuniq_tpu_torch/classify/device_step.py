@@ -4,7 +4,9 @@ Counterpart of krakenuniq_tpu/classify/device_step.py (classify_step_core)
 for the resident CHD-hash path:
   2-bit windows (or the span route's packed words) -> canonical k-mers ->
   murmur hashes + HLL encodings (`kmer_front` kernel) -> CHD lookup per
-  database, hierarchically (`chd_probe` kernel) -> per-read tree resolution
+  database, hierarchically (`chd_probe` kernel), or out of core the span's
+  word plane that `probe_chunk_core` accumulated over the chunk tables
+  (`chd_probe_acc` kernel, lookup_mode "acc") -> per-read tree resolution
   (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel),
   over a per-span taxon dictionary when the ids pass u16 (`span_dict`
   kernel). `classify_and_count_core` adds the --device-counters update
@@ -27,7 +29,7 @@ import torch
 from .. import _kernels
 from ..ints import clz64, i32_to_u32, lsr, s64, u32_to_i32
 from ..kmer import ops as kops
-from ..lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+from ..lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain, hash_lookup_kmers, hash_lookup_plain
 from ..taxonomy.resolve import resolve_reads
 from ..utils.bits import P_PRIME
 
@@ -443,10 +445,51 @@ class StepConfig:
     dict_capacity: int = 1 << 15
     # restrict the returned dict to these keys (None = all)
     outputs: tuple | None = None
+    # "hash": probe the resident CHD tables (db_planes); "acc": out of core,
+    # db_planes is the span's merged word plane (probe_chunk_core) and no
+    # table is probed
+    lookup_mode: str = "hash"
+
+
+def _front(codes, ambig, cfg: StepConfig, plain: bool):
+    """The step's k-mer front on either feed: (hashes, enc, kmer_ambig, B,
+    LB)."""
+    if cfg.packed_input:
+        b, lb = codes.shape[0], 16 * codes.shape[1]
+        if plain:
+            return (*kmer_front_packed(codes, ambig, lb, cfg.k, cfg.hll_p), b, lb)
+        return (*kmer_front_words(codes, ambig, cfg.k, cfg.hll_p), b, lb)
+    b, lb = codes.shape
+    return (*(kmer_front_plain if plain else kmer_front)(codes, ambig, cfg.k, cfg.hll_p), b, lb)
+
+
+def probe_chunk_core(
+    acc: torch.Tensor,  # int32 [B, W]: the merged word plane so far (updated in place)
+    planes,  # one chunk table's (disp4, rows) planes on the step's device
+    codes: torch.Tensor,
+    ambig: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: StepConfig,
+    plain: bool = False,
+) -> torch.Tensor:
+    """One out-of-core pass, after the JAX package's _probe_chunk_core
+    (krakenuniq_tpu/classify/device_step.py:496-531): the k-mer front on the
+    span's feed, then `hash_lookup_acc` of one chunk table into `acc`, whose
+    lanes already set keep their word (the first nonzero word wins: the
+    chunk merge, and the first-database-wins rule when chunks are probed in
+    database order). The hashes are recomputed each pass, as in the JAX
+    package: keeping them would cost 9 B a lane for the whole group.
+    Returns acc."""
+    hashes, _, kmer_ambig, _, lb = _front(codes, ambig, cfg, plain)
+    w = lb - cfg.k + 1
+    pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
+    search = (pos < torch.clamp(lengths - (cfg.k - 1), min=0)[:, None]) & ~kmer_ambig
+    return (hash_lookup_acc_plain if plain else hash_lookup_acc)(planes, hashes, search, acc)
 
 
 def classify_step_core(
-    db_planes,  # tuple of (disp4, rows) CHD planes per database, in hierarchy order
+    db_planes,  # tuple of (disp4, rows) CHD planes per database, in hierarchy order;
+    # lookup_mode "acc": the int32 [B, W] merged word plane
     taxid_table: torch.Tensor,  # int32 [T]: device id -> original taxid (uint32 bits)
     io: torch.Tensor,  # int32 [T, 2]: Euler (tin, tout) per id
     parent: torch.Tensor,
@@ -461,16 +504,7 @@ def classify_step_core(
     every kernel on any device, for holding the kernels against it."""
     k = cfg.k
     lookup = hash_lookup_plain if plain else hash_lookup_kmers
-    if cfg.packed_input:
-        b, lb = codes.shape[0], 16 * codes.shape[1]
-        if plain:
-            hashes, enc, kmer_ambig = kmer_front_packed(codes, ambig, lb, k, cfg.hll_p)
-        else:
-            hashes, enc, kmer_ambig = kmer_front_words(codes, ambig, k, cfg.hll_p)
-    else:
-        b, lb = codes.shape
-        front = kmer_front_plain if plain else kmer_front
-        hashes, enc, kmer_ambig = front(codes, ambig, k, cfg.hll_p)
+    hashes, enc, kmer_ambig, b, lb = _front(codes, ambig, cfg, plain)
     w = lb - k + 1
 
     pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
@@ -480,6 +514,14 @@ def classify_step_core(
     search = valid & ~kmer_ambig
     taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
     found = torch.zeros((b, w), dtype=torch.bool, device=codes.device)
+    if cfg.lookup_mode == "acc":
+        # out-of-core finish: the merged word plane, already masked to the
+        # searched lanes at probe time (re-masking is a no-op)
+        taxon_dense = torch.where(search, db_planes, 0)
+        found = taxon_dense != 0
+        db_planes = ()
+    elif cfg.lookup_mode != "hash":
+        raise ValueError(f"lookup_mode must be 'hash' or 'acc', got {cfg.lookup_mode!r}")
     # hierarchical multi-DB: later DBs only fill lanes still unclassified
     # (classify.cpp:927-936)
     for plane in db_planes:

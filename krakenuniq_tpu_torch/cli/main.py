@@ -7,7 +7,9 @@ runs the plain PyTorch versions of the kernels on the CPU; the default
 `cuda` needs a card. As in the reference, `--threads` (default
 $KRAKEN_NUM_THREADS) is accepted and unused, `--preload` is a no-op (the
 database is resident on the device anyway), and a missing taxDB is written
-from the database's taxonomy/{names,nodes}.dmp.
+from the database's taxonomy/{names,nodes}.dmp. `--preload-size SIZE` bounds
+the device bytes of the database tables: databases past it are cut into
+minimizer-range chunk tables that stream through the card (out of core).
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--db", action="append", default=[], help="database directory (repeatable: hierarchical lookup)")
     p.add_argument("--threads", type=int, default=_env_threads(), help="accepted for compatibility")
     p.add_argument("--preload", action="store_true", help="accepted no-op (the database is resident)")
+    p.add_argument(
+        "--preload-size",
+        metavar="SIZE",
+        help="device byte budget for the database tables (K/M/G/T suffixes); "
+        "databases over it stream through the card in minimizer-range chunks",
+    )
     p.add_argument("--fasta-input", action="store_true", help="(format is auto-detected)")
     p.add_argument("--fastq-input", action="store_true", help="(format is auto-detected)")
     p.add_argument("--gzip-compressed", action="store_true", help="(auto-detected)")
@@ -66,6 +74,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version", version=f"KrakenUniq-TPU-torch version {__version__}")
     p.add_argument("files", nargs="*", help="FASTA/FASTQ input files (gz/bz2/xz ok)")
     return p
+
+
+def parse_size(s: str) -> int:
+    """Parse a byte size with an optional K/M/G/T suffix (powers of 1024,
+    the reference's --preload-size grammar, scripts/krakenuniq)."""
+    s = s.strip().upper().rstrip("B")
+    mult = 1
+    if s and s[-1] in "KMGT":
+        mult = 1024 ** ("KMGT".index(s[-1]) + 1)
+        s = s[:-1]
+    return int(float(s) * mult)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -109,6 +128,14 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Taxonomy database not at {taxdb_path} - creating it ...", file=sys.stderr)
         Taxonomy.from_ncbi_dumps(names, nodes).write_taxdb(taxdb_path)
 
+    preload_size = None
+    if args.preload_size:
+        try:
+            preload_size = parse_size(args.preload_size)
+        except ValueError:
+            print(f"bad --preload-size value {args.preload_size!r}", file=sys.stderr)
+            return 1
+
     opts = ClassifyOptions(
         quick=args.quick,
         min_hits=args.min_hits,
@@ -116,6 +143,7 @@ def main(argv: list[str] | None = None) -> int:
         only_classified_output=args.only_classified_output,
         device_counters=args.device_counters,
         device=args.device,
+        preload_size=preload_size,
     )
 
     inputs = list(args.files)

@@ -37,6 +37,18 @@
 // (PERF.md). A ragged end, or operands not aligned for the vector
 // accesses, take the same path with scalar loads and stores. Invalid lanes
 // skip both reads.
+//
+// The out-of-core entry, kuniq_chd_probe_acc (chd_probe_acc_kernel), folds
+// one chunk table's hits into the span's accumulated word plane in place.
+// Replaces: krakenuniq_tpu/classify/device_step.py, _probe_chunk_core's
+// probe and its merge where(acc != 0, acc, word), which the JAX package left
+// to XLA. Each k-mer lives in one chunk (classify.cpp:447) and hierarchical
+// databases are probed in order (classify.cpp:927-936), so keeping the first
+// nonzero word equals probing every lane and selecting. A thread takes the
+// same four queries with the same addressing and cache policy; it reads the
+// four acc words first, and a lane that is not valid or already set skips
+// its hash and both dependent reads. The four words go back as one store,
+// and only when a lane of them was probed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -112,19 +124,115 @@ chd_probe_kernel(const uint32_t* __restrict__ disp, const uint4* __restrict__ ro
   }
 }
 
+template <bool kStreamRows>
+__global__ void __launch_bounds__(kThreads)
+chd_probe_acc_kernel(const uint32_t* __restrict__ disp, const uint4* __restrict__ rows,
+                     const uint64_t* __restrict__ hashes, const uint8_t* __restrict__ valid,
+                     uint32_t* __restrict__ acc, long long n, int lr, int lg) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+  if (i0 >= n) return;
+  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)acc) & 15) &&
+                   !((uintptr_t)valid & 3);
+  uint32_t a[kQ];
+  uint64_t h[kQ];
+  bool v[kQ];
+  if (vec) {
+    const uint4 a4 = *reinterpret_cast<const uint4*>(acc + i0);
+    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
+    a[0] = a4.x;
+    a[1] = a4.y;
+    a[2] = a4.z;
+    a[3] = a4.w;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) v[j] = ((flags >> (8 * j)) & 0xFFu) && a[j] == 0u;
+    // a pair of hashes is read only when a lane of it is probed
+#pragma unroll
+    for (int j = 0; j < kQ; j += 2) {
+      ulonglong2 hp = make_ulonglong2(0ull, 0ull);
+      if (v[j] || v[j + 1]) hp = reinterpret_cast<const ulonglong2*>(hashes + i0)[j / 2];
+      h[j] = hp.x;
+      h[j + 1] = hp.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const bool in = i0 + j < n;
+      a[j] = in ? acc[i0 + j] : 1u;
+      v[j] = in && valid[i0 + j] && a[j] == 0u;
+      h[j] = v[j] ? hashes[i0 + j] : 0;
+    }
+  }
+  if (!(v[0] || v[1] || v[2] || v[3])) return;
+  const uint64_t r_mask = (1ull << (64 - lr)) - 1;
+  uint32_t d[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint32_t g = (uint32_t)(((h[j] & r_mask) * kGolden) >> (64 - lg));
+    d[j] = v[j] ? __ldg(disp + g) : 0u;
+  }
+  const uint32_t v_mask = (1u << lr) - 1;
+  uint4 rw[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint32_t p = (uint32_t)(h[j] >> (64 - lr));
+    const uint32_t q = (uint32_t)(((h[j] & r_mask) * kC2) >> (64 - lr));
+    const uint32_t row = (p + (d[j] & 0xFFFFu) + (d[j] >> 16) * q) & v_mask;
+    const uint4* at = rows + row;
+    rw[j] = !v[j] ? make_uint4(0u, 0u, 0u, 0u) : kStreamRows ? __ldcs(at) : __ldg(at);
+  }
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint64_t r = h[j] & r_mask;
+    const uint32_t e_hi = (uint32_t)(r >> (32 - lr));
+    const uint32_t e_lo = (uint32_t)((r & ((1ull << (32 - lr)) - 1)) << lr);
+    const uint32_t v0 = (rw[j].x == e_hi && (rw[j].y & ~v_mask) == e_lo) ? (rw[j].y & v_mask) : 0u;
+    const uint32_t v1 = (rw[j].z == e_hi && (rw[j].w & ~v_mask) == e_lo) ? (rw[j].w & v_mask) : 0u;
+    if (v[j]) a[j] = v0 > v1 ? v0 : v1;
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(acc + i0) = make_uint4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (v[j]) acc[i0 + j] = a[j];
+  }
+}
+
+// the row plane streams past the L2 (evict-first) when it is larger than it
+int stream_rows(int lr, bool* out) {
+  int dev = 0, l2_bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, dev);
+  *out = (long long)sizeof(uint4) << lr > l2_bytes;
+  return (int)err;
+}
+
 }  // namespace
+
+extern "C" int kuniq_chd_probe_acc(const void* disp, const void* rows, const void* hashes,
+                                   const void* valid, void* acc, long long n, int lr, int lg,
+                                   void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  bool streamed = false;
+  const int err = stream_rows(lr, &streamed);
+  if (err != 0) return err;
+  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
+  const auto kernel = streamed ? chd_probe_acc_kernel<true> : chd_probe_acc_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)disp, (const uint4*)rows, (const uint64_t*)hashes,
+      (const uint8_t*)valid, (uint32_t*)acc, n, lr, lg);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int kuniq_chd_probe(const void* disp, const void* rows, const void* hashes,
                                const void* valid, void* out, long long n, int lr, int lg,
                                void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  int dev = 0, l2_bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, dev);
-  if (err != cudaSuccess) return (int)err;
+  bool streamed = false;
+  const int err = stream_rows(lr, &streamed);
+  if (err != 0) return err;
   const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
-  const auto kernel = (long long)sizeof(uint4) << lr > l2_bytes ? chd_probe_kernel<true>
-                                                                 : chd_probe_kernel<false>;
+  const auto kernel = streamed ? chd_probe_kernel<true> : chd_probe_kernel<false>;
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)disp, (const uint4*)rows, (const uint64_t*)hashes,
       (const uint8_t*)valid, (uint32_t*)out, n, lr, lg);

@@ -46,6 +46,11 @@ def chd_min_lr(n_keys: int, max_value: int, load_factor: float = CHD_MAX_LOAD) -
     return max(lr, int(max_value).bit_length())
 
 
+def chd_table_bytes(lr: int) -> int:
+    """Device bytes of a CHD table at row-bits lr (rows plane + disp plane)."""
+    return (1 << lr) * 16 + (1 << max(2, lr - 2)) * 4
+
+
 def _chd_split(hashes, lr: int, lg: int):
     """Per-key addressing fields (shared by build, self-check, and the
     device probe's host mirror)."""
@@ -218,13 +223,15 @@ def _self_check(host_planes, hashes, values, lr: int) -> int:
 
 
 def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = True,
-                     timings: dict | None = None):
+                     timings: dict | None = None, force_lr: int | None = None):
     """Build the CHD planes for `keys` (uint64 k-mers) -> `values` (pool or
     dense ids). Returns ((disp4 uint32 [2^(lr-4), 4], rows uint32 [2^lr, 4]),
     lr). Placement is retried with three seeds per width, then the table
     grows, up to 2^30 rows; every success is self-checked key by key.
-    `timings`, if given, receives the seconds of each step ("hash", "place",
-    "planes", "check"), summed over retries."""
+    `force_lr` pins the width (the out-of-core chunk tables share one): only
+    the seed retries apply, and a stall raises HashBuildError. `timings`, if
+    given, receives the seconds of each step ("hash", "place", "planes",
+    "check"), summed over retries."""
     t = timings if timings is not None else {}
     t.update(hash=0.0, place=0.0, planes=0.0, check=0.0)
     t0 = time.perf_counter()
@@ -239,9 +246,12 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
     hashes = murmur3_finalizer(np.ascontiguousarray(keys, dtype=np.uint64))
     values = np.asarray(values).astype(np.uint32)
     vmax = int(values.max()) if n else 0
-    lr = chd_min_lr(n, vmax)
+    lr = chd_min_lr(n, vmax) if force_lr is None else force_lr
+    if force_lr is not None and vmax >> lr:
+        raise ValueError(f"force_lr={lr} cannot hold value {vmax} in {lr} bits (CHD)")
+    lr_max = 30 if force_lr is None else min(force_lr, 30)
     lap("hash")
-    while lr <= 30:
+    while lr <= lr_max:
         for seed in range(3):
             out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
             lap("place")
@@ -255,6 +265,8 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
             if ok:
                 return host, lr
         lr += 1
+    if force_lr is not None:
+        raise HashBuildError(f"CHD placement failed for {n} keys at the forced width 2^{force_lr}")
     raise HashBuildError(
         f"CHD placement failed for {n} keys up to 2^30 rows; the fused "
         "two-choice fallback layout is not ported yet (a later slice)"

@@ -10,6 +10,9 @@ csrc/chd_probe.cu).
 
 `hash_lookup_kmers` launches the `chd_probe` CUDA kernel on CUDA tensors and
 runs `probe_chd_plain`, the plain PyTorch version, on CPU tensors.
+`hash_lookup_acc` is the out-of-core probe: it folds one chunk table's hits
+into an accumulated word plane in place (the `chd_probe_acc` entry of the
+same library).
 """
 
 from __future__ import annotations
@@ -75,27 +78,56 @@ def hash_lookup_plain(planes, hashes, valid):
     return torch.where(ok, val, torch.zeros_like(val)).to(torch.int32).reshape(hashes.shape)
 
 
+def _probe_args(name: str, planes, hashes: torch.Tensor, valid: torch.Tensor, **more):
+    """Check a probe's operands for the kernel; returns (device, lr, lg)."""
+    disp4, rows = planes
+    lr, lg = _chd_widths(disp4, rows)
+    dev = _kernels.check_cuda(name, disp4=disp4, rows=rows, hashes=hashes, valid=valid, **more)
+    if hashes.dtype != torch.int64 or valid.dtype != torch.bool:
+        raise TypeError(f"{name}: hashes must be int64 and valid bool")
+    if disp4.dtype != torch.int32 or rows.dtype != torch.int32:
+        raise TypeError(f"{name}: table planes must be int32")
+    if hashes.shape != valid.shape:
+        raise ValueError(f"{name}: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
+    if not 4 <= lr <= 30 or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
+    return dev, lr, lg
+
+
 def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The stored value per lane (int32; pool ids fit 30 bits), 0 where
     missing or invalid. `planes` = (disp4, rows); `hashes` int64 and `valid`
     bool of one shape. CUDA tensors launch the `chd_probe` kernel."""
     if hashes.device.type == "cpu":
         return hash_lookup_plain(planes, hashes, valid)
-    disp4, rows = planes
-    lr, lg = _chd_widths(disp4, rows)
-    dev = _kernels.check_cuda(
-        "chd_probe", disp4=disp4, rows=rows, hashes=hashes, valid=valid
-    )
-    if hashes.dtype != torch.int64 or valid.dtype != torch.bool:
-        raise TypeError("chd_probe: hashes must be int64 and valid bool")
-    if disp4.dtype != torch.int32 or rows.dtype != torch.int32:
-        raise TypeError("chd_probe: table planes must be int32")
-    if hashes.shape != valid.shape:
-        raise ValueError(f"chd_probe: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
-    if not 4 <= lr <= 30 or rows.data_ptr() % 16:
-        raise ValueError("chd_probe: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
+    dev, lr, lg = _probe_args("chd_probe", planes, hashes, valid)
     out = torch.empty(hashes.shape, dtype=torch.int32, device=dev)
-    _kernels.launch(
-        "chd_probe", dev, disp4, rows, hashes, valid, out, hashes.numel(), lr, lg
-    )
+    _kernels.launch("chd_probe", dev, *planes, hashes, valid, out, hashes.numel(), lr, lg)
     return out
+
+
+def hash_lookup_acc_plain(planes, hashes, valid, acc):
+    """Plain version of `hash_lookup_acc`: the JAX package's probe-all-then-
+    select (krakenuniq_tpu/classify/device_step.py:522-531,
+    where(acc != 0, acc, word)), written into `acc`; returns acc."""
+    word = hash_lookup_plain(planes, hashes, valid)
+    acc.copy_(torch.where(acc != 0, acc, word))
+    return acc
+
+
+def hash_lookup_acc(planes, hashes: torch.Tensor, valid: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """One out-of-core probe pass: each lane whose `acc` word (int32, the
+    shape of `hashes`) is still 0 takes this chunk table's value where
+    `valid`; acc is updated in place and returned. The first nonzero word
+    wins, which is the chunk merge (each k-mer lives in one chunk,
+    classify.cpp:447) and the hierarchical first-database-wins rule
+    (classify.cpp:927-936) when chunks are probed in database order. CUDA
+    tensors launch the `chd_probe_acc` kernel, which skips both reads of
+    a lane already set or not valid."""
+    if hashes.device.type == "cpu":
+        return hash_lookup_acc_plain(planes, hashes, valid, acc)
+    dev, lr, lg = _probe_args("chd_probe_acc", planes, hashes, valid, acc=acc)
+    if acc.dtype != torch.int32 or acc.shape != hashes.shape:
+        raise ValueError("chd_probe_acc: acc must be int32 of the hashes' shape")
+    _kernels.launch("chd_probe_acc", dev, *planes, hashes, valid, acc, hashes.numel(), lr, lg)
+    return acc

@@ -45,6 +45,8 @@ def test_every_module_imports_without_jax():
     assert "krakenuniq_tpu_torch.classify.pipeline" in mods
     assert "krakenuniq_tpu_torch.classify.device_counters" in mods
     assert "krakenuniq_tpu_torch.tools.probe_gather" in mods
+    assert "krakenuniq_tpu_torch.parallel.partition" in mods
+    assert "krakenuniq_tpu_torch.db.chunked" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -95,11 +97,13 @@ def test_kernel_wrappers_refuse_cpu_launch():
         _kernels.check_cuda("scores", tins=x, touts=x.to("meta"))
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
-        "pack_runs", "sparse_stats", "span_dict", "sparse_keys",
+        "pack_runs", "sparse_stats", "span_dict", "sparse_keys", "chd_probe_acc",
     }
-    # one library per source; sparse_keys is an entry of sparse_stats' library
+    # one library per source; sparse_keys is an entry of sparse_stats'
+    # library, chd_probe_acc of chd_probe's
     assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.SIGNATURES)
-    assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys"}
+    assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys", "chd_probe_acc"}
+    assert _kernels.ENTRIES["chd_probe_acc"][0] == "chd_probe"
 
 
 def test_native_loader_is_the_ports_own():
