@@ -46,16 +46,27 @@ Phases, each raising on failure:
      records of a launch, RECORDS_PER_LAUNCH of the package under test),
      each sparse_stats check also the whole wrapper call's card time
      (`call_device_ms`: key build, sort and stats), and each chd_probe
-     check the one-level random-row floor (`floor_ms`);
+     check the one-level random-row floor (`floor_ms`); and the fallback
+     lookups' kernels: fused_probe on random fused planes of the phase-4
+     table's size (lb = 27) and at lb = 30, half the queries planted,
+     kmer_bins at the unit and span shapes on both feeds at k = 21 / nt = 7
+     and k = 31 / nt = 12 and 15, bsearch_lookup with out-of-range bins,
+     invalid lanes, empty bins and bin_start 0 and 12,345;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
      through the span route, the Python host route and --device-counters
-     on both;
+     on both; then the same eight runs through each fallback lookup, on
+     copies of the golden databases with the table build made to fail:
+     CHD placement (the fused layout, fused_probe) and the whole table
+     build (the binary search, kmer_bins and bsearch_lookup);
   4. the main path at full size, on the span route: a synthetic database
      at the JAX bench's default shape (400 species x 25 kbp, BALLAST = 101M
      ballast keys, a 2.4M-node taxonomy, k=31, nt=12) under
-     krakenuniq_tpu_torch/_build/, loaded by Classifier(device="cuda"),
+     krakenuniq_tpu_torch/_build/, loaded by Classifier(device="cuda")
+     with the port's table caches removed first (a cold build, which
+     writes `database.kdb.ht_torch`), then loaded again (a warm load: the
+     cached table, no build step, planes bit-equal),
      classifying the JAX bench's N_READS = 1M zipf-1.5 150 bp reads
      through Classifier.run and write_report with every launch counter reset
      just before and read just after; the calls are checked against each
@@ -82,15 +93,24 @@ Phases, each raising on failure:
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
      the sweep over copies in flight at 16- and 512-byte rows, with the
      launch counters reset just before and read just after;
-  7. value_pool=False on phase 4's database directory (one reload): dense
+  7. value_pool=False on phase 4's database directory (one reload, its
+     `.ht_dense_torch` cache removed first: a cold dense build): dense
      ids over the 2.4M-node taxonomy on the span route with the per-span
      taxon dictionary (span_dict once per span), byte-equal to phase 4; one
      span step against the plain one, its card time by operation, span_dict
      on its planes; then on the first 100,000 reads a dictionary of 64 ids
      (every span redispatched on the wide rows) and --device-counters under
      the dictionary, both byte-equal to the default-capacity run;
+  9. the binary-search fallback at full size: phase 4's database loaded
+     with the table build made to fail (caches removed first), its sorted
+     planes on the card (keys, vals, vals_dense, offsets: 1.91 GB), dense
+     ids under the span dictionary; phase 4's reads byte-equal to phase 4,
+     kmer_bins and bsearch_lookup once a span, one span step against the
+     plain one, both kernels on that span's feed and the real planes
+     (bsearch_lookup with its random-sector floor of 2 + n_iter reads);
   8. out of core on phase 4's database directory (one reload with
-     preload_size = PRELOAD_SIZE, 512 MiB): the database cut into at least
+     preload_size = PRELOAD_SIZE, 512 MiB, its `.htc_torch` cache removed
+     first, then a warm reload from that cache): the database cut into at least
      4 chunk tables, two of which fit the budget, streamed through the card
      on the copy stream. The default options on phase 4's reads,
      byte-equal to phase 4, with chd_probe_acc launched spans x chunks
@@ -105,15 +125,16 @@ Phases, each raising on failure:
      span's merged words already set, and one
      `ooc` line (budget, chunks, load split, reads/s, host s a span by
      stage, copy and probe ms a chunk, the hidden share, peak memory).
-Phases run in the order 1-5, 5b, 7, 8, 6. Progress goes to stderr; stdout
-carries one JSON line per kernel check, the summaries of phases 4, 5, 5b,
-7 and 8, one line per probe setting, the kernel table, the card line and,
-last, the device line.
+Phases run in the order 1-5, 5b, 7, 9, 8, 6. Progress goes to stderr; stdout
+carries one JSON line per kernel check, the fallback goldens' line, the
+summaries of phases 4, 5, 5b, 7, 9 and 8, one line per probe setting, the
+kernel table, the card line and, last, the device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -185,6 +206,9 @@ SYMBOLS = {
     "sparse_keys": ("sparse_keys_",),
     # span_dict clears its bitmap with a memset on the stream
     "span_dict": ("span_dict_", "Memset"),
+    "fused_probe": ("fused_probe_kernel",),
+    "kmer_bins": ("kmer_bins_kernel", "kmer_bins_packed_kernel"),
+    "bsearch_lookup": ("bsearch_lookup_kernel",),
 }
 
 
@@ -483,6 +507,56 @@ def probe_acc_bound(valid, acc, planes) -> dict:
     return bound(4 * n + 13 * probed + table, 24 * probed)
 
 
+def fused_bound(valid) -> dict:
+    """`fused_probe`: hash (8 B) and valid (1 B) in, value (4 B) out per
+    query; per valid query the rows of its two buckets (16 B each); ~30
+    operations (two bucket indices, two tags and high words, four slot
+    compares, the select)."""
+    n, nv = valid.numel(), float(valid.sum())
+    return bound(13 * n + 32 * nv, 30 * nv)
+
+
+def bins_bound(b: int, lb: int, k: int, nt: int, packed: bool) -> dict:
+    """`kmer_bins`: the codes in (1 B a base, or 2 bits as packed words),
+    the canonical k-mer and the bin out (8 + 8 B a lane); the function's own
+    operations, whatever the kernel's loop: per base position one nt-mer
+    rolled forward and reverse-complemented (code, two shifts and ors, the
+    canonical minimum, the xor: 10) and its share of a sliding window
+    minimum (van Herk/Gil-Werman: a prefix, a suffix and their minimum, 3);
+    per lane the k-mer rolled the same way (6)."""
+    lanes = b * (lb - k + 1)
+    ntmers = b * (lb - nt + 1)
+    return bound((b * lb // 4 if packed else b * lb) + 16 * lanes, 13 * ntmers + 6 * lanes)
+
+
+def bsearch_bound(planes, query, bins, valid, n_iter: int, bin_start: int) -> dict:
+    """`bsearch_lookup`: per lane the query and bin (8 + 8 B) and the flag
+    (1 B) in and two 4 B values out; of the sorted planes each input read
+    once: every offsets entry a searched lane (valid, bin in range) needs (8
+    B each, adjacent bins sharing one), the key at every distinct result
+    position of a searched lane with a non-empty bin (8 B) and the two values
+    at every distinct hit position (8 B); ~7 operations per search step, a
+    lane's steps being what its bin needs (ceil(log2(size + 1))), plus ~8 a
+    lane."""
+    import torch
+
+    from krakenuniq_tpu_torch.lookup.xla_lookup import search_bins
+
+    keys, _, _, offsets = planes
+    b = bins.reshape(-1) - bin_start
+    n_bins = offsets.numel() - 1
+    searched = valid.reshape(-1) & (b >= 0) & (b < n_bins)
+    bs = b[searched]
+    sizes = offsets[bs + 1] - offsets[bs]
+    steps = float(torch.ceil(torch.log2(sizes.double() + 1)).sum())
+    entries = int(torch.unique(torch.cat([bs, bs + 1])).numel())
+    pos, found = search_bins(keys, offsets, query, bins, valid, n_iter, bin_start)
+    probed = int(torch.unique(pos[searched][sizes > 0]).numel())
+    hits = int(torch.unique(pos[found]).numel())
+    n = bins.numel()
+    return bound(25 * n + 8 * entries + 8 * probed + 8 * hits, 7 * steps + 8 * n)
+
+
 def counts_bound(segs, t: int) -> dict:
     """An id (4 B) and a mask byte in per lane of each (ids, mask) segment;
     each accumulator bin a segment's counted lanes touch (a distinct id in
@@ -644,14 +718,16 @@ def phase_kernels(k: int):
         )
     phase_span_kernels(k)
     phase_probe_kernel()
-    phase_counter_kernels()
     from krakenuniq_tpu_torch.classify import device_step
+
+    fused_rec = phase_fallback_kernels() if hasattr(device_step, "kmer_bins") else None
+    phase_counter_kernels()
 
     if hasattr(device_step, "span_dict"):
         phase_dict_stats_kernels()
     else:
         log("this package has no span_dict or sparse_stats kernel")
-    return phase_gather_kernel()
+    return phase_gather_kernel(), fused_rec
 
 
 def rle_inputs(b, w, seed, k=31):
@@ -881,6 +957,112 @@ def phase_probe_kernel():
     probe_case("chd_probe 1 GiB table zipf", planes, hz, vz, 20)
     del planes, h, valid, vals, got, pool, hz
     torch.cuda.empty_cache()
+
+
+def plant_fused(fused, h, lb: int, seed: int):
+    """Store the first half of `h` in slot 0 of its first-choice bucket and
+    the second half in slot 1 of its second-choice bucket (choice bit set),
+    each with a random value in [1, 2^min(lb - 1, 20)), as the fused build
+    lays keys out; returns the values (a later query wins a slot two share)."""
+    import torch
+
+    from krakenuniq_tpu_torch.db.hash_table import GOLDEN
+    from krakenuniq_tpu_torch.ints import lsr, s64, u32_to_i32
+
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    vals = torch.randint(1, 1 << min(lb - 1, 20), h.shape, dtype=torch.int64, device=h.device, generator=gen)
+    half = h.numel() // 2
+    for part, choice in ((slice(0, half), 0), (slice(half, None), 1)):
+        hc = h[part] * s64(int(GOLDEN)) if choice else h[part]
+        bucket = lsr(hc, 64 - lb)
+        word = (((hc & ((1 << (32 - lb)) - 1)) << (lb - 1)) | vals[part] | (choice << 31)) & 0xFFFFFFFF
+        fused[bucket, 2 * choice] = u32_to_i32(lsr(hc << lb, 32))
+        fused[bucket, 2 * choice + 1] = u32_to_i32(word)
+    return vals
+
+
+def phase_fallback_kernels(n: int = 8_500_000):
+    """The fallback lookups' kernels against their plain versions:
+    fused_probe on random fused planes of the phase-4 table's size (lb = 27:
+    110,988,000 keys at load 0.6, 2.1 GB) and of the largest width (lb = 30,
+    17.2 GB), each with n uniform queries, ~1% invalid, half of them planted;
+    kmer_bins at the unit and span shapes on both feeds at k = 21 / nt = 7
+    and k = 31 / nt = 12 and 15; bsearch_lookup on sorted planes of 4^10
+    bins (a fifth of them empty) with out-of-range bins, invalid lanes and
+    bin_start 0 and 12,345 (a shard's planes). Returns fused_probe's record
+    at the phase-4 size."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_bins, kmer_bins_plain, kmer_bins_words, pack_input
+    from krakenuniq_tpu_torch.db.hash_table import min_lb_for
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+    from krakenuniq_tpu_torch.lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rec = None
+    for lb in (min_lb_for(110_988_000, 0xFFFF), 30):
+        fused = torch.randint(-(1 << 31), 1 << 31, (1 << lb, 4), dtype=torch.int32, device="cuda", generator=gen)
+        h = random_hashes(n, gen)
+        valid = torch.rand(n, device="cuda", generator=gen) >= 0.01
+        vals = plant_fused(fused, h[: n // 2], lb, 37)
+        r = check_kernel(
+            f"fused_probe lb={lb}", (n,),
+            lambda: (hash_lookup_kmers((fused,), h, valid),),
+            lambda: (hash_lookup_plain((fused,), h, valid),),
+            reps=10, bound=fused_bound(valid),
+            extra={"lb": lb, "table_gb": fused.numel() * 4 / 1e9, **probe_floor(fused, 2 * int(valid.sum()), 41)},
+        )
+        got = hash_lookup_kmers((fused,), h, valid)[: n // 2]
+        ok = valid[: n // 2]
+        if float((got[ok] == vals[ok]).float().mean()) < 0.9:
+            raise AssertionError(f"fused_probe lb={lb}: planted keys did not return their values")
+        rec = rec or r
+        del fused, h, valid, vals, got
+        torch.cuda.empty_cache()
+
+    for b in (4096, 65536):
+        codes, ambig = front_inputs(b, 160, 43)
+        words = pack_input(codes, ambig)[0]
+        for k, nt in ((21, 7), (31, 12), (31, 15)):
+            for feed, run in (("codes", lambda: kmer_bins(codes, k, nt)),
+                              ("words", lambda: kmer_bins_words(words, k, nt))):
+                check_kernel(
+                    f"kmer_bins {feed} k={k} nt={nt}", (b, 160), run, lambda: kmer_bins_plain(codes, k, nt),
+                    reps=10, bound=bins_bound(b, 160, k, nt, feed == "words"), extra={"k": k, "nt": nt},
+                )
+
+    rng = np.random.default_rng(47)
+    n_bins = 4 ** 10
+    sizes = np.where(rng.random(n_bins) < 0.2, 0, rng.geometric(0.15, n_bins))
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    keys = np.sort(rng.integers(0, 1 << 62, offsets[-1], dtype=np.int64))  # sorted overall, so within bins
+    bin_of = np.repeat(np.arange(n_bins), sizes)
+    m = 1_000_000
+    pick = rng.integers(0, len(keys), m)
+    q = keys[pick].copy()
+    bins = bin_of[pick].copy()
+    junk = rng.random(m) < 0.3  # a miss in a real bin
+    q[junk] = rng.integers(0, 1 << 62, int(junk.sum()))
+    far = rng.random(m) < 0.02  # bins below 0 or past the last after bin_start
+    bins[far] = rng.choice(np.array([-3, -1, n_bins, n_bins + 7]), int(far.sum()))
+    empty = rng.random(m) < 0.05
+    bins[empty] = rng.choice(np.flatnonzero(sizes == 0), int(empty.sum()))
+    valid = rng.random(m) >= 0.05
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    vals = t(rng.integers(-(1 << 31), 1 << 31, len(keys), dtype=np.int64).astype(np.int32))
+    vals_dense = t(rng.integers(0, 2_400_000, len(keys)).astype(np.int32))
+    for bs in (0, 12_345):
+        k0 = int(offsets[bs])
+        planes = (t(keys[k0:]), vals[k0:].contiguous(), vals_dense[k0:].contiguous(), t(offsets[bs:] - k0))
+        qs, bns, vs = t(q), t(bins), t(valid)
+        n_iter = max(1, int(np.ceil(np.log2(sizes.max() + 1))) + 1)
+        check_kernel(
+            f"bsearch_lookup bin_start={bs}", (m,),
+            lambda: lookup_kmers(*planes, qs, bns, vs, n_iter, bs),
+            lambda: lookup_kmers_plain(*planes, qs, bns, vs, n_iter, bs),
+            reps=10, bound=bsearch_bound(planes, qs, bns, vs, n_iter, bs), extra={"n_iter": n_iter},
+        )
+    return rec
 
 
 def probe_case(name, planes, h, valid, reps):
@@ -1326,6 +1508,94 @@ def phase_goldens():
           "routes": ["span", "python", "span + device_counters", "python + device_counters"], "equal": True})
 
 
+@contextlib.contextmanager
+def forced_fallback(kind: str):
+    """Make every table build fail as the tests make it fail: "fused" makes
+    CHD placement fail at every width (build_hash_table's "auto" then builds
+    the fused layout), "bsearch" makes the whole table build raise
+    HashBuildError (build_device_db then keeps the sorted planes)."""
+    from krakenuniq_tpu_torch.db import device_db, hash_table
+
+    if kind == "fused":
+        target, name, fake = hash_table, "_chd_place", lambda *a, **kw: None
+    else:
+        def fake(*a, **kw):
+            raise hash_table.HashBuildError("build failure forced by chip_smoke")
+
+        target, name = device_db, "build_hash_table"
+    saved = getattr(target, name)
+    setattr(target, name, fake)
+    try:
+        yield
+    finally:
+        setattr(target, name, saved)
+
+
+def remove_port_caches(db_dir: str) -> None:
+    """Delete the port's table caches beside db_dir's kdb (never the JAX
+    package's .ht/.htc files)."""
+    for suffix in (".ht_torch", ".ht_dense_torch", ".htc_torch"):
+        path = os.path.join(db_dir, "database.kdb" + suffix)
+        if os.path.exists(path):
+            os.unlink(path)
+
+
+def phase_fallback_goldens() -> dict:
+    """The goldens through the fused fallback and the bsearch fallback, on
+    copies of the golden databases (the port's caches in the golden
+    directory would otherwise answer the load): the single database and the
+    db_bact + db_viral pair, span and Python routes, with and without
+    --device-counters, each byte-equal. Returns the launches of each
+    fallback's runs (counters reset just before them, read just after)."""
+    import shutil
+
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    root = os.path.join(ROOT, "krakenuniq_tpu_torch", "_build", "golden_copy")
+    for d in (".", "db_bact", "db_viral"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        for f in ("database.kdb", "database.idx", "taxDB", "database.kdb.counts"):
+            shutil.copy(os.path.join(GOLDEN, d, f), os.path.join(root, d, f))
+    launches = {}
+    for kind in ("fused", "bsearch"):
+        _kernels.reset_launches()
+        for dbs, kraken_name, report_name in (
+            (["."], "kraken.out", "report.tsv"),
+            (["db_bact", "db_viral"], "kraken_hier.out", "report_hier.tsv"),
+        ):
+            for route, opts in (("span", {}), ("python", {"use_native": False}),
+                                ("span", {"device_counters": True}),
+                                ("python", {"device_counters": True, "use_native": False})):
+                for d in dbs:
+                    remove_port_caches(os.path.join(root, d))
+                with forced_fallback(kind):
+                    c = Classifier([os.path.join(root, d) for d in dbs],
+                                   ClassifyOptions(print_progress=False, device="cuda", **opts))
+                got_kind = ("bsearch" if c._cfg.lookup_mode == "bsearch"
+                            else "fused" if all(len(db.hash_table) == 1 for db in c.dbs) else "chd")
+                if c.route != route or got_kind != kind:
+                    raise AssertionError(f"{kind} fallback with {opts}: {c.route} route, {got_kind} lookup")
+                kraken, report = io.StringIO(), io.StringIO()
+                c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
+                c.write_report(report)
+                for got, name in ((kraken.getvalue(), kraken_name), (report.getvalue(), report_name)):
+                    with open(os.path.join(GOLDEN, name)) as f:
+                        if got != f.read():
+                            raise AssertionError(f"golden {name} differs through the {kind} fallback ({opts})")
+        launches[kind] = dict(_kernels.LAUNCHES)
+        want = ("fused_probe",) if kind == "fused" else ("kmer_bins", "bsearch_lookup")
+        if any(launches[kind][n] == 0 for n in want) or launches[kind]["chd_probe"]:
+            raise AssertionError(f"{kind} fallback goldens: launches {launches[kind]}")
+        log(f"goldens through the {kind} fallback (2 database sets x 4 runs): byte-equal; "
+            f"launches {launches[kind]}")
+    emit({"check": "fallback goldens", "fallbacks": ["fused", "bsearch"],
+          "files": ["kraken.out", "report.tsv", "kraken_hier.out", "report_hier.tsv"],
+          "routes": ["span", "python", "span + device_counters", "python + device_counters"], "equal": True,
+          "launches": launches})
+    return launches
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1400,6 +1670,9 @@ def phase_main(reps: int):
         os.replace(reads_path + ".tmp", reads_path)
     reads_s = time.time() - t
 
+    # the directory outlives the call that built it: drop the port's table
+    # caches so that the first load is a cold build
+    remove_port_caches(db_dir)
     t = time.time()
     c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
     load_s = time.time() - t
@@ -1407,6 +1680,19 @@ def phase_main(reps: int):
     log(f"loaded in {load_s:.1f}s {db.timings}; lr={db.hash_lb}, {db.table_bytes / 1e9:.3f} GB table")
     if c.route != "span":
         raise AssertionError(f"phase 4 takes the {c.route} route, not the span route")
+    if db.timings.get("cache") != "miss" or not os.path.exists(os.path.join(db_dir, "database.kdb.ht_torch")):
+        raise AssertionError(f"the cold load wrote no table cache: {db.timings}")
+    # a warm load: the table from the port's cache, no build step
+    t = time.time()
+    cw = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
+    warm_s = time.time() - t
+    warm = cw.dbs[0].timings
+    if warm.get("cache") != "hit" or "build" in warm or not all(
+            torch.equal(a, b) for a, b in zip(cw.dbs[0].hash_table, db.hash_table)):
+        raise AssertionError(f"the warm load did not take the cached table as it was built: {warm}")
+    log(f"warm load in {warm_s:.1f}s {warm}: the cached table, bit-equal")
+    del cw
+    torch.cuda.empty_cache()
     _, keys, _ = read_kdb(os.path.join(db_dir, "database.kdb"))
     probe_check(db, keys)
     del keys
@@ -1537,6 +1823,8 @@ def phase_main(reps: int):
         "load_s": load_s,
         "placement_s": db.timings.get("build_place"),
         "load_steps_s": db.timings,
+        "warm_load_s": warm_s,
+        "warm_load_steps_s": warm,
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
@@ -1717,9 +2005,14 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
     db_dir = os.path.dirname(run4["kraken"])
+    dense_cache = os.path.join(db_dir, "database.kdb.ht_dense_torch")
+    if os.path.exists(dense_cache):  # a cold dense build
+        os.unlink(dense_cache)
     t = time.time()
     c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", value_pool=False))
     load_s = time.time() - t
+    if c.dbs[0].timings.get("cache") != "miss":
+        raise AssertionError(f"phase 7's load was not a cold build: {c.dbs[0].timings}")
     if c.route != "span" or not c._cfg_packed.local_dict or c._pool is not None:
         raise AssertionError("value_pool=False should take the span route with the span dictionary")
     out_path, report_path = os.path.join(db_dir, "kraken_dict.out"), os.path.join(db_dir, "report_dict.tsv")
@@ -1800,6 +2093,123 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
     return rec, launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+def phase_bsearch(run4, reps: int):
+    """The binary-search fallback at full size: phase 4's database loaded
+    with the table build made to fail (its table caches removed first, so
+    the load builds), every lookup a search of the sorted planes on the
+    card (dense ids, so the span dictionary engages, as in phase 7); phase
+    4's reads through Classifier.run and write_report, byte-equal to phase
+    4, with kmer_bins and bsearch_lookup launched once per span and
+    chd_probe never; one span step against the plain one; kmer_bins and
+    bsearch_lookup against their plain versions on that span's feed and
+    the real planes."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify.device_step import (
+        _unpack_codes,
+        kmer_bins_plain,
+        kmer_bins_words,
+        kmer_front_words,
+    )
+    from krakenuniq_tpu_torch.lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
+
+    db_dir = os.path.dirname(run4["kraken"])
+    remove_port_caches(db_dir)
+    t = time.time()
+    with forced_fallback("bsearch"):
+        c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
+    load_s = time.time() - t
+    db = c.dbs[0]
+    planes = db.sorted_planes
+    plane_bytes = {name: p.numel() * p.element_size() for name, p in zip(("keys", "vals", "vals_dense", "offsets"), planes)}
+    log(f"bsearch fallback loaded in {load_s:.1f}s {db.timings}; sorted planes {plane_bytes}, "
+        f"n_iter {c._cfg.n_iter}")
+    if (c._cfg.lookup_mode != "bsearch" or db.hash_table is not None or c._pool is not None
+            or not c._cfg_packed.local_dict or c.route != "span"):
+        raise AssertionError("the forced fallback should search the sorted planes on the span route, "
+                             "dense ids under the span dictionary")
+    out_path, report_path = os.path.join(db_dir, "kraken_bsearch.out"), os.path.join(db_dir, "report_bsearch.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    log(f"bsearch: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
+    per_span = ("kmer_bins", "bsearch_lookup", "kmer_front", "scores", "pack_runs", "span_dict")
+    if c.n_units or any(launches[k] != c.n_spans for k in per_span) or launches["chd_probe"] or launches["fused_probe"]:
+        raise AssertionError(f"bsearch: {c.n_units} Python-route units, launches {launches} for {c.n_spans} spans")
+    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
+    log("bsearch kraken output and report: byte-equal to phase 4's")
+
+    kind, buf, offs, _, _ = next(c._iter_native_spans(run4["reads"]))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    out_k = c._span_step(codes_w, ambig_w, lengths_np)
+    out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
+    torch.cuda.synchronize()
+    for key in out_p:
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"bsearch span: kernel step differs from plain step in {key!r}")
+    by_op = device_ms_by_op(lambda: c._span_step(codes_w, ambig_w, lengths_np), reps=5)
+    b, lbw = codes_w.shape
+    lb, k, nt = 16 * lbw, c.k, c.nt
+    cw = torch.from_numpy(codes_w.view(np.int32)).cuda()
+    aw = torch.from_numpy(ambig_w.view(np.int32)).cuda()
+    codes_u = _unpack_codes(cw)
+    bins_rec = check_kernel(
+        "kmer_bins words", (b, lb),
+        lambda: kmer_bins_words(cw, k, nt),
+        lambda: kmer_bins_plain(codes_u, k, nt),
+        reps=reps, bound=bins_bound(b, lb, k, nt, True), extra={"k": k, "nt": nt},
+    )
+    canon, bins = kmer_bins_words(cw, k, nt)
+    _, _, kmer_ambig = kmer_front_words(cw, aw, k, c._cfg.hll_p)
+    w = lb - k + 1
+    lengths = torch.from_numpy(lengths_np).cuda()
+    search = (torch.arange(w, device="cuda")[None, :] < (lengths - (k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    n_iter = c._cfg.n_iter
+    keys_rows = planes[0][: planes[0].numel() // 2 * 2].view(torch.int32).view(-1, 4)
+    floor = probe_floor(keys_rows, int(search.sum()), 53)
+    floor = {"floor_ms": floor["floor_ms"] * (2 + n_iter), "floor_ms_by": floor["floor_ms_by"],
+             "floor_reads_per_lane": 2 + n_iter}
+    look_rec = check_kernel(
+        "bsearch_lookup", (b, w),
+        lambda: lookup_kmers(*planes, canon, bins, search, n_iter, db.bin_start),
+        lambda: lookup_kmers_plain(*planes, canon, bins, search, n_iter, db.bin_start),
+        reps=reps, bound=bsearch_bound(planes, canon, bins, search, n_iter, db.bin_start),
+        extra={"n_iter": n_iter, **floor},
+    )
+    spans = max(c.n_spans, 1)
+    emit({
+        "phase": "bsearch",
+        "route": c.route,
+        "db_keys": int(db.key_ct),
+        "taxonomy_nodes": int(c.taxonomy.size),
+        "sorted_planes_bytes": plane_bytes,
+        "sorted_planes_gb": sum(plane_bytes.values()) / 1e9,
+        "n_iter": n_iter,
+        "max_bin": db.max_bin,
+        "load_s": load_s,
+        "load_steps_s": db.timings,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "classify_s": classify_s,
+        "spans": c.n_spans,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k_: v / spans for k_, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "span_step_device_ms_by_op": by_op,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+    })
+    del c, db, planes, canon, bins, out_k, out_p, codes_u, keys_rows
+    torch.cuda.empty_cache()
+    return {"kmer_bins": bins_rec, "bsearch_lookup": look_rec}, launches
+
+
 # ------------------------------------------------------------------ phase 8
 
 
@@ -1847,6 +2257,9 @@ def phase_ooc(run4, reps: int):
     from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain
 
     db_dir = os.path.dirname(run4["kraken"])
+    chunk_cache = os.path.join(db_dir, "database.kdb.htc_torch")
+    if os.path.exists(chunk_cache):  # a cold chunk build
+        os.unlink(chunk_cache)
     t = time.time()
     c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
     load_s = time.time() - t
@@ -1859,6 +2272,8 @@ def phase_ooc(run4, reps: int):
     if n_chunks < 4 or 2 * chunk_bytes > PRELOAD_SIZE or not c._ooc_prefetch:
         raise AssertionError(f"out-of-core plan: {n_chunks} chunks of {chunk_bytes} B, "
                              f"double-buffered {c._ooc_prefetch}, budget {PRELOAD_SIZE}")
+    if cdb.timings.get("cache") != "miss" or not os.path.exists(chunk_cache):
+        raise AssertionError(f"the cold chunk build wrote no cache: {cdb.timings}")
 
     # run 1: the default options, one group of every span
     out_path, report_path = os.path.join(db_dir, "kraken_ooc.out"), os.path.join(db_dir, "report_ooc.tsv")
@@ -1948,6 +2363,18 @@ def phase_ooc(run4, reps: int):
         raise AssertionError(f"chd_probe_acc check probed {rec['lanes_probed']} lanes only")
     del planes, acc_k, acc_p, acc0, merged, hashes
 
+    # a warm reload: the chunk tables from the port's cache
+    t = time.time()
+    cw = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
+    warm_s = time.time() - t
+    wdb = cw._ooc[0]
+    if wdb.timings.get("cache") != "hit" or "build" in wdb.timings or wdb.bounds != cdb.bounds or not all(
+            torch.equal(a, b) for pa, pb in zip(wdb.chunk_planes, cdb.chunk_planes) for a, b in zip(pa, pb)):
+        raise AssertionError(f"the warm chunk load did not take the cached tables as built: {wdb.timings}")
+    warm_steps = wdb.timings
+    log(f"out of core, warm reload in {warm_s:.1f}s {warm_steps}: the cached chunk tables, bit-equal")
+    del cw, wdb
+
     upload = times["upload"]
     emit({
         "phase": "ooc",
@@ -1959,6 +2386,8 @@ def phase_ooc(run4, reps: int):
         "groups": c.ooc_groups,
         "load_s": load_s,
         "load_steps_s": cdb.timings,
+        "warm_load_s": warm_s,
+        "warm_load_steps_s": warm_steps,
         "reads_per_s": c.total_sequences / run_s,
         "reads_per_s_phase4": run4["reads_per_s"],
         **run1,
@@ -2116,6 +2545,9 @@ KERNELS = {
     "sparse_stats": ("krakenuniq_tpu_torch/csrc/sparse_stats.cu", "krakenuniq_tpu/classify/sparse_exact.py:79"),
     "sparse_keys": ("krakenuniq_tpu_torch/csrc/sparse_stats.cu", "krakenuniq_tpu/classify/sparse_exact.py:101"),
     "span_dict": ("krakenuniq_tpu_torch/csrc/span_dict.cu", "krakenuniq_tpu/classify/device_step.py:286"),
+    "fused_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:46"),
+    "kmer_bins": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/kmer/ops.py:87"),
+    "bsearch_lookup": ("krakenuniq_tpu_torch/csrc/bsearch_lookup.cu", "krakenuniq_tpu/lookup/xla_lookup.py:35"),
 }
 
 
@@ -2151,23 +2583,30 @@ def main(argv=None) -> int:
         so = _native_build.build()
         log(f"native host module built in {time.time() - t:.1f}s: {so}")
 
-    gather_rec = phase_kernels(k=31)
+    gather_rec, fused_rec = phase_kernels(k=31)
     if args.kernels_only:
         print(card)
         return 0
     phase_goldens()
+    fb_launches = phase_fallback_goldens()
     recs, launches, main_run = phase_main(reps=50)
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
     phase_counters(main_run, reps=20)
     recs["span_dict"], dict_launches = phase_dense_ids(main_run, reps=20)
+    bs_recs, bs_launches = phase_bsearch(main_run, reps=20)
     recs["chd_probe_acc"], ooc_launches = phase_ooc(main_run, reps=20)
     probe_launches = phase_probe()
     recs.update(sc_recs)
+    recs.update(bs_recs)
     recs["row_gather"] = gather_rec
-    # each kernel's launches come from the run of the path it serves
+    recs["fused_probe"] = fused_rec
+    # each kernel's launches come from the run of the path it serves: the
+    # fused probe's from the goldens through the fused fallback, the
+    # binary search's from phase 9
     launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats", "sparse_keys")},
                 "span_dict": dict_launches["span_dict"], "chd_probe_acc": ooc_launches["chd_probe_acc"],
-                "row_gather": probe_launches["row_gather"]}
+                "row_gather": probe_launches["row_gather"], "fused_probe": fb_launches["fused"]["fused_probe"],
+                "kmer_bins": bs_launches["kmer_bins"], "bsearch_lookup": bs_launches["bsearch_lookup"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

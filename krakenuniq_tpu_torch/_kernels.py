@@ -9,7 +9,8 @@ and an unchanged one is reused. `build()` compiles every source at once, one
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
-device_step.span_dict, hash_lookup.hash_lookup_kmers and hash_lookup_acc,
+device_step.span_dict, device_step.kmer_bins and kmer_bins_words,
+hash_lookup.hash_lookup_kmers and hash_lookup_acc, xla_lookup.lookup_kmers,
 resolve.scores,
 device_counters.taxon_counts, device_counters.hll_regmax,
 sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
@@ -18,8 +19,10 @@ kernels. One launch is one call of an entry point, which may put several
 records on the card in order on the stream (`RECORDS_PER_LAUNCH`). A
 library may hold other launching entry points (`ENTRIES`); each counts
 under the name its entry gives: the packed kmer_front under kmer_front,
-sparse_stats' key build under its own name, sparse_keys, and chd_probe's
-out-of-core probe under its own, chd_probe_acc.
+sparse_stats' key build under its own name, sparse_keys, chd_probe's
+out-of-core probe and fused-layout probe under their own, chd_probe_acc and
+fused_probe, and kmer_front's minimizer-bin entries (both feeds) under
+kmer_bins.
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ SIGNATURES = {
     # ids, n, calls, B, T, cap, lut, local, local_call (NULL: no call
     # remap), scratch, stream
     "span_dict": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # keys, vals, vals_dense, offsets, query, bins, valid, taxon, taxon_dense,
+    # n, n_keys, n_bins, n_iter, bin_start, stream
+    "bsearch_lookup": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P),
 }
 # launching entry points besides a library's own kuniq_<name>:
 # entry -> (library, C signature, the LAUNCHES name it counts under)
@@ -78,6 +84,12 @@ ENTRIES = {
     # disp, rows, hashes, valid, acc (read and written in place), n, lr, lg,
     # stream: one chunk table's hits folded into the accumulated words
     "chd_probe_acc": ("chd_probe", SIGNATURES["chd_probe"], "chd_probe_acc"),
+    # fused, hashes, valid, out, n, lb, stream: the fused two-choice layout
+    "fused_probe": ("chd_probe", (_P, _P, _P, _P, _L, _I, _P), "fused_probe"),
+    # codes (uint8 [B, LB], or the packed words), canon, bin, B, LB, k, nt,
+    # stream: the binary-search lookup's canonical k-mers and minimizer bins
+    "kmer_bins": ("kmer_front", (_P, _P, _P, _I, _I, _I, _I, _P), "kmer_bins"),
+    "kmer_bins_packed": ("kmer_front", (_P, _P, _P, _I, _I, _I, _I, _P), "kmer_bins"),
 }
 # card records of one launch of an entry point that puts several on the
 # stream: sparse_stats' decide and emit kernels; span_dict's bitmap clear

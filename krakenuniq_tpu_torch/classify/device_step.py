@@ -4,7 +4,11 @@ Counterpart of krakenuniq_tpu/classify/device_step.py (classify_step_core)
 for the resident CHD-hash path:
   2-bit windows (or the span route's packed words) -> canonical k-mers ->
   murmur hashes + HLL encodings (`kmer_front` kernel) -> CHD lookup per
-  database, hierarchically (`chd_probe` kernel), or out of core the span's
+  database, hierarchically (`chd_probe` kernel; `fused_probe` on a table
+  that fell back to the fused layout), or the binary search over the sorted
+  planes of databases whose table build failed (lookup_mode "bsearch":
+  canonical k-mers and minimizer bins from the `kmer_bins` kernel, then the
+  `bsearch_lookup` kernel), or out of core the span's
   word plane that `probe_chunk_core` accumulated over the chunk tables
   (`chd_probe_acc` kernel, lookup_mode "acc") -> per-read tree resolution
   (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel),
@@ -30,6 +34,7 @@ from .. import _kernels
 from ..ints import clz64, i32_to_u32, lsr, s64, u32_to_i32
 from ..kmer import ops as kops
 from ..lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain, hash_lookup_kmers, hash_lookup_plain
+from ..lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
 from ..taxonomy.resolve import resolve_reads
 from ..utils.bits import P_PRIME
 
@@ -125,15 +130,19 @@ def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb
     return hashes, encode_hash_device(hashes, p), amb
 
 
+def _unpack_codes(codes_packed: torch.Tensor) -> torch.Tensor:
+    """int32 [B, LB/16] code words -> uint8 [B, LB] codes."""
+    b, lbw = codes_packed.shape
+    c = i32_to_u32(codes_packed)[:, :, None] >> (2 * torch.arange(16, device=codes_packed.device))
+    return (c & 3).to(torch.uint8).reshape(b, lbw * 16)
+
+
 def unpack_input(codes_packed: torch.Tensor, ambig_packed: torch.Tensor):
     """The packed feed (int32 [B, LB/16] code words, [B, LB/32] flag words
     of kuniq_native.encode_unit_packed) -> the (B, LB) uint8 codes and bool
     flags (krakenuniq_tpu/classify/device_step.py:54-70)."""
-    b, lbw = codes_packed.shape
-    dev = codes_packed.device
-    c = i32_to_u32(codes_packed)[:, :, None] >> (2 * torch.arange(16, device=dev))
-    a = i32_to_u32(ambig_packed)[:, :, None] >> torch.arange(32, device=dev)
-    return (c & 3).to(torch.uint8).reshape(b, lbw * 16), ((a & 1) != 0).reshape(b, -1)
+    a = i32_to_u32(ambig_packed)[:, :, None] >> torch.arange(32, device=ambig_packed.device)
+    return _unpack_codes(codes_packed), ((a & 1) != 0).reshape(codes_packed.shape[0], -1)
 
 
 def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
@@ -187,6 +196,60 @@ def kmer_front_words(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, k: 
     _kernels.launch("kmer_front_packed", dev, codes_packed, ambig_packed, hashes, enc, kmer_ambig,
                     b, lb, k, p)
     return hashes, enc, kmer_ambig
+
+
+def kmer_bins_plain(codes: torch.Tensor, k: int, nt: int):
+    """Plain version of `kmer_bins`: (canonical k-mers, minimizer bins),
+    both int64 [B, LB-k+1], by pack_windows, canonical_representation and
+    minimizers (krakenuniq_tpu/kmer/ops.py)."""
+    canon = kops.canonical_representation(kops.pack_windows(codes, k), k)
+    return canon, kops.minimizers(codes, k, nt)
+
+
+def _bins_check(name: str, k: int, nt: int, lb: int) -> None:
+    if not 1 <= nt <= k <= 31 or lb < k:
+        raise ValueError(f"{name}: need 1 <= nt <= k <= 31 and LB >= k (k={k}, nt={nt}, LB={lb})")
+
+
+def kmer_bins(codes: torch.Tensor, k: int, nt: int):
+    """The canonical k-mer (int64, below 2^62) and its minimizer bin (int64,
+    below 4^nt: the minimum of INDEX2_XOR_MASK & (4^nt - 1) ^ canonical
+    nt-mer over the window's k - nt + 1 nt-mers) of every lane of a (B, LB)
+    uint8 code batch. CUDA tensors launch the `kmer_bins` kernel (csrc/
+    kmer_front.cu); CPU tensors run `kmer_bins_plain`."""
+    if codes.dim() != 2:
+        raise TypeError("kmer_bins: codes must be [B, LB]")
+    b, lb = codes.shape
+    _bins_check("kmer_bins", k, nt, lb)
+    if codes.device.type == "cpu":
+        return kmer_bins_plain(codes, k, nt)
+    dev = _kernels.check_cuda("kmer_bins", codes=codes)
+    if codes.dtype != torch.uint8:
+        raise TypeError("kmer_bins: codes must be uint8")
+    canon = torch.empty((b, lb - k + 1), dtype=torch.int64, device=dev)
+    bins = torch.empty_like(canon)
+    _kernels.launch("kmer_bins", dev, codes, canon, bins, b, lb, k, nt)
+    return canon, bins
+
+
+def kmer_bins_words(codes_packed: torch.Tensor, k: int, nt: int):
+    """`kmer_bins` on the span route's packed code words (int32 [B, LB/16],
+    LB a multiple of 32). CUDA tensors launch the kernel's packed entry;
+    CPU tensors unpack the words and run `kmer_bins_plain`."""
+    if codes_packed.dim() != 2 or codes_packed.shape[1] % 2:
+        raise ValueError("kmer_bins_words: need [B, LB/16] code words with LB a multiple of 32")
+    b, lbw = codes_packed.shape
+    lb = 16 * lbw
+    _bins_check("kmer_bins_words", k, nt, lb)
+    if codes_packed.device.type == "cpu":
+        return kmer_bins_plain(_unpack_codes(codes_packed), k, nt)
+    dev = _kernels.check_cuda("kmer_bins", codes=codes_packed)
+    if codes_packed.dtype != torch.int32:
+        raise TypeError("kmer_bins_words: the words must be int32")
+    canon = torch.empty((b, lb - k + 1), dtype=torch.int64, device=dev)
+    bins = torch.empty_like(canon)
+    _kernels.launch("kmer_bins_packed", dev, codes_packed, canon, bins, b, lb, k, nt)
+    return canon, bins
 
 
 # the RLE row layouts of `pack_runs` (csrc/pack_runs.cu) and their codes in
@@ -445,10 +508,23 @@ class StepConfig:
     dict_capacity: int = 1 << 15
     # restrict the returned dict to these keys (None = all)
     outputs: tuple | None = None
-    # "hash": probe the resident CHD tables (db_planes); "acc": out of core,
-    # db_planes is the span's merged word plane (probe_chunk_core) and no
-    # table is probed
+    # "hash": probe the resident tables (db_planes: CHD or fused planes per
+    # database); "bsearch": search each database's sorted planes (db_planes:
+    # (keys, vals, vals_dense, offsets, bin_start) per database, n_iter
+    # steps); "acc": out of core, db_planes is the span's merged word plane
+    # (probe_chunk_core) and no table is probed
     lookup_mode: str = "hash"
+    nt: int = 0  # minimizer length (the bsearch bins)
+    n_iter: int = 1  # binary-search trip count (DeviceDB.search_iters)
+
+
+def _bins(codes, cfg: StepConfig, plain: bool):
+    """The bsearch lookup's (canonical k-mers, minimizer bins) on either feed."""
+    if cfg.packed_input:
+        if plain:
+            return kmer_bins_plain(_unpack_codes(codes), cfg.k, cfg.nt)
+        return kmer_bins_words(codes, cfg.k, cfg.nt)
+    return (kmer_bins_plain if plain else kmer_bins)(codes, cfg.k, cfg.nt)
 
 
 def _front(codes, ambig, cfg: StepConfig, plain: bool):
@@ -488,8 +564,9 @@ def probe_chunk_core(
 
 
 def classify_step_core(
-    db_planes,  # tuple of (disp4, rows) CHD planes per database, in hierarchy order;
-    # lookup_mode "acc": the int32 [B, W] merged word plane
+    db_planes,  # per database, in hierarchy order: the table planes ((disp4, rows) or
+    # (fused,)); lookup_mode "bsearch": (keys, vals, vals_dense, offsets,
+    # bin_start); lookup_mode "acc": the int32 [B, W] merged word plane
     taxid_table: torch.Tensor,  # int32 [T]: device id -> original taxid (uint32 bits)
     io: torch.Tensor,  # int32 [T, 2]: Euler (tin, tout) per id
     parent: torch.Tensor,
@@ -514,18 +591,37 @@ def classify_step_core(
     search = valid & ~kmer_ambig
     taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
     found = torch.zeros((b, w), dtype=torch.bool, device=codes.device)
+    # bsearch: the stored taxids (uint32 bits), which the "taxa" plane
+    # returns as they are; the other modes map taxon_dense through
+    # taxid_table instead
+    taxon = None
     if cfg.lookup_mode == "acc":
         # out-of-core finish: the merged word plane, already masked to the
         # searched lanes at probe time (re-masking is a no-op)
         taxon_dense = torch.where(search, db_planes, 0)
         found = taxon_dense != 0
         db_planes = ()
+    elif cfg.lookup_mode == "bsearch":
+        canon, bins = _bins(codes, cfg, plain)
+        taxon = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
+        search_fn = lookup_kmers_plain if plain else lookup_kmers
     elif cfg.lookup_mode != "hash":
-        raise ValueError(f"lookup_mode must be 'hash' or 'acc', got {cfg.lookup_mode!r}")
+        raise ValueError(f"lookup_mode must be 'hash', 'bsearch' or 'acc', got {cfg.lookup_mode!r}")
     # hierarchical multi-DB: later DBs only fill lanes still unclassified
     # (classify.cpp:927-936)
     for plane in db_planes:
         remaining = search & ~found
+        if cfg.lookup_mode == "bsearch":
+            keys, vals, vals_dense, offsets, bin_start = plane
+            t_i, td_i = search_fn(keys, vals, vals_dense, offsets, canon, bins, remaining, cfg.n_iter,
+                                  bin_start)
+            taxon = torch.where(remaining, t_i, taxon)
+            taxon_dense = torch.where(remaining, td_i, taxon_dense)
+            # a hit is keyed on the stored taxid, as the JAX package's
+            # bsearch branch keys it: a value whose taxon is missing from
+            # the taxonomy (dense id 0) is still a hit
+            found = found | (t_i != 0)
+            continue
         word = lookup(plane, hashes, remaining)
         taxon_dense = torch.where(remaining, word, taxon_dense)
         found = found | (word != 0)
@@ -575,7 +671,8 @@ def classify_step_core(
         # stored values are device ids; original taxids for the hit-list
         # planes (taxid_table[0] == 0, so misses map to 0). A full-plane
         # gather: the span route leaves it out and maps rows on the host.
-        out["taxa"] = taxid_table[taxon_dense.long()]
+        # bsearch returns the stored taxids as the search found them.
+        out["taxa"] = taxid_table[taxon_dense.long()] if taxon is None else taxon
     if cfg.max_runs > 0 and cfg.dense_runs:
         if asked("packed") or asked("hll_dense") or asked("lut"):
             # runs group on dense ids (injective, so the boundaries equal the

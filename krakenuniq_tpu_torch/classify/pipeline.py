@@ -1,7 +1,7 @@
 """End-to-end classification driver on a torch device.
 
-Counterpart of krakenuniq_tpu/classify/pipeline.py for the resident,
-single-device, CHD-hash path. Reads are cut into work units (greedy >=
+Counterpart of krakenuniq_tpu/classify/pipeline.py for the single-device
+path. Reads are cut into work units (greedy >=
 500 kbp, the deterministic partition of classify.cpp:511-521). Two routes:
 
   * the span route (the default, as in the JAX package): the port's native
@@ -31,8 +31,15 @@ tables (lookup_mode "acc"). On the span route the spans gather into groups
 of `ooc_group_bytes`, and each group takes one pass of the chunk tables
 (classify.cpp:587-648's outer chunk loop).
 
+The resident lookup is the hash table of every database (lookup_mode
+"hash": CHD, or the fused layout a failed CHD build falls back to). When a
+database's table build fails altogether, every database is searched in its
+sorted planes instead (lookup_mode "bsearch", in dense ids), as in the JAX
+package; the planes of the databases that did build a table go to the
+device once for it.
+
 Long reads, UID databases, --exact and meshes of the JAX package are later
-slices (ROADMAP items 9, 8, 10 and 12).
+slices (ROADMAP items 3, 5, 4 and 7).
 """
 
 from __future__ import annotations
@@ -292,9 +299,18 @@ class Classifier:
         for d in self.db_dirs:
             db, _ = load_database_dir(
                 d, taxonomy=self.taxonomy, device=self.device, pool=pool_arg,
-                vals_dense=pre_vd.pop(d, None),
+                vals_dense=pre_vd.get(d),
             )
             self.dbs.append(db)
+        if any(db.pool is None for db in self.dbs) and any(db.pool is not None for db in self.dbs):
+            # a fallback to the binary search dropped one database's pool;
+            # mixed id spaces are invalid, so every database is reloaded with
+            # dense ids (krakenuniq_tpu/classify/pipeline.py:463-474)
+            self.dbs = [
+                load_database_dir(d, taxonomy=self.taxonomy, device=self.device, pool=None,
+                                  vals_dense=pre_vd.get(d))[0]
+                for d in self.db_dirs
+            ]
         self._check_widths([db.k for db in self.dbs], [db.nt for db in self.dbs])
         self._pool = self.dbs[0].pool
 
@@ -351,8 +367,20 @@ class Classifier:
         # the resolve's [T, 2] (tin, tout) table, gathered per k-mer lane
         self._io = put(np.stack([tin, tout], axis=1), np.int32)
         self._parent = put(parent, np.int32)
+        lookup_mode, n_iter = "acc", 1
         if self._ooc is None:
-            self._db_planes = tuple(db.hash_table for db in self.dbs)
+            # the hash tables only if every database has one; else every
+            # database's sorted planes, on the device once (JAX pipeline.py:
+            # 556-566)
+            if all(db.hash_table is not None for db in self.dbs):
+                lookup_mode = "hash"
+                self._db_planes = tuple(db.hash_table for db in self.dbs)
+            else:
+                lookup_mode = "bsearch"
+                n_iter = max(db.search_iters for db in self.dbs)
+                self._db_planes = tuple(
+                    (*db.upload_sorted_planes(self.device), db.bin_start) for db in self.dbs
+                )
             self._ooc_prefetch = False
         else:
             # the chunk tables stream through the slots (_ooc_probe_group);
@@ -368,7 +396,9 @@ class Classifier:
             hll_p=HLL_P,
             quick=self.opts.quick,
             min_hits=self.opts.min_hits,
-            lookup_mode="hash" if self._ooc is None else "acc",
+            lookup_mode=lookup_mode,
+            nt=self.nt,
+            n_iter=n_iter,
         )
         # device-counters sparse tracking: ids past the device packing's
         # 2^TAXON_BITS taxon field fall back to HOST-computed per-unit stats

@@ -49,6 +49,22 @@
 // four acc words first, and a lane that is not valid or already set skips
 // its hash and both dependent reads. The four words go back as one store,
 // and only when a lane of them was probed.
+//
+// The fused-layout entry, kuniq_fused_probe (fused_probe_kernel), probes
+// the two-choice table that the build falls back to when CHD placement
+// fails. Replaces: krakenuniq_tpu/lookup/hash_lookup.py, _probe_fused
+// under the `valid` mask of hash_lookup_kmers, which the JAX package left
+// to XLA as two row gathers. The plane is u32 [2^lb][4] rows of (tag0,
+// val0, tag1, val1); a query h has the buckets b1 = h >> (64-lb) and
+// b2 = (h*GOLDEN) >> (64-lb), and a slot of bucket bc matches iff its tag
+// is bits [lb, lb+32) of hc (h, or h*GOLDEN for b2) and the high bits of
+// its value word are the choice bit and the low 32-lb bits of hc: all 64
+// bits of hc, so the lookup is exact. The value is the word's low lb-1
+// bits; an empty all-zero slot yields 0. Bound: random 32-byte sectors,
+// two 16-byte rows per valid query at independent addresses. Design: a
+// thread takes the same Q = 4 queries with the same vector loads and
+// cache policy as chd_probe, and issues all 2Q row loads (they do not
+// depend on each other) before the first compare.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -198,6 +214,70 @@ chd_probe_acc_kernel(const uint32_t* __restrict__ disp, const uint4* __restrict_
   }
 }
 
+template <bool kStreamRows>
+__global__ void __launch_bounds__(kThreads)
+fused_probe_kernel(const uint4* __restrict__ fused, const uint64_t* __restrict__ hashes,
+                   const uint8_t* __restrict__ valid, uint32_t* __restrict__ out, long long n,
+                   int lb) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+  if (i0 >= n) return;
+  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
+                   !((uintptr_t)valid & 3);
+  uint64_t h[kQ];
+  bool v[kQ];
+  if (vec) {
+    const ulonglong2 h01 = reinterpret_cast<const ulonglong2*>(hashes + i0)[0];
+    const ulonglong2 h23 = reinterpret_cast<const ulonglong2*>(hashes + i0)[1];
+    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
+    h[0] = h01.x;
+    h[1] = h01.y;
+    h[2] = h23.x;
+    h[3] = h23.y;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) v[j] = (flags >> (8 * j)) & 0xFFu;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      v[j] = i0 + j < n && valid[i0 + j];
+      h[j] = v[j] ? hashes[i0 + j] : 0;
+    }
+  }
+  // every row of the thread's queries is asked for before the first compare
+  uint4 r1[kQ], r2[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const uint4* a1 = fused + (h[j] >> (64 - lb));
+    const uint4* a2 = fused + ((h[j] * kGolden) >> (64 - lb));
+    r1[j] = !v[j] ? zero : kStreamRows ? __ldcs(a1) : __ldg(a1);
+    r2[j] = !v[j] ? zero : kStreamRows ? __ldcs(a2) : __ldg(a2);
+  }
+  const int v_bits = lb - 1;
+  const uint32_t tax_mask = (1u << v_bits) - 1, hi_mask = ~tax_mask;
+  const uint64_t spare_mask = (1ull << (32 - lb)) - 1;
+  uint32_t res[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const uint64_t hg = h[j] * kGolden;
+    const uint32_t t1 = (uint32_t)((h[j] << lb) >> 32), t2 = (uint32_t)((hg << lb) >> 32);
+    const uint32_t hi1 = (uint32_t)(h[j] & spare_mask) << v_bits;
+    const uint32_t hi2 = ((uint32_t)(hg & spare_mask) << v_bits) | 0x80000000u;
+    uint32_t best = 0u;
+    if (r1[j].x == t1 && (r1[j].y & hi_mask) == hi1) best = max(best, r1[j].y & tax_mask);
+    if (r1[j].z == t1 && (r1[j].w & hi_mask) == hi1) best = max(best, r1[j].w & tax_mask);
+    if (r2[j].x == t2 && (r2[j].y & hi_mask) == hi2) best = max(best, r2[j].y & tax_mask);
+    if (r2[j].z == t2 && (r2[j].w & hi_mask) == hi2) best = max(best, r2[j].w & tax_mask);
+    res[j] = v[j] ? best : 0u;
+  }
+  if (vec) {
+    *reinterpret_cast<uint4*>(out + i0) = make_uint4(res[0], res[1], res[2], res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (i0 + j < n) out[i0 + j] = res[j];
+  }
+}
+
 // the row plane streams past the L2 (evict-first) when it is larger than it
 int stream_rows(int lr, bool* out) {
   int dev = 0, l2_bytes = 0;
@@ -236,5 +316,20 @@ extern "C" int kuniq_chd_probe(const void* disp, const void* rows, const void* h
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)disp, (const uint4*)rows, (const uint64_t*)hashes,
       (const uint8_t*)valid, (uint32_t*)out, n, lr, lg);
+  return (int)cudaGetLastError();
+}
+
+// fused: u32 [2^lb][4] rows; hashes, valid, out as kuniq_chd_probe's.
+extern "C" int kuniq_fused_probe(const void* fused, const void* hashes, const void* valid,
+                                 void* out, long long n, int lb, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (lb < 4 || lb > 30) return (int)cudaErrorInvalidValue;
+  bool streamed = false;
+  const int err = stream_rows(lb, &streamed);
+  if (err != 0) return err;
+  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
+  const auto kernel = streamed ? fused_probe_kernel<true> : fused_probe_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)fused, (const uint64_t*)hashes, (const uint8_t*)valid, (uint32_t*)out, n, lb);
   return (int)cudaGetLastError();
 }

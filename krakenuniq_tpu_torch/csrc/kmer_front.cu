@@ -39,6 +39,20 @@
 // (3 bits per base read instead of 16) and the compute loop is the same.
 // It replaces the JAX package's unpack_input (device_step.py:54-70), whose
 // unpacked [B, LB] planes never exist here.
+//
+// Minimizer bins (kuniq_kmer_bins, kuniq_kmer_bins_packed: the binary-search
+// lookup's front, lookup_mode "bsearch"). Replaces: the XLA ops of
+// krakenuniq_tpu/kmer/ops.py's minimizers (pack_windows over nt, the
+// canonical nt-mers, window_min) and the canonical k-mer plane of
+// classify_step_core. Per lane it writes the canonical k-mer (int64) and
+//   bin = min over m in [0, k - nt] of  xm ^ canonical(nt-mer at lane + m),
+// xm = INDEX2_XOR_MASK & (4^nt - 1) (krakendb.cpp:200-215). Bound on the
+// H100: operations (k - nt + 1 canonical nt-mers a lane against 16 bytes
+// out). Design: the same staging as kmer_front (codes only: the flags play
+// no part) and the same funnel-shift window r of the lane's 2k code bits;
+// every nt-mer of the k-mer is a field of r (its reverse complement) and of
+// the forward k-mer (its forward form), so a lane reads shared memory
+// twice and spends about eight operations on each nt-mer.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,6 +62,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlockBases = 4096;  // bases staged per block (whole rows, at least one)
 constexpr int kPPrime = 25;        // sparse precision, hyperloglogplus.hpp:76
+constexpr uint64_t kIndex2XorMask = 0xE37E28C4271B5A2Dull;  // krakendb.cpp:45
 
 __device__ __forceinline__ uint64_t murmur3_finalizer(uint64_t key) {
   key += 1;
@@ -179,6 +194,76 @@ kmer_front_packed_kernel(const uint32_t* __restrict__ codes, const uint32_t* __r
   front_lanes(smem, smem + nc64, 0, 0, r0 * W, rows, LB, W, k, p, hash_out, enc_out, amb_out);
 }
 
+// The minimizer-bin pass on a block's staged code string (code bit 2f holds
+// the block's base f - offc): canonical k-mer and bin of lanes idx.
+__device__ __forceinline__ void bins_lanes(const uint64_t* c64, int offc, long long o0, int rows,
+                                           int LB, int W, int k, int nt,
+                                           uint64_t* __restrict__ canon_out,
+                                           uint64_t* __restrict__ bin_out) {
+  const uint64_t mask2k = (1ull << (2 * k)) - 1;
+  const uint64_t mask2n = (1ull << (2 * nt)) - 1;
+  const uint64_t xm = kIndex2XorMask & mask2n;
+  for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
+    const int rr = (int)((unsigned)idx / (unsigned)W);
+    const int f = rr * LB + (idx - rr * W);
+    const uint64_t r = window64(c64, 2 * (f + offc)) & mask2k;  // base t at bits 2t
+    uint64_t x = __brevll(r);
+    x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+    const uint64_t fwd = x >> (64 - 2 * k);  // first base in the high bits
+    const uint64_t rc = ~r & mask2k;
+    uint64_t best = ~0ull;
+    for (int m = 0; m <= k - nt; ++m) {
+      const uint64_t f_m = (fwd >> (2 * (k - nt - m))) & mask2n;  // nt-mer at lane + m
+      const uint64_t r_m = (rc >> (2 * m)) & mask2n;                // its reverse complement
+      const uint64_t s = xm ^ (f_m < r_m ? f_m : r_m);
+      best = s < best ? s : best;
+    }
+    canon_out[o0 + idx] = fwd < rc ? fwd : rc;
+    bin_out[o0 + idx] = best;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+kmer_bins_kernel(const uint8_t* __restrict__ codes, uint64_t* __restrict__ canon_out,
+                 uint64_t* __restrict__ bin_out, int B, int LB, int k, int nt, int R) {
+  extern __shared__ uint64_t smem[];
+  const long long r0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, (long long)B - r0);
+  const int n = rows * LB;
+  const uint8_t* cp = codes + r0 * LB;
+  const int offc = (int)((uintptr_t)cp & 15);
+  const uint4* cv = reinterpret_cast<const uint4*>(cp - offc);
+  const int ncc = (n + offc + 15) / 16;
+  const int nc64 = (ncc + 1) / 2 + 1;  // + one zero word
+  uint32_t* s_code = reinterpret_cast<uint32_t*>(smem);
+  for (int c = threadIdx.x; c < 2 * nc64; c += kThreads) {
+    uint32_t v = 0;
+    if (c < ncc) {
+      const uint4 x = cv[c];
+      v = pack4_codes(x.x) | pack4_codes(x.y) << 8 | pack4_codes(x.z) << 16 |
+          pack4_codes(x.w) << 24;
+    }
+    s_code[c] = v;
+  }
+  __syncthreads();
+  bins_lanes(smem, offc, r0 * (LB - k + 1), rows, LB, LB - k + 1, k, nt, canon_out, bin_out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+kmer_bins_packed_kernel(const uint32_t* __restrict__ codes, uint64_t* __restrict__ canon_out,
+                        uint64_t* __restrict__ bin_out, int B, int LB, int k, int nt, int R) {
+  extern __shared__ uint64_t smem[];
+  const long long r0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, (long long)B - r0);
+  const int ncw = rows * (LB / 16);
+  const int nc64 = (ncw + 1) / 2 + 1;  // + one zero word
+  uint32_t* s_code = reinterpret_cast<uint32_t*>(smem);
+  const uint32_t* cw = codes + r0 * (LB / 16);
+  for (int c = threadIdx.x; c < 2 * nc64; c += kThreads) s_code[c] = c < ncw ? cw[c] : 0u;
+  __syncthreads();
+  bins_lanes(smem, 0, r0 * (LB - k + 1), rows, LB, LB - k + 1, k, nt, canon_out, bin_out);
+}
+
 }  // namespace
 
 extern "C" int kuniq_kmer_front(const void* codes, const void* ambig, void* hash_out,
@@ -212,5 +297,34 @@ extern "C" int kuniq_kmer_front_packed(const void* codes, const void* ambig, voi
   kmer_front_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)codes, (const uint32_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
       (uint8_t*)amb_out, B, LB, k, p, R);
+  return (int)cudaGetLastError();
+}
+
+// codes: uint8 [B, LB]; canon and bin: int64 [B, LB - k + 1]; 1 <= nt <= k.
+extern "C" int kuniq_kmer_bins(const void* codes, void* canon_out, void* bin_out, int B, int LB,
+                               int k, int nt, void* stream) {
+  if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
+  if (nt < 1 || nt > k || k > 31) return (int)cudaErrorInvalidValue;
+  const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
+  const int ncc = (R * LB + 30) / 16;  // the worst 15-byte misalignment
+  const size_t smem = sizeof(uint64_t) * (size_t)((ncc + 1) / 2 + 1);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (B + R - 1) / R;
+  kmer_bins_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (uint64_t*)canon_out, (uint64_t*)bin_out, B, LB, k, nt, R);
+  return (int)cudaGetLastError();
+}
+
+// codes: int32 [B, LB/16] words of encode_unit_packed (LB a multiple of 32).
+extern "C" int kuniq_kmer_bins_packed(const void* codes, void* canon_out, void* bin_out, int B,
+                                      int LB, int k, int nt, void* stream) {
+  if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
+  if (nt < 1 || nt > k || k > 31 || LB % 32 != 0) return (int)cudaErrorInvalidValue;
+  const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
+  const size_t smem = sizeof(uint64_t) * (size_t)((R * (LB / 16) + 1) / 2 + 1);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int grid = (B + R - 1) / R;
+  kmer_bins_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)codes, (uint64_t*)canon_out, (uint64_t*)bin_out, B, LB, k, nt, R);
   return (int)cudaGetLastError();
 }

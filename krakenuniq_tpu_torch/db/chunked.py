@@ -22,9 +22,14 @@ Chunks are cut along minimizer-bin boundaries (krakendb.cpp:430-461), and
 all chunk tables of a database share one width, so one pair of device slots
 of that shape holds any of them. The host planes are int32 tensors, pinned
 chunk by chunk as each is built when they are bound for a card (so the
-process never holds two copies of the set). Unlike the JAX package, the
-port keeps no on-disk cache of the built chunks: it never reads or writes
-the JAX package's `<kdb>.htc` files.
+process never holds two copies of the set).
+
+`load_chunked_db` keeps the built chunk tables in the port's cache beside
+the database, `<kdb>.htc_torch` (db/ht_cache.py), valid while the kdb, the
+taxDB, the port's cache version, the code of the build and the planner
+(ht_cache.CHUNK_SOURCES), the value pool's rows, the budget and
+chunk_multiple (the port's 1) all match. It never reads, writes or deletes the JAX
+package's `<kdb>.htc` files.
 """
 
 from __future__ import annotations
@@ -37,9 +42,17 @@ import time
 import numpy as np
 import torch
 
-from .hash_table import CHD_MAX_LOAD, HashBuildError, build_hash_table, chd_min_lr, chd_table_bytes
+from .hash_table import (
+    BUCKET_SLOTS,
+    CHD_MAX_LOAD,
+    HashBuildError,
+    build_hash_table,
+    chd_min_lr,
+    chd_table_bytes,
+)
+from .ht_cache import CHUNK_SOURCES, load_ht_cache, save_ht_cache
 
-BUCKET_SLOTS = 2
+CACHE_SUFFIX = ".htc_torch"  # the port's chunk cache beside `database.kdb`
 # raw (UID) two-level tables are 24 B a bucket, loaded to 0.6 (the JAX
 # package's pricing; the port builds no such table yet)
 _RAW_BYTES_PER_BUCKET = 4 * 2 + 8 * 2
@@ -72,8 +85,8 @@ def plan_chunks(
     the smallest equal-key chunk count whose largest chunk fits the budget.
     `min_chunks` forces a finer cut (the retry after a placement stall);
     `chunk_multiple` rounds the count up to a multiple (the JAX package's
-    out-of-core mesh composition, ROADMAP item 12: no caller in the port
-    yet, kept so the plans stay the JAX package's).
+    out-of-core mesh composition, ROADMAP item 7: no caller in the port
+    sets it yet; the chunk cache's key holds the 1 the port plans with).
     """
     from ..parallel.partition import partition_bins_equal_keys
 
@@ -138,8 +151,10 @@ class ChunkedHashDB:
     key_ct: int
     vals_dense: np.ndarray | None  # host dense values (counts-file generation)
     pool: object | None = None  # ValuePool when the table values are pool ids
-    # set-up wall seconds: "read" (kdb, dense values, pool), "build" (plan,
-    # placement, planes, self-check), "pin" (copies into pinned memory)
+    # set-up wall seconds: "read" (kdb, dense values, pool), "cache_read" (a
+    # hit) or "build" (plan, placement, planes, self-check) and
+    # "cache_write", "pin" (copies into pinned memory); "cache" is "hit",
+    # "miss" (built, and written) or "write_failed" (built, not written)
     timings: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -218,7 +233,7 @@ def build_chunked_db(
         for lo, hi in bounds:
             klo, khi = int(offsets[lo]), int(offsets[hi])
             try:
-                host, _ = build_hash_table(keys[klo:khi], values[klo:khi], force_lr=lb)
+                host, _ = build_hash_table(keys[klo:khi], values[klo:khi], force_lr=lb, layout="chd")
             except HashBuildError:
                 ok = False
                 if chd_table_bytes(lb + 1) <= budget_bytes:
@@ -259,7 +274,11 @@ def load_chunked_db(
     (db/pool.py), a ValuePool shares a joint id space (hierarchical
     databases), None stores dense ids. `vals_dense` skips recomputing the
     dense values when the caller has them. `pin` pins each chunk's planes
-    for the card's copy engines. Nothing is written next to the database."""
+    for the card's copy engines. The chunk tables come from the port's
+    cache `<kdb>.htc_torch` when it holds them for this kdb, taxDB, pool,
+    budget and code; else they are built and the cache written
+    (a failed write is not fatal). ChunkedHashDB.timings["cache"] says
+    which."""
     from ..formats import read_index, read_kdb
     from .device_db import compute_vals_dense
     from .pool import build_value_pool
@@ -270,21 +289,51 @@ def load_chunked_db(
         )
     t0 = time.perf_counter()
     db_dir = os.fspath(db_dir)
-    hdr, keys, vals = read_kdb(os.path.join(db_dir, "database.kdb"))
+    kdb_path = os.path.join(db_dir, "database.kdb")
+    taxdb_path = os.path.join(db_dir, "taxDB")
+    hdr, keys, vals = read_kdb(kdb_path)
     _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
     if vals_dense is None:
         vals_dense = compute_vals_dense(vals, taxonomy)
     vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
     if pool == "auto":
         pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
-    table_vals = pool.pool_index(vals_dense) if pool is not None else vals_dense
     t1 = time.perf_counter()
-    cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin)
-    del keys, vals, table_vals
+    htc_path = kdb_path + CACHE_SUFFIX
+    cdb = None
+    cached = load_ht_cache(htc_path, kdb_path, taxdb_path, CHUNK_SOURCES)
+    if cached is not None:
+        planes, lb, extra = cached
+        extra = extra or {}
+        c_rows = extra.get("pool_rows")
+        space_ok = (c_rows is None) == (pool is None) and (
+            pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
+        if (space_ok and extra.get("budget") == budget_bytes
+                and extra.get("chunk_multiple") == 1 and len(planes) % 2 == 0):
+            t = time.perf_counter()
+            cdb = chunked_db_from_planes(
+                [planes[i : i + 2] for i in range(0, len(planes), 2)], lb, hdr.k, nt,
+                bounds=extra.get("bounds"), key_ct=len(keys), pin=pin,
+            )
+            pin_s = time.perf_counter() - t
+            cdb.timings.update(cache="hit", cache_read=t - t1, pin=pin_s)
+    if cdb is None:
+        table_vals = pool.pool_index(vals_dense) if pool is not None else vals_dense
+        cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin)
+        del table_vals
+        cdb.timings["build"] = time.perf_counter() - t1 - cdb.timings["pin"]
+        t = time.perf_counter()
+        extra = {"budget": budget_bytes, "bounds": [list(b) for b in cdb.bounds],
+                 "chunk_multiple": 1}
+        if pool is not None:
+            extra["pool_rows"] = pool.rows
+        flat = [p.numpy().view(np.uint32) for planes in cdb.chunk_planes for p in planes]
+        ok = save_ht_cache(htc_path, flat, cdb.lb, kdb_path, taxdb_path, extra=extra, sources=CHUNK_SOURCES)
+        cdb.timings.update(cache="miss" if ok else "write_failed", cache_write=time.perf_counter() - t)
+    del keys, vals
     cdb.vals_dense = vals_dense
     cdb.pool = pool
-    build_s = time.perf_counter() - t1
-    cdb.timings.update(read=t1 - t0, build=build_s - cdb.timings["pin"])
+    cdb.timings["read"] = t1 - t0
     print(
         f"out-of-core: {db_dir} split into {cdb.n_chunks} chunk tables of {cdb.chunk_bytes()} "
         f"bytes at width 2^{cdb.lb} (budget {budget_bytes} bytes)",

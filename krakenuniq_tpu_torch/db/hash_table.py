@@ -18,9 +18,22 @@ Placement runs on the host in the port's native module (`_chd_place`,
 kuniq_native_torch.chd_place: a sequential largest-bucket-first search);
 `_chd_place_numpy` is its plain numpy version, which places differently but
 as exactly. Plane construction and the self-check probe run in numpy; the
-planes go to the device once validated (db/device_db.py). The JAX package's fused two-choice and
-two-level layouts are a later slice of the port: a failed CHD build raises
-HashBuildError instead of falling back.
+planes go to the device once validated (db/device_db.py).
+
+The two-choice FUSED layout is the build's fallback when CHD placement
+fails at every width: one u32 [2^lb, 4] plane of [tag0, val0, tag1, val1]
+rows. Every key has two candidate buckets
+    b1 = h >> (64 - lb)        b2 = (h * GOLDEN) >> (64 - lb)
+and is stored under the probe value hc of the choice that placed it (h for
+b1, h * GOLDEN for b2; both maps are bijections) as
+  tag  = bits [lb, lb+32) of hc
+  val  = choice << 31 | spare << (lb - 1) | value,  spare = the low 32 - lb bits of hc,
+so an accepted slot pins all 64 bits of hc, hence h: exact as well.
+Placement is a vectorized two-choice cuckoo walk in numpy (`_host_place`);
+keys whose first-choice tag is 0 are pinned to b1, where occupants sit
+ahead of the all-zero empty slots that could otherwise shadow them. The
+value must fit lb - 1 bits (`min_lb_for`). The raw-valued (UID) two-level
+layout is not ported (ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import numpy as np
 
 from ..utils.bits import murmur3_finalizer
 
+BUCKET_SLOTS = 2
 GOLDEN = np.uint64(0x9E3779B97F4A7C15)
 C2 = np.uint64(0xC2B2AE3D27D4EB4F)  # q-mix multiplier (odd => bijective)
 CHD_MAX_LOAD = 0.85  # keys / (2 * 2^lr); power-of-two snap => load > 0.42
@@ -186,52 +200,226 @@ def _host_planes_chd(row_of, col_of, hashes, values, lr: int, disp):
     return disp.reshape(-1, 4), rows
 
 
+def bucket_ids(h, lb: int):
+    """The fused layout's two candidate bucket ids of uint64 hashes."""
+    shift = np.uint64(64 - lb)
+    return (h >> shift).astype(np.int64), ((h * GOLDEN) >> shift).astype(np.int64)
+
+
+def partial_tags(h, lb: int):
+    """Bits [lb, lb+32) of the probe value: the tag for a bucket derived
+    from h's top lb bits."""
+    return ((h << np.uint64(lb)) >> np.uint64(32)).astype(np.uint32)
+
 
 class HashBuildError(RuntimeError):
-    """CHD placement (or the exactness self-check) failed at every attempted
-    table size."""
+    """Placement (or the exactness self-check) failed at every attempted
+    table size. Callers fall back: `build_hash_table(layout="auto")` to the
+    fused layout, `build_device_db` to the binary-search planes."""
 
 
-def _self_check(host_planes, hashes, values, lr: int) -> int:
+def _host_place(hashes: np.ndarray, lb: int, max_rounds: int = 400, seed: int = 0):
+    """Two-choice cuckoo placement with eviction, vectorized over the whole
+    unplaced ("active") set per round.
+
+    Each round, every active key picks a wanted slot in its target bucket
+    (first empty slot, else a coin-chosen victim), claims it with a
+    minimum-index scatter (np.minimum.at), and winners displace any victim
+    into the active set with the OTHER of its two buckets as the new target.
+    The active set shrinks geometrically; keys whose first-choice tag is 0
+    are pinned to bucket b1 (a superset of the empty-row shadow pattern the
+    fused layout needs pinned -- see module docstring).
+
+    Returns int32 assigned-bucket-per-key, or None if placement failed
+    (caller grows the table)."""
+    n = len(hashes)
+    nb = 1 << lb
+    shift = np.uint64(64 - lb)
+    b1 = (hashes >> shift).astype(np.int64)
+    b2 = ((hashes * GOLDEN) >> shift).astype(np.int64)
+    pinned = ((hashes << np.uint64(lb)) >> np.uint64(32)).astype(np.uint32) == 0
+    b2 = np.where(pinned, b1, b2)
+    # slot indices fit int32 through lb=29 (2*nb <= 2^30): half the memory
+    # traffic of the per-round gathers/wheres at 10^8-key scale
+    idx_t = np.int64 if (lb >= 30 or n >= (1 << 31) - 2) else np.int32
+    b1 = b1.astype(idx_t, copy=False)
+    b2 = b2.astype(idx_t, copy=False)
+
+    slots = np.full(nb * BUCKET_SLOTS, -1, dtype=np.int32)  # occupant key index
+    active = np.arange(n, dtype=np.int32)
+    target = b1.copy()  # bucket each active key tries this round
+    claim = np.full(nb * BUCKET_SLOTS, n, dtype=np.int32)  # reset per round below
+    for rnd in range(max_rounds):
+        if rnd == 0:
+            # every slot is empty: want = first slot of the first choice
+            t = b1
+            want = t * 2
+        else:
+            t = target[active]
+            s0 = slots[t * 2]
+            s1 = slots[t * 2 + 1]
+            want = np.where(s0 < 0, t * 2, t * 2 + 1)
+            # the eviction coin (a u64 shift over the hashes) is only needed
+            # where BOTH slots are full -- a small subset after round 1
+            both = (s0 >= 0) & (s1 >= 0)
+            if both.any():
+                sub = np.flatnonzero(both)
+                coin = (
+                    (hashes[active[sub]] >> np.uint64((rnd + seed) % 61))
+                    & np.uint64(1)
+                ).astype(idx_t)
+                want[sub] = t[sub] * 2 + coin
+        # claim-verify: lowest key index wins a contested slot
+        np.minimum.at(claim, want, active)
+        win = claim[want] == active
+        claim[want] = n  # restore only the touched entries for the next round
+        won_slots = want[win]
+        victims = slots[won_slots]
+        slots[won_slots] = active[win]
+        evicted = victims[victims >= 0]
+        if len(evicted):
+            # a victim's next target is its OTHER bucket (random-walk cuckoo)
+            from_bucket = won_slots[victims >= 0] // 2
+            other = np.where(b1[evicted] == from_bucket, b2[evicted], b1[evicted])
+            target[evicted] = other
+        active = np.concatenate([active[~win], evicted])
+        if len(active) == 0:
+            assign = np.empty(n, dtype=np.int32)
+            occ = slots >= 0
+            assign[slots[occ]] = (np.nonzero(occ)[0] // 2).astype(np.int32)
+            return assign
+        # losers retry the same bucket next round with a fresh coin; if both
+        # of a key's buckets stay full, eviction chains open space over a few
+        # rounds -- stagnation past max_rounds means the load is too high
+    return None
+
+
+def _slot_layout(assign, hashes, lb: int):
+    """Per-key flat slot index (occupants packed ahead of empty slots within
+    each bucket), sorted-order views, and the probe value hc of the choice
+    that placed each key."""
+    order = np.argsort(assign, kind="stable")
+    sa = assign[order]
+    # rank within each equal-assign group
+    first = np.concatenate([[True], sa[1:] != sa[:-1]])
+    start = np.maximum.accumulate(np.where(first, np.arange(len(sa)), -1))
+    rank = np.arange(len(sa)) - start
+    rows = sa.astype(np.int64)
+    cols = np.minimum(rank, BUCKET_SLOTS - 1).astype(np.int64)
+    flat_idx = rows * BUCKET_SLOTS + cols
+
+    h_s = hashes[order]
+    b1_s = (h_s >> np.uint64(64 - lb)).astype(np.int64)
+    second = rows != b1_s
+    hc = np.where(second, h_s * GOLDEN, h_s)
+    return flat_idx, h_s, hc, second, order
+
+
+def _host_planes_fused(assign, hashes, values, lb: int):
+    """Host numpy construction of the fused plane (see module docstring)."""
+    nb = 1 << lb
+    v_bits = lb - 1
+    flat_idx, _h_s, hc, second, order = _slot_layout(assign, hashes, lb)
+    v_s = values[order].astype(np.uint32)
+    if len(v_s) and int(v_s.max()) >> v_bits:
+        raise ValueError(
+            f"value {int(v_s.max())} does not fit the {v_bits}-bit taxon field"
+        )
+    tag_s = ((hc << np.uint64(lb)) >> np.uint64(32)).astype(np.uint32)
+    spare = (hc & np.uint64((1 << (32 - lb)) - 1)).astype(np.uint32)
+    word = (
+        (second.astype(np.uint32) << np.uint32(31))
+        | (spare << np.uint32(v_bits))
+        | v_s
+    )
+    fused = np.zeros((nb * BUCKET_SLOTS, 2), np.uint32)
+    fused[flat_idx, 0] = tag_s
+    fused[flat_idx, 1] = word
+    return fused.reshape(nb, BUCKET_SLOTS * 2)
+
+
+def _self_check(host_planes, hashes, values, lb: int) -> int:
     """Probe every key through a numpy mirror of the device probe; returns
-    the number of mismatching keys."""
+    the number of mismatching keys. `host_planes` = (disp4, rows) of the CHD
+    layout (lb is its row bits lr) or (fused,)."""
     n_bad = 0
-    disp4, rows_plane = host_planes
-    lg = int(np.log2(disp4.shape[0] * 4))
+    shift = np.uint64(64 - lb)
     for s in range(0, len(hashes), _SELF_CHECK_CHUNK):
         h = hashes[s : s + _SELF_CHECK_CHUNK]
         want = values[s : s + _SELF_CHECK_CHUNK]
-        p, r, g, q = _chd_split(h, lr, lg)
-        d = disp4.reshape(-1)[g]
-        d0 = d & np.uint32(0xFFFF)
-        d1 = d >> np.uint32(16)
-        row = (p + d0 + d1 * q) & np.uint32((1 << lr) - 1)
-        rw = rows_plane[row.astype(np.int64)]
-        v_mask = np.uint32((1 << lr) - 1)
-        e_hi = (r >> np.uint64(32 - lr)).astype(np.uint32)
-        e_lo = (
-            (r & np.uint64((1 << (32 - lr)) - 1)) << np.uint64(lr)
-        ).astype(np.uint32)
-        m0 = (rw[:, 0] == e_hi) & ((rw[:, 1] & ~v_mask) == e_lo)
-        m1 = (rw[:, 2] == e_hi) & ((rw[:, 3] & ~v_mask) == e_lo)
-        got = np.maximum(
-            np.where(m0, rw[:, 1] & v_mask, 0),
-            np.where(m1, rw[:, 3] & v_mask, 0),
-        )
+        if len(host_planes) == 2:
+            disp4, rows_plane = host_planes
+            lr = lb
+            lg = int(np.log2(disp4.shape[0] * 4))
+            p, r, g, q = _chd_split(h, lr, lg)
+            d = disp4.reshape(-1)[g]
+            d0 = d & np.uint32(0xFFFF)
+            d1 = d >> np.uint32(16)
+            row = (p + d0 + d1 * q) & np.uint32((1 << lr) - 1)
+            rw = rows_plane[row.astype(np.int64)]
+            v_mask = np.uint32((1 << lr) - 1)
+            e_hi = (r >> np.uint64(32 - lr)).astype(np.uint32)
+            e_lo = (
+                (r & np.uint64((1 << (32 - lr)) - 1)) << np.uint64(lr)
+            ).astype(np.uint32)
+            m0 = (rw[:, 0] == e_hi) & ((rw[:, 1] & ~v_mask) == e_lo)
+            m1 = (rw[:, 2] == e_hi) & ((rw[:, 3] & ~v_mask) == e_lo)
+            got = np.maximum(
+                np.where(m0, rw[:, 1] & v_mask, 0),
+                np.where(m1, rw[:, 3] & v_mask, 0),
+            )
+        else:
+            fused = host_planes[0]
+            v_bits = lb - 1
+            tax_mask = np.uint32((1 << v_bits) - 1)
+            hi_mask = ~tax_mask
+            spare_mask = np.uint64((1 << (32 - lb)) - 1)
+            got = np.zeros(len(h), np.uint32)
+            found = np.zeros(len(h), bool)
+            for hc, choice in ((h, 0), (h * GOLDEN, 1)):
+                r = (hc >> shift).astype(np.int64)
+                tag = ((hc << np.uint64(lb)) >> np.uint64(32)).astype(np.uint32)
+                hi = (hc & spare_mask).astype(np.uint32) << np.uint32(v_bits)
+                if choice:
+                    hi |= np.uint32(1 << 31)
+                rows = fused[r]  # [n, 4]
+                for slot in (0, 1):
+                    m = (rows[:, 2 * slot] == tag) & (
+                        (rows[:, 2 * slot + 1] & hi_mask) == hi
+                    )
+                    got = np.where(m & ~found, rows[:, 2 * slot + 1] & tax_mask, got)
+                    found |= m
         n_bad += int(np.count_nonzero(got != want))
     return n_bad
 
 
+def min_lb_for(n_keys: int, max_value: int, load_factor: float = 0.6) -> int:
+    """Smallest bucket-bits satisfying both the load factor and the fused
+    layout's taxon-field width (max_value < 2^(lb-1))."""
+    lb = max(4, int(np.ceil(np.log2(max(n_keys, 2) / (BUCKET_SLOTS * load_factor)))))
+    return max(lb, int(max_value).bit_length() + 1)
+
+
 def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = True,
-                     timings: dict | None = None, force_lr: int | None = None):
-    """Build the CHD planes for `keys` (uint64 k-mers) -> `values` (pool or
-    dense ids). Returns ((disp4 uint32 [2^(lr-4), 4], rows uint32 [2^lr, 4]),
-    lr). Placement is retried with three seeds per width, then the table
-    grows, up to 2^30 rows; every success is self-checked key by key.
-    `force_lr` pins the width (the out-of-core chunk tables share one): only
-    the seed retries apply, and a stall raises HashBuildError. `timings`, if
-    given, receives the seconds of each step ("hash", "place", "planes",
-    "check"), summed over retries."""
+                     timings: dict | None = None, force_lr: int | None = None,
+                     layout: str = "auto"):
+    """Build the table planes for `keys` (uint64 k-mers) -> `values` (pool
+    or dense ids), after the JAX package's build_hash_table. Returns
+    (host_planes, lb): ((disp4 uint32 [2^(lr-2), 4], rows uint32 [2^lr, 4]),
+    lr) for the CHD layout, ((fused uint32 [2^lb, 4],), lb) for the fused
+    one.
+
+    `layout`: "auto" tries CHD and falls back to the fused layout when CHD
+    placement fails at every width; "chd" and "fused" pin the layout (the
+    out-of-core chunk tables pin "chd"). CHD placement is retried with
+    three seeds per width, then the table grows, up to 2^30 rows; fused
+    placement likewise from `min_lb_for` (load 0.6) up to 2^30 buckets.
+    `force_lr` pins the width of either layout: only the seed retries apply.
+    Every success is self-checked key by key; every failure raises
+    HashBuildError. `timings`, if given, receives the seconds of each step
+    ("hash", "place", "planes", "check"), summed over retries and layouts."""
+    if layout not in ("auto", "chd", "fused"):
+        raise ValueError(f"layout must be 'auto', 'chd' or 'fused', got {layout!r}")
     t = timings if timings is not None else {}
     t.update(hash=0.0, place=0.0, planes=0.0, check=0.0)
     t0 = time.perf_counter()
@@ -246,28 +434,55 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
     hashes = murmur3_finalizer(np.ascontiguousarray(keys, dtype=np.uint64))
     values = np.asarray(values).astype(np.uint32)
     vmax = int(values.max()) if n else 0
-    lr = chd_min_lr(n, vmax) if force_lr is None else force_lr
-    if force_lr is not None and vmax >> lr:
-        raise ValueError(f"force_lr={lr} cannot hold value {vmax} in {lr} bits (CHD)")
-    lr_max = 30 if force_lr is None else min(force_lr, 30)
     lap("hash")
-    while lr <= lr_max:
-        for seed in range(3):
-            out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
-            lap("place")
-            if out is None:
-                continue
-            row_of, col_of, disp = out
-            host = _host_planes_chd(row_of, col_of, hashes, values, lr, disp)
-            lap("planes")
-            ok = not self_check or n == 0 or _self_check(host, hashes, values, lr) == 0
-            lap("check")
-            if ok:
-                return host, lr
-        lr += 1
+
+    def checked(host, width):
+        lap("planes")
+        ok = not self_check or n == 0 or _self_check(host, hashes, values, width) == 0
+        lap("check")
+        return ok
+
+    if layout in ("auto", "chd"):
+        lr = chd_min_lr(n, vmax) if force_lr is None else force_lr
+        if force_lr is not None and vmax >> lr:
+            raise ValueError(f"force_lr={lr} cannot hold value {vmax} in {lr} bits (CHD)")
+        lr_max = 30 if force_lr is None else min(force_lr, 30)
+        while lr <= lr_max:
+            for seed in range(3):
+                out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
+                lap("place")
+                if out is None:
+                    continue
+                row_of, col_of, disp = out
+                host = _host_planes_chd(row_of, col_of, hashes, values, lr, disp)
+                if checked(host, lr):
+                    return host, lr
+            lr += 1
+        if layout == "chd":
+            raise HashBuildError(
+                f"CHD placement failed for {n} keys up to 2^{lr_max} rows"
+                + (f" (force_lr={force_lr})" if force_lr is not None else "")
+            )
+        # layout == "auto": fall through to the fused two-choice build
     if force_lr is not None:
-        raise HashBuildError(f"CHD placement failed for {n} keys at the forced width 2^{force_lr}")
+        lb = lb_max = force_lr
+        if vmax >> (lb - 1):
+            raise ValueError(f"force_lr={lb} cannot hold value {vmax} in {lb - 1} bits")
+    else:
+        lb, lb_max = min_lb_for(n, vmax), 30
+    if lb > 30:
+        raise HashBuildError(f"hash table of 2^{lb} buckets is not supported ({n} keys)")
+    while lb <= lb_max:
+        for seed in range(3):  # fresh eviction-coin walks before growing
+            assign = _host_place(hashes, lb, seed=seed * 17)
+            lap("place")
+            if assign is None:
+                continue
+            host = (_host_planes_fused(assign, hashes, values, lb),)
+            if checked(host, lb):
+                return host, lb
+        lb += 1
     raise HashBuildError(
-        f"CHD placement failed for {n} keys up to 2^30 rows; the fused "
-        "two-choice fallback layout is not ported yet (a later slice)"
+        f"hash table placement failed for {n} keys up to 2^{lb - 1} buckets"
+        + (f" (force_lr={force_lr})" if force_lr is not None else "")
     )

@@ -1,10 +1,12 @@
-"""Plain PyTorch k-mer window ops: packing, canonicalization, window OR.
+"""Plain PyTorch k-mer window ops: packing, canonicalization, window OR and
+minimum, minimizers.
 
 Counterparts of krakenuniq_tpu.kmer.ops (reference semantics cited there) on
 int64 planes that hold the uint64 k-mer bits (ints.py). A (B, LB) base-code
 tensor yields all (B, LB-k+1) k-mers at once. On the card the classify step
-runs these fused in the `kmer_front` kernel (classify/device_step.py); these
-plain versions are its reference and its CPU path.
+runs these fused in the `kmer_front` kernel, and the minimizer bins of the
+binary-search lookup in the `kmer_bins` kernel (classify/device_step.py);
+these plain versions are their reference and their CPU path.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..ints import lsr
+from ..utils.bits import INDEX2_XOR_MASK
 
 _M2 = 0x3333333333333333
 _M4 = 0x0F0F0F0F0F0F0F0F
@@ -63,3 +66,26 @@ def window_any(flags: torch.Tensor, n: int) -> torch.Tensor:
         x = x[..., : x.shape[-1] - step] | x[..., step:]
         covered += step
     return x
+
+
+def window_min(vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Sliding minimum over length-n windows: (..., L) -> (..., L-n+1)."""
+    x = vals
+    covered = 1
+    while covered < n:
+        step = min(covered, n - covered)
+        x = torch.minimum(x[..., : x.shape[-1] - step], x[..., step:])
+        covered += step
+    return x
+
+
+def minimizers(codes: torch.Tensor, k: int, nt: int) -> torch.Tensor:
+    """Scrambled minimizer (bin key) of every k-mer window of a (B, LB)
+    code batch, as int64 (below 4^nt): bin_key(canonical k-mer) of
+    krakendb.cpp:200-215. The canonical nt-mers of a window are the same
+    in both directions, so the bin key is the sliding minimum of the
+    per-position (xor_mask ^ canonical nt-mer) values."""
+    mask = (1 << (2 * nt)) - 1
+    xm = int(INDEX2_XOR_MASK) & mask
+    scrambled = xm ^ canonical_representation(pack_windows(codes, nt), nt)
+    return window_min(scrambled, k - nt + 1)  # (..., L-k+1)

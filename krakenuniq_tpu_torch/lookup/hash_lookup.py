@@ -1,18 +1,29 @@
-"""Device-side CHD hash-table k-mer lookup.
+"""Device-side hash-table k-mer lookup: the CHD layout and the fused
+two-choice layout of db/hash_table.py.
 
-The table (db/hash_table.py) is a displacement plane `disp4` int32
-[2^(lg-2), 4] and a row plane `rows` int32 [2^lr, 4], both holding uint32
-bit patterns. A query is the murmur hash of its canonical k-mer (int64
-holding uint64 bits); the probe reads one displacement word, then one 16-byte
-row, and compares both slots against the query's remainder -- an exact
-lookup (see krakenuniq_tpu/lookup/hash_lookup.py and the kernel's note in
+CHD: a displacement plane `disp4` int32 [2^(lg-2), 4] and a row plane
+`rows` int32 [2^lr, 4], both holding uint32 bit patterns. A query is the
+murmur hash of its canonical k-mer (int64 holding uint64 bits); the probe
+reads one displacement word, then one 16-byte row, and compares both slots
+against the query's remainder -- an exact lookup (see
+krakenuniq_tpu/lookup/hash_lookup.py and the kernel's note in
 csrc/chd_probe.cu).
 
-`hash_lookup_kmers` launches the `chd_probe` CUDA kernel on CUDA tensors and
-runs `probe_chd_plain`, the plain PyTorch version, on CPU tensors.
-`hash_lookup_acc` is the out-of-core probe: it folds one chunk table's hits
-into an accumulated word plane in place (the `chd_probe_acc` entry of the
-same library).
+Fused (the build's fallback layout): one plane int32 [2^lb, 4] of [tag0,
+val0, tag1, val1] rows; the probe reads the rows of both candidate buckets
+and accepts a slot whose tag and value-word high bits (choice flag and
+spare hash bits) both match -- also exact.
+
+The layout is told by the plane structure, as the JAX package's `_probe`
+tells it: one plane = fused, two planes with `shape[1] == 4` = CHD. The
+raw two-level (UID) layout is ROADMAP item 5 and raises.
+
+`hash_lookup_kmers` launches the `chd_probe` or `fused_probe` CUDA kernel
+on CUDA tensors and runs `probe_chd_plain` or `probe_fused_plain`, the plain
+PyTorch versions, on CPU tensors. `hash_lookup_acc` is the out-of-core
+probe of a CHD chunk table: it folds one chunk table's hits into an
+accumulated word plane in place (the `chd_probe_acc` entry of the same
+library).
 """
 
 from __future__ import annotations
@@ -28,18 +39,57 @@ _C2 = s64(int(C2))
 
 
 def _chd_widths(disp4: torch.Tensor, rows: torch.Tensor) -> tuple[int, int]:
-    """(lr, lg) from the plane shapes; raises on anything but the CHD layout."""
+    """(lr, lg) of a CHD table from its plane shapes."""
     if disp4.dim() != 2 or disp4.shape[1] != 4 or rows.dim() != 2 or rows.shape[1] != 4:
-        raise NotImplementedError(
-            "only the CHD (disp4, rows) table layout is ported; the fused and "
-            "two-level layouts belong to a later slice of the port"
-        )
+        raise ValueError("chd_probe: need disp4 [2^(lg-2), 4] and rows [2^lr, 4] planes")
     n_disp, n_rows = int(disp4.shape[0]) * 4, int(rows.shape[0])
     if n_disp & (n_disp - 1) or n_rows & (n_rows - 1) or n_rows == 0:
         raise ValueError(
             f"chd_probe: {n_disp} displacement words and {n_rows} rows must be powers of two"
         )
     return n_rows.bit_length() - 1, n_disp.bit_length() - 1
+
+
+def _fused_width(fused: torch.Tensor) -> int:
+    """lb (bucket bits) of a fused table from its plane shape."""
+    nb = int(fused.shape[0]) if fused.dim() == 2 else 0
+    if fused.dim() != 2 or fused.shape[1] != 4 or nb & (nb - 1) or not 16 <= nb <= 1 << 30:
+        raise ValueError("fused_probe: need a [2^lb, 4] plane with 4 <= lb <= 30")
+    return nb.bit_length() - 1
+
+
+def table_layout(planes) -> str:
+    """"fused" for one plane, "chd" for (disp4, rows); the raw two-level
+    (ptags, confirm) layout of UID databases raises."""
+    if len(planes) == 1:
+        return "fused"
+    if len(planes) == 2 and planes[0].dim() == 2 and planes[0].shape[1] == 4:
+        return "chd"
+    raise NotImplementedError(
+        "the raw two-level (UID) table layout is a later slice of the port (ROADMAP item 5)"
+    )
+
+
+def probe_fused_plain(fused, h, lb: int):
+    """Plain PyTorch fused two-choice probe
+    (krakenuniq_tpu.lookup.hash_lookup._probe_fused): returns (found bool
+    [n], value int64 [n]) for int64 query hashes `h`."""
+    v_bits = lb - 1
+    spare_mask = (1 << (32 - lb)) - 1
+    hg = h * _GOLDEN
+    tax_mask = (1 << v_bits) - 1
+    hi_mask = 0xFFFFFFFF & ~tax_mask
+    found = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    val = torch.zeros_like(h)
+    for hc, choice in ((h, 0), (hg, 1)):
+        row = i32_to_u32(fused[lsr(hc, 64 - lb)])  # [n, 4]
+        tag = lsr(hc << lb, 32)
+        hi = ((hc & spare_mask) << v_bits) | (choice << 31)
+        m = (row[:, 0::2] == tag[:, None]) & ((row[:, 1::2] & hi_mask) == hi[:, None])
+        # exactness means at most one slot can match; max-combine is a select
+        val = torch.maximum(val, torch.where(m, row[:, 1::2] & tax_mask, 0).max(dim=1).values)
+        found |= m.any(dim=1)
+    return found, val
 
 
 def probe_chd_plain(disp4, rows, h, lr: int):
@@ -71,39 +121,58 @@ def probe_chd_plain(disp4, rows, h, lr: int):
 def hash_lookup_plain(planes, hashes, valid):
     """Plain version of `hash_lookup_kmers`: value word per lane (int32), 0
     where missing or invalid."""
-    disp4, rows = planes
-    lr, _ = _chd_widths(disp4, rows)
-    ok, val = probe_chd_plain(disp4, rows, hashes.reshape(-1), lr)
+    if table_layout(planes) == "fused":
+        ok, val = probe_fused_plain(planes[0], hashes.reshape(-1), _fused_width(planes[0]))
+    else:
+        disp4, rows = planes
+        ok, val = probe_chd_plain(disp4, rows, hashes.reshape(-1), _chd_widths(disp4, rows)[0])
     ok = ok & valid.reshape(-1)
     return torch.where(ok, val, torch.zeros_like(val)).to(torch.int32).reshape(hashes.shape)
 
 
 def _probe_args(name: str, planes, hashes: torch.Tensor, valid: torch.Tensor, **more):
-    """Check a probe's operands for the kernel; returns (device, lr, lg)."""
-    disp4, rows = planes
-    lr, lg = _chd_widths(disp4, rows)
-    dev = _kernels.check_cuda(name, disp4=disp4, rows=rows, hashes=hashes, valid=valid, **more)
+    """Check a probe's operands for the kernel; returns (device, width):
+    lb of a fused table, (lr, lg) of a CHD one."""
+    if table_layout(planes) == "fused":
+        width = _fused_width(planes[0])
+        dev = _kernels.check_cuda(name, fused=planes[0], hashes=hashes, valid=valid, **more)
+    else:
+        width = _chd_widths(*planes)
+        dev = _kernels.check_cuda(name, disp4=planes[0], rows=planes[1], hashes=hashes, valid=valid, **more)
+        if not 4 <= width[0] <= 30:
+            raise ValueError(f"{name}: rows must be a [2^lr, 4] plane, 4 <= lr <= 30")
     if hashes.dtype != torch.int64 or valid.dtype != torch.bool:
         raise TypeError(f"{name}: hashes must be int64 and valid bool")
-    if disp4.dtype != torch.int32 or rows.dtype != torch.int32:
+    if any(p.dtype != torch.int32 for p in planes):
         raise TypeError(f"{name}: table planes must be int32")
     if hashes.shape != valid.shape:
         raise ValueError(f"{name}: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
-    if not 4 <= lr <= 30 or rows.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
-    return dev, lr, lg
+    if planes[-1].data_ptr() % 16:
+        raise ValueError(f"{name}: the row plane must be 16-byte aligned")
+    return dev, width
 
 
 def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The stored value per lane (int32; pool ids fit 30 bits), 0 where
-    missing or invalid. `planes` = (disp4, rows); `hashes` int64 and `valid`
-    bool of one shape. CUDA tensors launch the `chd_probe` kernel."""
+    missing or invalid. `planes` = (disp4, rows) or (fused,); `hashes`
+    int64 and `valid` bool of one shape. CUDA tensors launch the
+    `chd_probe` or the `fused_probe` kernel."""
     if hashes.device.type == "cpu":
         return hash_lookup_plain(planes, hashes, valid)
-    dev, lr, lg = _probe_args("chd_probe", planes, hashes, valid)
-    out = torch.empty(hashes.shape, dtype=torch.int32, device=dev)
-    _kernels.launch("chd_probe", dev, *planes, hashes, valid, out, hashes.numel(), lr, lg)
+    out = torch.empty(hashes.shape, dtype=torch.int32, device=hashes.device)
+    if table_layout(planes) == "fused":
+        dev, lb = _probe_args("fused_probe", planes, hashes, valid)
+        _kernels.launch("fused_probe", dev, planes[0], hashes, valid, out, hashes.numel(), lb)
+    else:
+        dev, (lr, lg) = _probe_args("chd_probe", planes, hashes, valid)
+        _kernels.launch("chd_probe", dev, *planes, hashes, valid, out, hashes.numel(), lr, lg)
     return out
+
+
+def probe_values(planes, hashes: torch.Tensor) -> torch.Tensor:
+    """The stored value word per hash (int32), 0 on a miss: the raw probe of
+    either layout, every lane valid (the JAX package's probe_values)."""
+    return hash_lookup_kmers(planes, hashes, torch.ones(hashes.shape, dtype=torch.bool, device=hashes.device))
 
 
 def hash_lookup_acc_plain(planes, hashes, valid, acc):
@@ -126,7 +195,9 @@ def hash_lookup_acc(planes, hashes: torch.Tensor, valid: torch.Tensor, acc: torc
     a lane already set or not valid."""
     if hashes.device.type == "cpu":
         return hash_lookup_acc_plain(planes, hashes, valid, acc)
-    dev, lr, lg = _probe_args("chd_probe_acc", planes, hashes, valid, acc=acc)
+    if table_layout(planes) != "chd":
+        raise ValueError("chd_probe_acc: chunk tables are CHD (disp4, rows) planes")
+    dev, (lr, lg) = _probe_args("chd_probe_acc", planes, hashes, valid, acc=acc)
     if acc.dtype != torch.int32 or acc.shape != hashes.shape:
         raise ValueError("chd_probe_acc: acc must be int32 of the hashes' shape")
     _kernels.launch("chd_probe_acc", dev, *planes, hashes, valid, acc, hashes.numel(), lr, lg)

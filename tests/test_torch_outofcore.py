@@ -6,7 +6,8 @@ chunk table answers exactly its own keys, the accumulating probe and the
 package's own chunk tables, and the out-of-core Classifier and CLI write
 what the resident run and the reference binaries' goldens hold, on both
 routes, with and without device counters, double- and single-buffered,
-over hierarchical databases, and without writing next to the database.
+over hierarchical databases, and writing nothing next to the database but
+the port's chunk cache.
 Every run forces a budget far below the table so the database streams in
 at least three chunks."""
 
@@ -431,12 +432,22 @@ def test_cli_bad_preload_size(capsys):
     assert "bad --preload-size value '12Q'" in capsys.readouterr().err
 
 
-def test_ooc_writes_nothing_next_to_the_database(tmp_path, budget):
-    """The port keeps no chunk cache: the database directory's files are the
-    same after an out-of-core run and its report."""
+def test_ooc_writes_only_its_chunk_cache(tmp_path, budget):
+    """The out-of-core run adds exactly the port's chunk cache
+    (database.kdb.htc_torch) beside the database and changes no other file;
+    a second run reads it ("cache": "hit", no build) and leaves its bytes as
+    they were."""
     for name in ("database.kdb", "database.idx", "taxDB", "database.kdb.counts"):
         shutil.copy(os.path.join(DATA, name), tmp_path / name)
-    before = sorted(os.listdir(tmp_path))
+    before = {n: (tmp_path / n).read_bytes() for n in os.listdir(tmp_path)}
     out, rep, c = _run([str(tmp_path)], preload_size=budget)
     assert _chunks_used(c) >= 3 and out == _golden("kraken.out") and rep == _golden("report.tsv")
-    assert sorted(os.listdir(tmp_path)) == before
+    assert c._ooc[0].timings["cache"] == "miss"
+    assert sorted(os.listdir(tmp_path)) == sorted([*before, "database.kdb.htc_torch"])
+    assert all((tmp_path / n).read_bytes() == b for n, b in before.items())
+    cache = (tmp_path / "database.kdb.htc_torch").read_bytes()
+    out, rep, c2 = _run([str(tmp_path)], preload_size=budget)
+    assert out == _golden("kraken.out") and rep == _golden("report.tsv")
+    assert c2._ooc[0].timings["cache"] == "hit" and "build" not in c2._ooc[0].timings
+    assert (tmp_path / "database.kdb.htc_torch").read_bytes() == cache
+    assert sorted(os.listdir(tmp_path)) == sorted([*before, "database.kdb.htc_torch"])
