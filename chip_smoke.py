@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py                       # the whole check
     python3 chip_smoke.py --kernels-only DIR    # phases 1-2 on DIR's package
+    python3 chip_smoke.py --ooc-only DIR        # phase 8's chunk passes, DIR's package
 
 `--kernels-only` imports krakenuniq_tpu_torch from DIR (a checkout, or an
 unpacked `git archive` of one), builds its kernels there and runs phases 1
 and 2 only: run on two checkouts in turns (A, B, B, A) in one call, it
 times both packages' kernels on the same inputs and the same card.
+`--ooc-only` does the same for the out-of-core chunk passes: phase 1, then
+phase 4's database and reads (built on the first run of a call, reused by
+the next) streamed through the card by DIR's package at phase 8's budget,
+its passes measured as phase 8 measures them (one JSON line).
 
 Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
@@ -50,7 +55,7 @@ Phases, each raising on failure:
      lookups' kernels: fused_probe on random fused planes of the phase-4
      table's size (lb = 27) and at lb = 30, half the queries planted,
      kmer_bins at the unit and span shapes on both feeds at k = 21 / nt = 7
-     and k = 31 / nt = 12 and 15, bsearch_lookup with out-of-range bins,
+     and k = 31 / nt = 12, 15, 31 and 20, bsearch_lookup with out-of-range bins,
      invalid lanes, empty bins and bin_start 0 and 12,345;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
@@ -114,16 +119,21 @@ Phases, each raising on failure:
      4 chunk tables, two of which fit the budget, streamed through the card
      on the copy stream. The default options on phase 4's reads,
      byte-equal to phase 4, with chd_probe_acc launched spans x chunks
-     times, kmer_front spans x (chunks + 1), chd_probe never, scores and
-     pack_runs once a span; Classifier.with_shared_db(...,
+     times, kmer_front once a span (the chunk passes compute their own
+     k-mer front; only the finish step launches it), chd_probe never,
+     scores and pack_runs once a span; Classifier.with_shared_db(...,
      device_counters=True, ooc_group_bytes=256 MiB) (several groups),
      byte-equal to phase 4; single-buffered on the first 200,000 reads,
      byte-equal to phase 4's lines for them; the run's spans probed as one
      group double- and single-buffered in turns (the share of the copies
-     hidden behind the probes); chd_probe_acc against its plain version on
-     the chunk holding most of a span's hits, with a seeded half of the
-     span's merged words already set, and one
-     `ooc` line (budget, chunks, load split, reads/s, host s a span by
+     hidden behind the probes, the first and the later chunk passes' ms),
+     chd_probe_acc's card time summed over the group's whole chunk
+     sequence, the lanes each chunk pass probes of the first span (their
+     sum at most its searched lanes); chd_probe_acc against its plain
+     version on the chunk holding most of a span's hits, with a seeded half
+     of the span's merged words already set, beside floor_ms (row_gather
+     over as many random rows of that chunk's row plane as it probes), and
+     one `ooc` line (budget, chunks, load split, reads/s, host s a span by
      stage, copy and probe ms a chunk, the hidden share, peak memory).
 Phases run in the order 1-5, 5b, 7, 9, 8, 6. Progress goes to stderr; stdout
 carries one JSON line per kernel check, the fallback goldens' line, the
@@ -162,6 +172,12 @@ N_READS = 1_000_000
 PRELOAD_SIZE = 512 << 20
 OOC_GROUP_BYTES = 256 << 20
 N_READS_SINGLE = 200_000
+# Long rows for phase 2: [64, LONG_LB], rows cut into tiles. (k, nt) = (31,
+# 12) and (31, 20) take the 4- and 8-byte values; at (21, 20) and (17, 16),
+# w = 2, a tile's values pass 48 KB and the plan halves the tile.
+LONG_LB = 8192
+LONG_LENGTHS = (8192, 8100, 6000, 4200, 150, 10)
+LONG_KNT = ((31, 12), (31, 20), (21, 20), (17, 16))
 
 T0 = time.time()
 
@@ -207,7 +223,7 @@ SYMBOLS = {
     # span_dict clears its bitmap with a memset on the stream
     "span_dict": ("span_dict_", "Memset"),
     "fused_probe": ("fused_probe_kernel",),
-    "kmer_bins": ("kmer_bins_kernel", "kmer_bins_packed_kernel"),
+    "kmer_bins": ("kmer_bins_kernel",),
     "bsearch_lookup": ("bsearch_lookup_kernel",),
 }
 
@@ -495,16 +511,23 @@ def probe_bound(valid) -> dict:
     return bound(13 * n + 20 * nv, 24 * nv)
 
 
-def probe_acc_bound(valid, acc, planes) -> dict:
-    """`chd_probe_acc`: the acc word (4 B) in per lane; for each lane it
-    probes (valid, acc still 0) the hash and flag (8 + 1 B) in and the 4 B
-    word out; of each table plane a 32 B sector per probed lane, but no
-    more than the plane (each input read once: a chunk's displacement
-    plane, and its row plane when it fits the L2, is read whole in fewer
-    bytes than one sector a lane); ~24 operations per probed lane."""
-    n, probed = valid.numel(), float((valid & (acc == 0)).sum())
-    table = sum(min(p.numel() * p.element_size(), 32 * probed) for p in planes)
-    return bound(4 * n + 13 * probed + table, 24 * probed)
+def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes) -> dict:
+    """`chd_probe_acc`, the routed pass: the acc word (4 B) in per lane in
+    its read (`in_read`: the lanes still 0 are found by reading it); the
+    packed code and flag words (3 bits a base) and the length of each row
+    with a lane still 0 in its read (`unset`), and the bin work of its bases
+    (13 operations an nt-mer position and 6 a lane, as bins_bound); per
+    probed lane (`probed`: still 0, free of ambiguous bases, its bin in the
+    chunk's range) of each table plane a 32 B sector, but no more than the
+    plane (each input read once), and ~33 operations (the hash 9, the probe
+    24); the acc word out where it hit (`hits`)."""
+    lb = 16 * codes.shape[1]
+    rows = int(unset.any(dim=1).sum())
+    n_probed = float(probed.sum())
+    table = sum(min(p.numel() * p.element_size(), 32 * n_probed) for p in planes)
+    moved = 4 * float(in_read.sum()) + rows * (lb * 3 // 8 + 4) + table + 4 * float(hits.sum())
+    ops = rows * (13 * (lb - nt + 1) + 6 * (lb - k + 1)) + 33 * n_probed
+    return bound(moved, ops)
 
 
 def fused_bound(valid) -> dict:
@@ -721,6 +744,7 @@ def phase_kernels(k: int):
     from krakenuniq_tpu_torch.classify import device_step
 
     fused_rec = phase_fallback_kernels() if hasattr(device_step, "kmer_bins") else None
+    phase_acc_kernel()
     phase_counter_kernels()
 
     if hasattr(device_step, "span_dict"):
@@ -959,6 +983,61 @@ def phase_probe_kernel():
     torch.cuda.empty_cache()
 
 
+def phase_acc_kernel():
+    """chd_probe_acc against its plain version (probe_chunk_core) on random
+    CHD planes: lr = 20 (16 MB of rows, within the L2) and lr = 24 (268 MB,
+    the rows streamed), at the span shape [4096, 160] with k = 31 and nt =
+    12 and 20, and at long rows (LONG_KNT at [64, LONG_LB], lr = 20). In each
+    case ~1% of the bases ambiguous, half the searched lanes' k-mers planted
+    in the table, a seeded 30% of the words already set, and the bin range
+    the middle half of the searched lanes' bins, so that planted lanes lie
+    inside it and on both sides; the kernel must set some lanes, and no
+    planted lane outside the range."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words, pack_input
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    rand_i32 = lambda *shape: torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device="cuda",
+                                            generator=gen)
+    cases = [(20, 4096, 160, 31, 12), (20, 4096, 160, 31, 20), (24, 4096, 160, 31, 12)]
+    cases += [(20, 64, LONG_LB, k, nt) for k, nt in LONG_KNT]
+    for i, (lr, b, lb, k, nt) in enumerate(cases):
+        planes = (rand_i32(1 << (lr - 4), 4), rand_i32(1 << lr, 4))
+        lengths = (150, 160, 0, k - 1, k, 100) if lb == 160 else LONG_LENGTHS
+        codes, ambig = front_inputs(b, lb, 70 + i, lengths)
+        feed = (*pack_input(codes, ambig), torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda())
+        in_read, searched, bins = span_lanes(feed, k, nt)
+        hashes = kmer_front_words(feed[0], feed[1], k, 12)[0]
+        planted = searched & (torch.rand(searched.shape, device="cuda", generator=gen) < 0.5)
+        plant_hits(planes, hashes[planted], 71 + i)
+        sb = bins[searched].sort().values
+        lo, hi = int(sb[sb.numel() // 4]), int(sb[3 * sb.numel() // 4])
+        inside = (bins >= lo) & (bins < hi)
+        acc0 = torch.where(torch.rand(bins.shape, device="cuda", generator=gen) < 0.3,
+                           rand_i32(*bins.shape) | 1, 0)
+        run = acc_pass(feed, planes, (lo, hi), k, nt)
+        acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
+        got = run(acc_p.copy_(acc0), plain=True)
+        hits = got != acc0
+        away = planted & (acc0 == 0) & ~inside
+        if not hits.any() or not away.any() or got[away].any():
+            raise AssertionError(f"chd_probe_acc random lr={lr} k={k} nt={nt}: {int(hits.sum())} lanes set, "
+                                 f"{int(away.sum())} planted outside [{lo}, {hi}), of them "
+                                 f"{int((got[away] != 0).sum())} set")
+        probed = searched & (acc0 == 0) & inside
+        check_kernel(
+            f"chd_probe_acc random lr={lr} k={k} nt={nt}", (b, lb - k + 1),
+            lambda: (run(acc_k.copy_(acc0)),),
+            lambda: (run(acc_p.copy_(acc0), plain=True),),
+            reps=10, bound=probe_acc_bound(feed[0], k, nt, in_read, in_read & (acc0 == 0), probed, hits, planes),
+            extra={"k": k, "nt": nt, "lr": lr, "bins": [lo, hi], "lanes_probed": int(probed.sum()),
+                   "lanes_set": int(hits.sum()), "lanes_planted_outside": int(away.sum())},
+        )
+        del planes
+    torch.cuda.empty_cache()
+
+
 def plant_fused(fused, h, lb: int, seed: int):
     """Store the first half of `h` in slot 0 of its first-choice bucket and
     the second half in slot 1 of its second-choice bucket (choice bit set),
@@ -987,7 +1066,8 @@ def phase_fallback_kernels(n: int = 8_500_000):
     110,988,000 keys at load 0.6, 2.1 GB) and of the largest width (lb = 30,
     17.2 GB), each with n uniform queries, ~1% invalid, half of them planted;
     kmer_bins at the unit and span shapes on both feeds at k = 21 / nt = 7
-    and k = 31 / nt = 12 and 15; bsearch_lookup on sorted planes of 4^10
+    and k = 31 / nt = 12, 15, 31 (a window of one nt-mer) and 20 (the
+    kernel's 8-byte values), and at long rows (LONG_KNT); bsearch_lookup on sorted planes of 4^10
     bins (a fifth of them empty) with out-of-range bins, invalid lanes and
     bin_start 0 and 12,345 (a shard's planes). Returns fused_probe's record
     at the phase-4 size."""
@@ -1023,13 +1103,26 @@ def phase_fallback_kernels(n: int = 8_500_000):
     for b in (4096, 65536):
         codes, ambig = front_inputs(b, 160, 43)
         words = pack_input(codes, ambig)[0]
-        for k, nt in ((21, 7), (31, 12), (31, 15)):
+        for k, nt in ((21, 7), (31, 12), (31, 15), (31, 31), (31, 20)):
             for feed, run in (("codes", lambda: kmer_bins(codes, k, nt)),
                               ("words", lambda: kmer_bins_words(words, k, nt))):
                 check_kernel(
                     f"kmer_bins {feed} k={k} nt={nt}", (b, 160), run, lambda: kmer_bins_plain(codes, k, nt),
                     reps=10, bound=bins_bound(b, 160, k, nt, feed == "words"), extra={"k": k, "nt": nt},
                 )
+    # rows longer than a block stages (4,096 bases, or 2,048 for nt > 16),
+    # cut into tiles; at w = 2 (k = 21 / nt = 20, k = 17 / nt = 16) a tile's
+    # values pass 48 KB and the plan halves the tile
+    codes, ambig = front_inputs(64, LONG_LB, 53, LONG_LENGTHS)
+    words = pack_input(codes, ambig)[0]
+    for k, nt in LONG_KNT:
+        for feed, run in (("codes", lambda: kmer_bins(codes, k, nt)),
+                          ("words", lambda: kmer_bins_words(words, k, nt))):
+            check_kernel(
+                f"kmer_bins {feed} long rows k={k} nt={nt}", (64, LONG_LB), run,
+                lambda: kmer_bins_plain(codes, k, nt),
+                reps=10, bound=bins_bound(64, LONG_LB, k, nt, feed == "words"), extra={"k": k, "nt": nt},
+            )
 
     rng = np.random.default_rng(47)
     n_bins = 4 ** 10
@@ -1646,6 +1739,15 @@ def write_reads(path, genomes, n_reads, read_len=150, seed=3):
             f.write(f">r{i}_{sid}\n{genomes[sid][s:s + read_len]}\n")
 
 
+def ensure_reads(db_dir: str, genomes) -> str:
+    """Write-or-reuse phase 4's N_READS reads beside the database."""
+    reads_path = os.path.join(db_dir, f"reads_{N_READS}.fa")
+    if not os.path.exists(reads_path):
+        write_reads(reads_path + ".tmp", genomes, N_READS)
+        os.replace(reads_path + ".tmp", reads_path)
+    return reads_path
+
+
 def phase_main(reps: int):
     import torch
 
@@ -1663,11 +1765,8 @@ def phase_main(reps: int):
 
     k, nt = 31, 12
     db_dir, genomes, synth_s = ensure_db_dir(N_SPECIES, GENOME_LEN, k, nt, PAD_NODES, BALLAST)
-    reads_path = os.path.join(db_dir, f"reads_{N_READS}.fa")
     t = time.time()
-    if not os.path.exists(reads_path):
-        write_reads(reads_path + ".tmp", genomes, N_READS)
-        os.replace(reads_path + ".tmp", reads_path)
+    reads_path = ensure_reads(db_dir, genomes)
     reads_s = time.time() - t
 
     # the directory outlives the call that built it: drop the port's table
@@ -2229,32 +2328,209 @@ def head_reads(path: str, n: int) -> str:
 def ooc_group_pass(c, feeds, prefetch: bool) -> dict:
     """One pass of every chunk table for a group of spans (their feeds on
     the card), double- or single-buffered: the copies' and the probes'
-    summed ms, the group's first-to-last ms on the step stream, and the
-    share of the copy time that did not lengthen the group."""
+    summed ms, each chunk pass's ms, the group's first-to-last ms on the
+    step stream, and the share of the copy time that did not lengthen the
+    group."""
     import torch
 
     c._ooc_prefetch = prefetch
     torch.cuda.synchronize()
     before = {kind: len(ms) for kind, ms in c.ooc_timings().items()}
-    c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds], c._cfg_packed)
+    c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds])
     new = {kind: ms[before[kind]:] for kind, ms in c.ooc_timings().items()}
     up, probe, group = sum(new["upload"]), sum(new["probe"]), new["group"][0]
     return {"double_buffered": prefetch, "copies": len(new["upload"]), "upload_ms": up, "probe_ms": probe,
-            "group_ms": group, "hidden_share": 1 - max(group - probe, 0.0) / up if up else None}
+            "probe_ms_by_pass": new["probe"], "group_ms": group,
+            "hidden_share": 1 - max(group - probe, 0.0) / up if up else None}
+
+
+def span_lanes(feed, k: int, nt: int):
+    """(in_read, searched, bins) of a packed feed on the card: the lanes in
+    their read, those of them free of ambiguous bases, and every lane's
+    minimizer bin (nt-mers) (the kmer_front and kmer_bins kernels)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_bins_words, kmer_front_words
+
+    codes, ambig, lengths = feed
+    _, _, kmer_ambig = kmer_front_words(codes, ambig, k, 12)  # the encodings go unused
+    _, bins = kmer_bins_words(codes, k, nt)
+    w = bins.shape[1]
+    in_read = torch.arange(w, device=codes.device)[None, :] < (lengths - (k - 1)).clamp(min=0)[:, None]
+    return in_read, in_read & ~kmer_ambig, bins
+
+
+def acc_pass(feed, planes, bounds, k: int, nt: int):
+    """The pass of a chunk table (`planes` on the card, its bin range
+    `bounds`) on a span's packed feed, as a function of the word plane,
+    updated in place (plain=True: the plain version)."""
+    from krakenuniq_tpu_torch.classify.device_step import probe_chunk_core
+
+    return lambda acc, plain=False: probe_chunk_core(acc, planes, bounds, *feed, k, nt, plain=plain)
+
+
+def check_routing(feed, planes, bounds, k: int, nt: int, acc0, want) -> None:
+    """chd_probe_acc routes by bin on the card: the chunk table `planes`
+    (bin range `bounds`) probed from the word plane acc0 under an empty
+    range and under the range of the same width beside it sets no lane (the
+    table's keys all have their bins in `bounds`, so only a lane the kernel
+    failed to skip could hit), and under the whole bin space sets exactly
+    `want`, the routed pass's result. Raises when `want` sets no lane."""
+    import torch
+
+    if torch.equal(want, acc0):
+        raise AssertionError("chd_probe_acc routing check: the routed pass sets no lane")
+    lo, hi = (int(x) for x in bounds)
+    top = 4 ** nt
+    away = (hi, min(top, 2 * hi - lo)) if hi < top else (0, lo)
+    for rng in ((0, 0), away):
+        got = acc_pass(feed, planes, rng, k, nt)(acc0.clone())
+        if not torch.equal(got, acc0):
+            raise AssertionError(f"chd_probe_acc under bins {rng}, outside the table's {bounds}, set "
+                                 f"{int((got != acc0).sum())} lanes")
+    got = acc_pass(feed, planes, (0, top), k, nt)(acc0.clone())
+    if not torch.equal(got, want):
+        raise AssertionError("chd_probe_acc under the whole bin space differs from the routed pass")
+
+
+def group_acc_bound(c, cdb, feeds) -> dict:
+    """The least card time of one group's chunk passes of cdb: each pass
+    reads the acc word of every lane in its read (4 B); the packed code and
+    flag words (3 bits a base) and the bin work (13 operations an nt-mer
+    position, 6 a lane) of every row with a lane in its read are needed
+    once; a searched lane is probed exactly once, in the pass of the chunk
+    that owns its bin (no other pass can set it first), ~33 operations, and
+    its word is written (4 B) where it hit (the hits of one group pass).
+    Of each chunk's planes a 32 B sector per lane routed to it, but no more
+    than the plane (each input read once). Also returns each chunk's routed
+    lanes over the group, derived from the bins (the kmer_bins kernel), and
+    the random-sector bytes before the cap. Raises unless the chunk ranges
+    route every searched lane to one chunk."""
+    spans = [{"feed": f, "acc": None} for f in feeds]
+    c._ooc_probe_group(spans)
+    in_read = searched = rows = hits = 0
+    routed = [0] * cdb.n_chunks
+    lb = 16 * feeds[0][0].shape[1]
+    for feed, st in zip(feeds, spans):
+        r, sr, bins = span_lanes(feed, c.k, cdb.nt)
+        in_read += int(r.sum())
+        searched += int(sr.sum())
+        rows += int(r.any(dim=1).sum())
+        hits += int((st["acc"] != 0).sum())
+        for ci, (lo, hi) in enumerate(cdb.bounds):
+            routed[ci] += int((sr & (bins >= lo) & (bins < hi)).sum())
+    if sum(routed) != searched:
+        raise AssertionError(f"the chunk ranges {cdb.bounds} route {sum(routed)} of {searched} searched lanes")
+    table = uncapped = 0
+    for ci, n in enumerate(routed):
+        for p in cdb.chunk_planes[ci]:
+            table += min(p.numel() * p.element_size(), 32 * n)
+            uncapped += 32 * n
+    moved = cdb.n_chunks * 4 * in_read + rows * (lb * 3 // 8 + 4) + table + 4 * hits
+    out = bound(moved, rows * (13 * (lb - cdb.nt + 1) + 6 * (lb - c.k + 1)) + 33 * searched)
+    return {**out, "table_bytes": table, "table_bytes_uncapped": uncapped, "lanes_searched": searched,
+            "lanes_routed_by_chunk": routed, "hits": hits}
+
+
+def ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
+    """The chunk passes of an out-of-core Classifier over a group of span
+    feeds: the group double- and single-buffered in turns, the first and
+    the later chunk passes' ms (CUDA events on the step stream, medians over
+    the turns); chd_probe_acc's card time summed over one group's chunk
+    sequence (every launch, profiler), the group's card records by op and
+    its bound (group_acc_bound, with the lanes routed to each chunk, derived
+    from the bins); and chd_probe_acc against its plain version on the
+    chunk that holds most of the first span's hits, with a seeded half of
+    the span's merged words set, beside the random-row floor of the lanes it
+    probes, then its routing checked on the card (check_routing). Hits do
+    not spread evenly over the chunks: a k-mer's bin is its least scrambled
+    nt-mer, so the genomes' k-mers crowd into low bins, while the ballast
+    keys that fill the chunks are spread uniformly over the bins. Returns
+    (summary, the check's record)."""
+    import torch
+
+    cdb = c._ooc[0]
+    n_chunks = cdb.n_chunks
+    turns = [ooc_group_pass(c, feeds, pf) for pf in (True, False, False, True)]
+    c._ooc_prefetch = True
+
+    def group():
+        c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds])
+
+    group_ms, group_by = device_ms(group, "chd_probe_acc", 3, per_call=len(feeds) * n_chunks)
+    group_by_op = device_ms_by_op(group, reps=2)
+
+    first = feeds[0]
+    in_read, searched, bins = span_lanes(first, c.k, cdb.nt)
+    b, w = bins.shape
+    merged = torch.zeros((b, w), dtype=torch.int32, device="cuda")
+    hits_by_chunk = []
+    for ci in range(n_chunks):
+        before = int((merged != 0).sum())
+        acc_pass(first, tuple(p.cuda() for p in cdb.chunk_planes[ci]), cdb.bounds[ci], c.k, cdb.nt)(merged)
+        hits_by_chunk.append(int((merged != 0).sum()) - before)
+    best = max(range(n_chunks), key=hits_by_chunk.__getitem__)
+    keep = torch.rand((b, w), generator=torch.Generator(device="cuda").manual_seed(11), device="cuda") < 0.5
+    acc0 = torch.where(keep, merged, 0)
+    planes = tuple(p.cuda() for p in cdb.chunk_planes[best])
+    lo, hi = cdb.bounds[best]
+    probed = searched & (acc0 == 0) & (bins >= lo) & (bins < hi)
+    run = acc_pass(first, planes, cdb.bounds[best], c.k, cdb.nt)
+    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
+    hits = run(acc_p.copy_(acc0), plain=True) != acc0
+    rec = check_kernel(
+        "chd_probe_acc", (b, w),
+        lambda: (run(acc_k.copy_(acc0)),),
+        lambda: (run(acc_p.copy_(acc0), plain=True),),
+        reps=reps, bound=probe_acc_bound(first[0], c.k, cdb.nt, in_read, in_read & (acc0 == 0), probed, hits, planes),
+        extra={"restore_ms": time_ms(lambda: acc_k.copy_(acc0), reps), "lanes_set": int((acc0 != 0).sum()),
+               "lanes_probed": int(probed.sum()), "lanes_unset_searched": int((searched & (acc0 == 0)).sum()),
+               "chunk": best, **probe_floor(planes[1], int(probed.sum()), 59)},
+    )
+    check_routing(first, planes, cdb.bounds[best], c.k, cdb.nt, acc0, run(acc_k.copy_(acc0)))
+    passes = [t["probe_ms_by_pass"] for t in turns]
+    group_bound = group_acc_bound(c, cdb, feeds)
+    summary = {
+        "group_turns": turns,
+        "probe_ms_first_pass": statistics.median(p[0] for p in passes),
+        "probe_ms_later_passes": statistics.median(ms for p in passes for ms in p[1:]),
+        "group_chd_probe_acc_device_ms": group_ms,
+        "group_chd_probe_acc_device_ms_by": group_by,
+        "group_device_ms_by_op": group_by_op,
+        "group_bound_ms": group_bound["bound_ms"],
+        "group_bound_by": group_bound["bound_by"],
+        "group_table_bytes": group_bound["table_bytes"],
+        "group_table_bytes_uncapped": group_bound["table_bytes_uncapped"],
+        "group_lanes_searched": group_bound["lanes_searched"],
+        "group_lanes_routed_by_chunk": group_bound["lanes_routed_by_chunk"],
+        "group_hits": group_bound["hits"],
+        "span0_hits_by_chunk": hits_by_chunk,
+        "span0_lanes_searched": int(searched.sum()),
+    }
+    return summary, rec
+
+
+def span_feeds(c, reads: str) -> list:
+    """Every span of `reads`, encoded and its feed on the card."""
+    feeds = []
+    for kind, buf, offs, _, _ in c._iter_native_spans(reads):
+        if kind != "span":
+            raise AssertionError(f"a chunk of the reads took the {kind} path")
+        feeds.append(c._span_feed(*c._encode_span(buf, offs)))
+    return feeds
 
 
 def phase_ooc(run4, reps: int):
     """Out of core (--preload-size) on phase 4's database directory: the
     chunk tables streamed through the card, byte-equal to phase 4 with and
-    without device counters, double- and single-buffered; chd_probe_acc
-    against its plain version on one real chunk."""
+    without device counters, double- and single-buffered; the chunk passes
+    measured (ooc_passes) and chd_probe_acc against its plain version on
+    one real chunk."""
     import statistics as st_
 
     import torch
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
-    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
-    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain
 
     db_dir = os.path.dirname(run4["kraken"])
     chunk_cache = os.path.join(db_dir, "database.kdb.htc_torch")
@@ -2275,23 +2551,28 @@ def phase_ooc(run4, reps: int):
     if cdb.timings.get("cache") != "miss" or not os.path.exists(chunk_cache):
         raise AssertionError(f"the cold chunk build wrote no cache: {cdb.timings}")
 
-    # run 1: the default options, one group of every span
+    # run 1: the default options, one group of every span. The chunk passes
+    # compute their own k-mer front, so kmer_front runs once a span (the
+    # finish step)
     out_path, report_path = os.path.join(db_dir, "kraken_ooc.out"), os.path.join(db_dir, "report_ooc.tsv")
     run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
     spans = c.n_spans
     log(f"out of core: {c.total_sequences} reads in {run_s:.1f}s, {spans} spans, {c.ooc_groups} groups, "
         f"launches {launches}")
-    want = {"chd_probe_acc": spans * n_chunks, "kmer_front": spans * (n_chunks + 1), "chd_probe": 0,
+    want = {"chd_probe_acc": spans * n_chunks, "kmer_front": spans, "chd_probe": 0,
             "scores": spans, "pack_runs": spans}
     if c.n_units or spans == 0 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"out of core: {c.n_units} Python-route units, launches {launches}, want {want}")
     same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
     log("out-of-core kraken output and report: byte-equal to phase 4's")
     times = c.ooc_timings()
+    probe = times["probe"]
     run1 = {"reads": c.total_sequences, "run_s": run_s, "classify_s": classify_s, "spans": spans,
             "groups": c.ooc_groups, "host_s_per_span": c.host_seconds / spans,
             "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
-            "device_s_per_span": c.device_seconds / spans}
+            "device_s_per_span": c.device_seconds / spans,
+            "run_probe_ms_first_pass": st_.median(probe[::n_chunks]),
+            "run_probe_ms_later_passes": st_.median(ms for i, ms in enumerate(probe) if i % n_chunks)}
 
     # run 2: device counters in groups of 256 MiB
     cd = Classifier.with_shared_db(c, device_counters=True, ooc_group_bytes=OOC_GROUP_BYTES)
@@ -2320,48 +2601,10 @@ def phase_ooc(run4, reps: int):
     log(f"out of core, single-buffered: {cs.total_sequences} reads in {r3_s:.1f}s, byte-equal to phase 4's lines")
     del cs
 
-    # the run's spans as one group, double- and single-buffered in turns
-    feeds = []
-    for kind, buf, offs, _, _ in c._iter_native_spans(run4["reads"]):
-        if kind != "span":
-            raise AssertionError(f"a chunk of the reads took the {kind} path")
-        feeds.append(c._span_feed(*c._encode_span(buf, offs)))
-    first = feeds[0]
-    turns = [ooc_group_pass(c, feeds, pf) for pf in (True, False, False, True)]
-    c._ooc_prefetch = True
+    # the run's spans as one group: the passes measured, the kernel checked
+    feeds = span_feeds(c, run4["reads"])
+    passes, rec = ooc_passes(c, feeds, reps)
     del feeds
-
-    # chd_probe_acc on the chunk that holds most of the first span's hits,
-    # with a seeded half of the span's merged words set. Hits do not spread
-    # evenly over the chunks: a k-mer's bin is its least scrambled l-mer, so
-    # the genomes' k-mers crowd into low bins, while the ballast keys that
-    # fill the chunks are drawn uniformly over the bins.
-    codes, ambig, lengths = first
-    hashes, _, kmer_ambig = kmer_front_words(codes, ambig, c.k, c._cfg.hll_p)
-    b, w = hashes.shape
-    valid = (torch.arange(w, device="cuda")[None, :] < (lengths - (c.k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
-    merged = torch.zeros((b, w), dtype=torch.int32, device="cuda")
-    hits_by_chunk = []
-    for ci in range(n_chunks):
-        before = int((merged != 0).sum())
-        hash_lookup_acc(tuple(p.cuda() for p in cdb.chunk_planes[ci]), hashes, valid, merged)
-        hits_by_chunk.append(int((merged != 0).sum()) - before)
-    best = max(range(n_chunks), key=hits_by_chunk.__getitem__)
-    keep = torch.rand((b, w), generator=torch.Generator(device="cuda").manual_seed(11), device="cuda") < 0.5
-    acc0 = torch.where(keep, merged, 0)
-    planes = tuple(p.cuda() for p in cdb.chunk_planes[best])
-    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
-    rec = check_kernel(
-        "chd_probe_acc", (b, w),
-        lambda: (hash_lookup_acc(planes, hashes, valid, acc_k.copy_(acc0)),),
-        lambda: (hash_lookup_acc_plain(planes, hashes, valid, acc_p.copy_(acc0)),),
-        reps=reps, bound=probe_acc_bound(valid, acc0, planes),
-        extra={"restore_ms": time_ms(lambda: acc_k.copy_(acc0), reps), "lanes_set": int((acc0 != 0).sum()),
-               "lanes_probed": int((valid & (acc0 == 0)).sum()), "chunk": best},
-    )
-    if rec["lanes_probed"] < int(valid.sum()) // 4:
-        raise AssertionError(f"chd_probe_acc check probed {rec['lanes_probed']} lanes only")
-    del planes, acc_k, acc_p, acc0, merged, hashes
 
     # a warm reload: the chunk tables from the port's cache
     t = time.time()
@@ -2382,6 +2625,7 @@ def phase_ooc(run4, reps: int):
         "chunks": n_chunks,
         "chunk_bytes": chunk_bytes,
         "lr": cdb.lb,
+        "bounds": cdb.bounds,
         "double_buffered": True,
         "groups": c.ooc_groups,
         "load_s": load_s,
@@ -2393,11 +2637,10 @@ def phase_ooc(run4, reps: int):
         **run1,
         "upload_ms_per_chunk": st_.median(upload) if upload else None,
         "upload_gb_per_s": chunk_bytes / st_.median(upload) / 1e6 if upload else None,
-        "probe_ms_per_chunk_pass": st_.median(times["probe"]) if times["probe"] else None,
-        "probe_ms_by_chunk": times["probe"],
-        "span0_hits_by_chunk": hits_by_chunk,
+        "probe_ms_per_chunk_pass": st_.median(probe) if probe else None,
+        "probe_ms_by_chunk": probe,
         "group_ms": times["group"],
-        "group_turns": turns,
+        **passes,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
         "equal_to_phase4": True,
@@ -2407,6 +2650,37 @@ def phase_ooc(run4, reps: int):
     del c
     torch.cuda.empty_cache()
     return rec, launches
+
+
+def phase_ooc_compare(reps: int) -> None:
+    """--ooc-only DIR: phase 4's database and reads (built, or reused from
+    an earlier run of the same call, under this checkout's _build/), loaded
+    out of core at PRELOAD_SIZE by DIR's package, from a directory of its
+    own that links the database's files (the chunk cache's key holds a
+    digest of the package's chunk code, so each package keeps its own
+    cache and loads warm after its first run), and the chunk passes measured
+    by ooc_passes; one JSON line."""
+    import hashlib
+
+    import krakenuniq_tpu_torch
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    db_dir, genomes, _ = ensure_db_dir(N_SPECIES, GENOME_LEN, 31, 12, PAD_NODES, BALLAST)
+    reads = ensure_reads(db_dir, genomes)
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(krakenuniq_tpu_torch.__file__)))
+    own = f"{db_dir}_ooc_{hashlib.sha256(pkg.encode()).hexdigest()[:12]}"
+    os.makedirs(own, exist_ok=True)
+    for name in ("database.kdb", "database.idx", "taxDB"):
+        if not os.path.lexists(os.path.join(own, name)):
+            os.symlink(os.path.join(db_dir, name), os.path.join(own, name))
+    t = time.time()
+    c = Classifier([own], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
+    load_s = time.time() - t
+    cdb = c._ooc[0]
+    log(f"out of core ({pkg}): {cdb.n_chunks} chunks, loaded in {load_s:.1f}s {cdb.timings}")
+    passes, rec = ooc_passes(c, span_feeds(c, reads), reps)
+    emit({"phase": "ooc_compare", "package": pkg, "chunks": cdb.n_chunks, "bounds": cdb.bounds,
+          "load_s": load_s, "load_steps_s": cdb.timings, **passes, "chd_probe_acc": rec})
 
 
 def phase_counters(run4, reps: int):
@@ -2555,11 +2829,16 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels-only", metavar="DIR",
-                    help="run phases 1-2 only, on the krakenuniq_tpu_torch package under DIR")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--kernels-only", metavar="DIR",
+                      help="run phases 1-2 only, on the krakenuniq_tpu_torch package under DIR")
+    only.add_argument("--ooc-only", metavar="DIR",
+                      help="measure the out-of-core chunk passes of the krakenuniq_tpu_torch package under "
+                           "DIR on phase 4's database and reads (phase 1, then phase 8's passes)")
     args = ap.parse_args(argv)
-    if args.kernels_only:
-        sys.path.insert(0, os.path.abspath(args.kernels_only))
+    pkg_dir = args.kernels_only or args.ooc_only
+    if pkg_dir:
+        sys.path.insert(0, os.path.abspath(pkg_dir))
     import torch
 
     if not torch.cuda.is_available():
@@ -2582,6 +2861,10 @@ def main(argv=None) -> int:
         t = time.time()
         so = _native_build.build()
         log(f"native host module built in {time.time() - t:.1f}s: {so}")
+    if args.ooc_only:
+        phase_ooc_compare(reps=20)
+        print(card)
+        return 0
 
     gather_rec, fused_rec = phase_kernels(k=31)
     if args.kernels_only:

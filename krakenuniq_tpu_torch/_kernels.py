@@ -3,14 +3,16 @@
 Each `csrc/<name>.cu` is compiled on first use by `nvcc` for sm_90a into a
 shared library with a plain C interface (`kuniq_<name>`, returning the
 `cudaGetLastError()` of its launch) and loaded with ctypes. The libraries go
-to `_build/`, named by a hash of their source, so an edited source rebuilds
-and an unchanged one is reused. `build()` compiles every source at once, one
-`nvcc` process each.
+to `_build/`, named by a hash of their source and of the `csrc/` headers it
+includes (`#include "x.cuh"`), so an edited source or header rebuilds and an
+unchanged one is reused. `build()` compiles every source at once, one `nvcc`
+process each.
 
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
 device_step.span_dict, device_step.kmer_bins and kmer_bins_words,
-hash_lookup.hash_lookup_kmers and hash_lookup_acc, xla_lookup.lookup_kmers,
+device_step.probe_chunk_core, hash_lookup.hash_lookup_kmers,
+xla_lookup.lookup_kmers,
 resolve.scores,
 device_counters.taxon_counts, device_counters.hll_regmax,
 sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 
 import torch
@@ -42,7 +45,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
 # C signature of each kernel's entry point (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
@@ -81,9 +84,12 @@ ENTRIES = {
     # taxa, enc, lanes, unit ids, bytes of a unit id, B, W, keys, scratch,
     # stream: the sort keys of sparse_stats
     "sparse_keys": ("sparse_stats", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P), "sparse_keys"),
-    # disp, rows, hashes, valid, acc (read and written in place), n, lr, lg,
-    # stream: one chunk table's hits folded into the accumulated words
-    "chd_probe_acc": ("chd_probe", SIGNATURES["chd_probe"], "chd_probe_acc"),
+    # packed codes, packed flags, lengths, disp, rows, acc (read and written
+    # in place), B, LB, W, k, nt, bin_lo, bin_hi, lr, lg, stream: one chunk
+    # table's hits folded into the accumulated words, the lanes whose
+    # minimizer bin lies in [bin_lo, bin_hi) probed
+    "chd_probe_acc": ("chd_probe", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _I, _P),
+                      "chd_probe_acc"),
     # fused, hashes, valid, out, n, lb, stream: the fused two-choice layout
     "fused_probe": ("chd_probe", (_P, _P, _P, _P, _L, _I, _P), "fused_probe"),
     # codes (uint8 [B, LB], or the packed words), canon, bin, B, LB, k, nt,
@@ -107,10 +113,20 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def _lib_path(name: str) -> str:
+    """The library of csrc/<name>.cu, named by a digest of the source, the
+    csrc/ headers it includes and the flags."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+        src = f.read()
+    h = hashlib.sha256(src)
+    for header in sorted(set(_INCLUDE.findall(src))):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            h.update(header + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _nvcc() -> str:

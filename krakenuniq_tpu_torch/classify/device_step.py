@@ -10,7 +10,9 @@ for the resident CHD-hash path:
   canonical k-mers and minimizer bins from the `kmer_bins` kernel, then the
   `bsearch_lookup` kernel), or out of core the span's
   word plane that `probe_chunk_core` accumulated over the chunk tables
-  (`chd_probe_acc` kernel, lookup_mode "acc") -> per-read tree resolution
+  (`chd_probe_acc` kernel: the k-mer front, the minimizer bins and the
+  probe of the lanes whose bin the chunk owns, in one pass over the span's
+  packed feed; lookup_mode "acc") -> per-read tree resolution
   (`scores` kernel) -> with max_runs > 0, RLE rows (`pack_runs` kernel),
   over a per-span taxon dictionary when the ids pass u16 (`span_dict`
   kernel). `classify_and_count_core` adds the --device-counters update
@@ -33,10 +35,10 @@ import torch
 from .. import _kernels
 from ..ints import clz64, i32_to_u32, lsr, s64, u32_to_i32
 from ..kmer import ops as kops
-from ..lookup.hash_lookup import hash_lookup_acc, hash_lookup_acc_plain, hash_lookup_kmers, hash_lookup_plain
+from ..lookup.hash_lookup import _chd_widths, hash_lookup_acc_plain, hash_lookup_kmers, hash_lookup_plain, table_layout
 from ..lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
 from ..taxonomy.resolve import resolve_reads
-from ..utils.bits import P_PRIME
+from ..utils.bits import INDEX2_XOR_MASK, P_PRIME
 
 _MUR1 = s64(0xFF51AFD7ED558CCD)
 _MUR2 = s64(0xC4CEB9FE1A85EC53)
@@ -117,17 +119,24 @@ def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb
     reversal of r; then canonical min, murmur and the HLL encoding. Returns
     what `kmer_front` returns."""
     lane = torch.arange(lb - k + 1, device=codes_packed.device)
-    r = _window64(_words64(codes_packed), 2 * lane) & ((1 << 2 * k) - 1)
     amb = (_window64(_words64(ambig_packed), lane) & ((1 << k) - 1)) != 0
-    x = r  # 2-bit reversal (the kernel: a bit reversal, then swap adjacent bits)
+    hashes = murmur3_finalizer_device(_canonical_windows(_words64(codes_packed), lane, k))
+    return hashes, encode_hash_device(hashes, p), amb
+
+
+def _canonical_windows(s64: torch.Tensor, first: torch.Tensor, n: int) -> torch.Tensor:
+    """The canonical n-mers (n <= 31) starting at bases `first` of each row's
+    staged code string: the window r = sum c[f + t] << 2t from one funnel
+    shift, the reverse complement (~r) & (4^n - 1), the forward n-mer the
+    2-bit reversal of r (the kernel: a bit reversal, then swap adjacent
+    bits), and the smaller of the two."""
+    r = _window64(s64, 2 * first) & ((1 << 2 * n) - 1)
+    x = r
     for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
                   (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
         x = ((x >> sh) & m) | ((x & m) << sh)
     x = lsr(x, 32) | (x << 32)
-    fwd = lsr(x, 64 - 2 * k)
-    rc = ~r & ((1 << 2 * k) - 1)
-    hashes = murmur3_finalizer_device(torch.minimum(fwd, rc))
-    return hashes, encode_hash_device(hashes, p), amb
+    return torch.minimum(lsr(x, 64 - 2 * n), ~r & ((1 << 2 * n) - 1))
 
 
 def _unpack_codes(codes_packed: torch.Tensor) -> torch.Tensor:
@@ -204,6 +213,29 @@ def kmer_bins_plain(codes: torch.Tensor, k: int, nt: int):
     minimizers (krakenuniq_tpu/kmer/ops.py)."""
     canon = kops.canonical_representation(kops.pack_windows(codes, k), k)
     return canon, kops.minimizers(codes, k, nt)
+
+
+def kmer_bins_sliding(codes_packed: torch.Tensor, lb: int, k: int, nt: int):
+    """The `kmer_bins` kernel's algorithm in plain torch, from packed code
+    words (`pack_input`) of rows of `lb` bases: phase A, one value per base
+    position f < lb - nt + 1, xm ^ the canonical nt-mer at f (xm =
+    INDEX2_XOR_MASK & (4^nt - 1)); phase B, the sliding minimum over w = k -
+    nt + 1 values (van Herk/Gil-Werman): within blocks of w values from each
+    row's start a prefix minimum P and a suffix minimum S, so that the bin of
+    lane l is min(S[l], P[l + w - 1]). The canonical k-mer is the lane's own
+    window. Returns what `kmer_bins` returns."""
+    s64 = _words64(codes_packed)
+    dev = codes_packed.device
+    nv, w, n_lanes = lb - nt + 1, k - nt + 1, lb - k + 1
+    xm = int(INDEX2_XOR_MASK) & ((1 << 2 * nt) - 1)
+    vals = xm ^ _canonical_windows(s64, torch.arange(nv, device=dev), nt)
+    nseg = -(-nv // w)
+    v = torch.nn.functional.pad(vals, (0, nseg * w - nv), value=torch.iinfo(torch.int64).max)
+    v = v.view(-1, nseg, w)
+    prefix = torch.cummin(v, dim=2).values.flatten(1)
+    suffix = torch.cummin(v.flip(2), dim=2).values.flip(2).flatten(1)
+    bins = torch.minimum(suffix[:, :n_lanes], prefix[:, w - 1 : w - 1 + n_lanes])
+    return _canonical_windows(s64, torch.arange(n_lanes, device=dev), k), bins
 
 
 def _bins_check(name: str, k: int, nt: int, lb: int) -> None:
@@ -542,25 +574,56 @@ def _front(codes, ambig, cfg: StepConfig, plain: bool):
 def probe_chunk_core(
     acc: torch.Tensor,  # int32 [B, W]: the merged word plane so far (updated in place)
     planes,  # one chunk table's (disp4, rows) planes on the step's device
-    codes: torch.Tensor,
-    ambig: torch.Tensor,
-    lengths: torch.Tensor,
-    cfg: StepConfig,
+    bounds,  # the chunk's minimizer-bin range [lo, hi) (ChunkedHashDB.bounds)
+    codes: torch.Tensor,  # int32 [B, LB/16] packed code words (pack_input's layout)
+    ambig: torch.Tensor,  # int32 [B, LB/32] packed flag words
+    lengths: torch.Tensor,  # int32 [B]
+    k: int,
+    nt: int,  # the database's minimizer length
     plain: bool = False,
 ) -> torch.Tensor:
     """One out-of-core pass, after the JAX package's _probe_chunk_core
-    (krakenuniq_tpu/classify/device_step.py:496-531): the k-mer front on the
-    span's feed, then `hash_lookup_acc` of one chunk table into `acc`, whose
-    lanes already set keep their word (the first nonzero word wins: the
-    chunk merge, and the first-database-wins rule when chunks are probed in
-    database order). The hashes are recomputed each pass, as in the JAX
-    package: keeping them would cost 9 B a lane for the whole group.
-    Returns acc."""
-    hashes, _, kmer_ambig, _, lb = _front(codes, ambig, cfg, plain)
-    w = lb - cfg.k + 1
-    pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
-    search = (pos < torch.clamp(lengths - (cfg.k - 1), min=0)[:, None]) & ~kmer_ambig
-    return (hash_lookup_acc_plain if plain else hash_lookup_acc)(planes, hashes, search, acc)
+    (krakenuniq_tpu/classify/device_step.py:496-531): each lane in its read,
+    free of ambiguous bases and still 0 in `acc` takes this chunk table's
+    value, acc updated in place and returned (the first nonzero word wins:
+    the chunk merge, and the first-database-wins rule when chunks are probed
+    in database order). Only the lanes whose minimizer bin (nt-mers, the
+    database's own nt) lies in `bounds` are probed: chunks are cut along bin
+    ranges, so every other lane's k-mer is a key of another chunk or of
+    none, and the exact probe would miss it here; the result equals the JAX
+    package's probe of every lane. W <= LB - k + 1. CUDA tensors launch the
+    `chd_probe_acc` kernel, which computes the front, the bins and the probe
+    in one pass; CPU tensors, or `plain`, run `kmer_front_packed`,
+    `kmer_bins_plain`, the range mask and `hash_lookup_acc_plain`."""
+    b, lbw = codes.shape
+    lb, w = 16 * lbw, acc.shape[1]
+    lo, hi = (int(x) for x in bounds)
+    if ambig.shape != (b, lbw // 2) or lbw % 2 or lengths.shape != (b,) or acc.shape[0] != b:
+        raise ValueError(
+            f"chd_probe_acc: need [B, LB/16] codes, [B, LB/32] flags, [B] lengths and [B, W] acc, got "
+            f"{tuple(codes.shape)}, {tuple(ambig.shape)}, {tuple(lengths.shape)}, {tuple(acc.shape)}"
+        )
+    if not 1 <= nt <= k <= 31 or not 1 <= w <= lb - k + 1 or not 0 <= lo <= hi:
+        raise ValueError(f"chd_probe_acc: need 1 <= nt <= k <= 31, 1 <= W <= LB - k + 1 and a bin range "
+                         f"(k={k}, nt={nt}, LB={lb}, W={w}, bounds={bounds})")
+    if plain or codes.device.type == "cpu":
+        hashes, _, kmer_ambig = kmer_front_packed(codes, ambig, lb, k, 0)  # the encodings go unused
+        bins = kmer_bins_plain(_unpack_codes(codes), k, nt)[1][:, :w]
+        pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
+        search = (pos < torch.clamp(lengths - (k - 1), min=0)[:, None]) & ~kmer_ambig[:, :w]
+        search &= (bins >= lo) & (bins < hi)
+        return hash_lookup_acc_plain(planes, hashes[:, :w], search, acc)
+    if table_layout(planes) != "chd":
+        raise ValueError("chd_probe_acc: chunk tables are CHD (disp4, rows) planes")
+    lr, lg = _chd_widths(*planes)
+    dev = _kernels.check_cuda("chd_probe_acc", codes=codes, ambig=ambig, lengths=lengths, disp4=planes[0],
+                              rows=planes[1], acc=acc)
+    if any(t.dtype != torch.int32 for t in (codes, ambig, lengths, acc, *planes)):
+        raise TypeError("chd_probe_acc: the words, lengths, acc and table planes must be int32")
+    if not 4 <= lr <= 30 or planes[1].data_ptr() % 16:
+        raise ValueError("chd_probe_acc: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
+    _kernels.launch("chd_probe_acc", dev, codes, ambig, lengths, *planes, acc, b, lb, w, k, nt, lo, hi, lr, lg)
+    return acc
 
 
 def classify_step_core(

@@ -39,6 +39,7 @@ from krakenuniq_tpu_torch.classify.device_step import (
     classify_step_core,
     kmer_bins,
     kmer_bins_plain,
+    kmer_bins_sliding,
     kmer_bins_words,
     pack_input,
 )
@@ -209,8 +210,13 @@ def _codes(seed, b=48, lb=160):
     return enc.codes, enc.ambig
 
 
+# the phase-2 shapes, w = 1 (nt = k), nt = 1 and the kernel's 8-byte values
+# (nt > 16)
+BIN_WIDTHS = [(21, 7), (31, 12), (31, 15), (31, 31), (31, 1), (31, 20)]
+
+
 @pytest.mark.parametrize("feed", ["codes", "words"])
-@pytest.mark.parametrize("k,nt", [(21, 7), (31, 12), (31, 15)])
+@pytest.mark.parametrize("k,nt", BIN_WIDTHS)
 def test_kmer_bins_match_jax_minimizers(feed, k, nt):
     codes, ambig = _codes(k * nt)
     want_canon = np.asarray(jkops.canonical_representation(jkops.pack_windows(jnp.asarray(codes), k), k))
@@ -224,6 +230,24 @@ def test_kmer_bins_match_jax_minimizers(feed, k, nt):
     assert (bins.numpy() < 4 ** nt).all()
     plain = kmer_bins_plain(T(codes), k, nt)
     assert all(torch.equal(a, b) for a, b in zip(plain, (canon, bins)))
+
+
+@pytest.mark.parametrize("feed", ["codes", "words"])
+@pytest.mark.parametrize("k,nt", BIN_WIDTHS)
+def test_kmer_bins_sliding_matches_jax_minimizers(feed, k, nt):
+    """The `kmer_bins` kernel's algorithm (kmer_bins_sliding: one nt-mer a
+    base position, then the van Herk/Gil-Werman minimum) equals the JAX
+    package's minimizers, with reads shorter than k, at rows of 160 bases
+    and of 45 (codes, packed with padding) or 64 (words): lanes a row that w
+    divides only where w = 1."""
+    for lb in (160, 45 if feed == "codes" else 64):
+        codes, ambig = _codes(k * nt + lb, lb=lb)
+        words = pack_input(T(codes), T(ambig))[0]
+        canon, bins = kmer_bins_sliding(words, lb, k, nt)
+        want_bins = np.asarray(jkops.minimizers(jnp.asarray(codes), k, nt))
+        want_canon = np.asarray(jkops.canonical_representation(jkops.pack_windows(jnp.asarray(codes), k), k))
+        np.testing.assert_array_equal(bins.numpy().view(np.uint64), want_bins, err_msg=f"LB={lb}")
+        np.testing.assert_array_equal(canon.numpy().view(np.uint64), want_canon, err_msg=f"LB={lb}")
 
 
 # ---------------------------------------------------------- binary search

@@ -7,6 +7,7 @@ the CPU."""
 import ast
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -103,11 +104,26 @@ def test_kernel_wrappers_refuse_cpu_launch():
     # one library per source; sparse_keys is an entry of sparse_stats'
     # library, chd_probe_acc and fused_probe of chd_probe's, kmer_bins (both
     # feeds) of kmer_front's
-    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))) == sorted(_kernels.SIGNATURES)
+    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc")) if f.endswith(".cu")) == sorted(
+        _kernels.SIGNATURES)
     assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys", "chd_probe_acc", "fused_probe",
                                       "kmer_bins"}
     assert _kernels.ENTRIES["chd_probe_acc"][0] == _kernels.ENTRIES["fused_probe"][0] == "chd_probe"
     assert _kernels.ENTRIES["kmer_bins"][0] == _kernels.ENTRIES["kmer_bins_packed"][0] == "kmer_front"
+
+
+def test_kernel_digest_covers_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source and the csrc/ headers it includes:
+    an edit to kmer_window.cuh renames the libraries of kmer_front.cu and
+    chd_probe.cu (so no stale build is reused) and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(PKG, "csrc"), csrc)
+    monkeypatch.setattr(_kernels, "CSRC", str(csrc))
+    before = {n: _kernels._lib_path(n) for n in _kernels.SIGNATURES}
+    with open(csrc / "kmer_window.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    after = {n: _kernels._lib_path(n) for n in _kernels.SIGNATURES}
+    assert {n for n in before if before[n] != after[n]} == {"kmer_front", "chd_probe"}
 
 
 def test_native_loader_is_the_ports_own():

@@ -28,7 +28,15 @@ from krakenuniq_tpu.classify.device_step import _probe_chunk_core, classify_step
 from krakenuniq_tpu.db import chunked as jax_chunked
 from krakenuniq_tpu_torch import _native_build
 from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions, pipeline
-from krakenuniq_tpu_torch.classify.device_step import StepConfig, classify_step_core, probe_chunk_core
+from krakenuniq_tpu_torch.classify.device_step import (
+    StepConfig,
+    classify_step_core,
+    kmer_bins_plain,
+    kmer_front_packed,
+    pack_input,
+    probe_chunk_core,
+    unpack_input,
+)
 from krakenuniq_tpu_torch.cli.main import main as cli_main
 from krakenuniq_tpu_torch.db import chunked
 from krakenuniq_tpu_torch.db.hash_table import HashBuildError, build_hash_table
@@ -150,6 +158,16 @@ def test_build_at_forced_width_raises(n, vmax, lr, error):
     assert free_lr >= max(lr, 4)
 
 
+def test_chunk_tables_need_bounds():
+    """Chunk tables without their bin ranges are refused: the passes route
+    lanes by them, and probing every lane instead is not an option."""
+    planes = [(np.zeros((4, 4), np.uint32), np.zeros((16, 4), np.uint32))] * 2
+    with pytest.raises(ValueError, match="minimizer-bin range"):
+        chunked.chunked_db_from_planes(planes, 4, 31, 9)
+    with pytest.raises(ValueError, match="minimizer-bin range"):
+        chunked.chunked_db_from_planes(planes, 4, 31, 9, [(0, 7)])
+
+
 def test_refuses_uid_and_raw_planes():
     tax = Taxonomy.from_taxdb_file(os.path.join(DATA, "taxDB"))
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
@@ -220,34 +238,118 @@ def _feed(packed):
     codes, ambig, lengths = _span_feed()
     if packed:
         return (codes, ambig, lengths), (T(codes.view(np.int32)), T(ambig.view(np.int32)), T(lengths))
-    from krakenuniq_tpu_torch.classify.device_step import unpack_input
-
     c, a = unpack_input(T(codes.view(np.int32)), T(ambig.view(np.int32)))
     return (c.numpy(), a.numpy(), lengths), (c, a, T(lengths))
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
 def test_probe_chunk_core_matches_jax(jax_chunks, packed):
+    """Pass by pass, the routed pass (only the lanes whose bin the chunk
+    owns are probed) equals the JAX package's probe of every lane; the
+    JAX side takes either feed, the port the packed one (pack_input packs
+    the unpacked feed, as the Python route does)."""
     jc, jcdb, cdb = jax_chunks
     (jcodes, jambig, jlen), feed = _feed(packed)
-    w = feed[0].shape[1] * (16 if packed else 1) - jc.k + 1
+    if not packed:
+        feed = (*pack_input(feed[0], feed[1]), feed[2])
+    w = feed[0].shape[1] * 16 - jc.k + 1
     rng = np.random.default_rng(5)
     acc0 = np.where(rng.random((feed[0].shape[0], w)) < 0.5, rng.integers(1, 30, size=(feed[0].shape[0], w)), 0)
     acc_j = jnp.asarray(acc0.astype(np.uint32))
     acc_t = T(acc0.astype(np.int32))
     jcfg = JaxStepConfig(k=jc.k, nt=jc.nt, n_iter=1, max_depth=jc._cfg.max_depth, lookup_mode="hash",
                          hash_lbs=(jcdb.lb,), raw_dbs=(False,), packed_input=packed)
-    cfg = StepConfig(k=jc.k, max_depth=jc._cfg.max_depth, packed_input=packed)
     filled = []
     for ci in range(cdb.n_chunks):
         acc_j = _probe_chunk_core(acc_j, tuple(jnp.asarray(p) for p in jcdb.chunk_planes[ci]),
                                   jcodes, jambig, jlen, jcfg)
         before = int((acc_t != 0).sum())
-        out = probe_chunk_core(acc_t, cdb.chunk_planes[ci], *feed, cfg)
+        out = probe_chunk_core(acc_t, cdb.chunk_planes[ci], cdb.bounds[ci], *feed, jc.k, cdb.nt)
         assert out is acc_t  # in place
         np.testing.assert_array_equal(acc_t.numpy().view(np.uint32), np.asarray(acc_j), err_msg=f"chunk {ci}")
         filled.append(int((acc_t != 0).sum()) - before)
     assert all(f > 0 for f in filled)  # every chunk filled lanes
+
+
+def _searched(feed, k):
+    """(canonical k-mers, search mask) of a packed span feed."""
+    codes, ambig, lengths = feed
+    lb = 16 * codes.shape[1]
+    canon, _ = kmer_bins_plain(unpack_input(codes, ambig)[0], k, 1)
+    _, _, kmer_ambig = kmer_front_packed(codes, ambig, lb, k, 0)
+    pos = torch.arange(lb - k + 1)[None, :]
+    return canon, (pos < torch.clamp(lengths - (k - 1), min=0)[:, None]) & ~kmer_ambig
+
+
+def test_chunk_ranges_route_every_lane_once(jax_chunks):
+    """The chunks' bin ranges tile the bins: each searched lane falls in
+    exactly one chunk's range, and where the lane's k-mer is a key, that
+    chunk's table holds it with the key's value; every other chunk misses
+    the lane, which is why skipping them leaves acc as it was."""
+    jc, jcdb, cdb = jax_chunks
+    _, feed = _feed(True)
+    canon, search = _searched(feed, jc.k)
+    bins = kmer_bins_plain(unpack_input(feed[0], feed[1])[0], jc.k, cdb.nt)[1]
+    owners = sum(((bins >= lo) & (bins < hi)).long() for lo, hi in cdb.bounds)
+    assert bool((owners[search] == 1).all())
+    _, keys, vals = read_kdb(os.path.join(DATA, "database.kdb"))
+    table_vals = jc._pool.pool_index(jc.taxonomy.dense_index(vals))
+    kmers = canon.numpy().view(np.uint64)
+    order = np.argsort(keys)
+    at = order[np.minimum(np.searchsorted(keys[order], kmers), len(keys) - 1)]
+    is_key = torch.from_numpy(keys[at] == kmers) & search
+    want = T(np.where(is_key.numpy(), table_vals[at], 0).astype(np.int32))
+    assert int(is_key.sum()) > 100 and bool((want[is_key] != 0).all())
+    hashes = T(murmur3_finalizer(kmers).view(np.int64))
+    for ci, (lo, hi) in enumerate(cdb.bounds):
+        mine = search & (bins >= lo) & (bins < hi)
+        got = hash_lookup_plain(cdb.chunk_planes[ci], hashes, search)
+        assert torch.equal(got[mine], want[mine]), f"chunk {ci} differs on its own lanes"
+        assert not bool(got[search & ~mine].any()), f"chunk {ci} answers a lane it does not own"
+
+
+def test_probe_chunk_core_hierarchy_of_two_nt(tmp_path):
+    """Two databases of different minimizer lengths, probed in database
+    order, each chunk routed by its own database's nt and bounds: the first
+    (nt = 7, six genomes) and the second (nt = 9, the same six genomes and
+    six more, values from 1000). Pass by pass equal to the JAX package's
+    probe of every lane; the first database's word wins on every k-mer it
+    holds, and the second's genomes hit through its own routing."""
+    from krakenuniq_tpu_torch.utils.demo import make_demo_db, make_demo_reads
+
+    dbs = []
+    for n_species, nt, base in ((6, 7, 1), (12, 9, 1000)):
+        keys, _, offsets, _, genomes = make_demo_db(n_species=n_species, genome_len=3000, k=31, nt=nt)
+        values = (np.arange(len(keys)) % 500 + base).astype(np.int32)
+        budget = chunked.table_bytes(len(keys), int(values.max()), False) // 3
+        jcdb = jax_chunked.build_chunked_db(keys, values, values, offsets, budget, 31, nt)
+        planes = [tuple(np.asarray(p) for p in cp) for cp in jcdb.chunk_planes]
+        dbs.append((jcdb, chunked.chunked_db_from_planes(planes, jcdb.lb, 31, nt, jcdb.bounds, len(keys)), keys))
+    assert all(c.n_chunks >= 2 for _, c, _ in dbs)
+    reads = make_demo_reads(genomes, 80, seed=1)
+    path = tmp_path / "r.fa"
+    path.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    buf = path.read_bytes()
+    nat = _native_build.native()
+    _, offs, _ = nat.parse_unit(buf, False)
+    codes, ambig, lengths = nat.encode_unit_packed(buf, np.ascontiguousarray(offs), 160, 96)
+    feed = (T(codes.view(np.int32)), T(ambig.view(np.int32)), T(lengths))
+    jcfg = JaxStepConfig(k=31, nt=7, n_iter=1, max_depth=8, lookup_mode="hash", hash_lbs=(0,), raw_dbs=(False,),
+                         packed_input=True)
+    acc_j = jnp.zeros((feed[0].shape[0], 160 - 30), dtype=jnp.uint32)
+    acc_t = torch.zeros(acc_j.shape, dtype=torch.int32)
+    for jcdb, cdb, _ in dbs:
+        for ci in range(cdb.n_chunks):
+            acc_j = _probe_chunk_core(acc_j, tuple(jnp.asarray(p) for p in jcdb.chunk_planes[ci]), codes, ambig,
+                                      lengths, dataclasses.replace(jcfg, hash_lbs=(jcdb.lb,)))
+            probe_chunk_core(acc_t, cdb.chunk_planes[ci], cdb.bounds[ci], *feed, 31, cdb.nt)
+            np.testing.assert_array_equal(acc_t.numpy().view(np.uint32), np.asarray(acc_j),
+                                          err_msg=f"nt {cdb.nt} chunk {ci}")
+    canon, search = _searched(feed, 31)
+    in_first = search.numpy() & np.isin(canon.numpy().view(np.uint64), dbs[0][2])
+    got = acc_t.numpy()
+    assert in_first.sum() > 100 and ((got[in_first] > 0) & (got[in_first] < 1000)).all()
+    assert (got[search.numpy() & ~in_first] >= 1000).sum() > 100
 
 
 @pytest.mark.parametrize("quick", [False, True], ids=["resolve", "quick"])
@@ -260,7 +362,7 @@ def test_acc_step_matches_jax(jax_chunks, quick):
                      packed_input=True, max_runs=8, dense_runs=True, outputs=SPAN_OUTPUTS)
     acc = torch.zeros((feed[0].shape[0], 16 * feed[0].shape[1] - jc.k + 1), dtype=torch.int32)
     for ci in range(cdb.n_chunks):
-        probe_chunk_core(acc, cdb.chunk_planes[ci], *feed, cfg)
+        probe_chunk_core(acc, cdb.chunk_planes[ci], cdb.bounds[ci], *feed, jc.k, cdb.nt)
     jcfg = dataclasses.replace(
         jc._cfg, packed_input=True, max_runs=8, dense_runs=True, outputs=SPAN_OUTPUTS, quick=quick,
         min_hits=2 if quick else 1, lookup_mode="acc", hash_lbs=(), raw_dbs=(False,), n_iter=1,
