@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # the whole check
     python3 chip_smoke.py --kernels-only DIR    # phases 1-2 on DIR's package
     python3 chip_smoke.py --ooc-only DIR        # phase 8's chunk passes, DIR's package
+    python3 chip_smoke.py --fallback-only DIR   # phases 9's and 10's spans, DIR's package
 
 `--kernels-only` imports krakenuniq_tpu_torch from DIR (a checkout, or an
 unpacked `git archive` of one), builds its kernels there and runs phases 1
@@ -13,6 +14,10 @@ times both packages' kernels on the same inputs and the same card.
 phase 4's database and reads (built on the first run of a call, reused by
 the next) streamed through the card by DIR's package at phase 8's budget,
 its passes measured as phase 8 measures them (one JSON line).
+`--fallback-only` does the same for the fallback lookups: phase 1, then
+phase 4's database loaded by DIR's package under each forced fallback, the
+binary search's bins and search and the fused probe timed on the first span
+(one JSON line).
 
 Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
@@ -56,7 +61,11 @@ Phases, each raising on failure:
      table's size (lb = 27) and at lb = 30, half the queries planted,
      kmer_bins at the unit and span shapes on both feeds at k = 21 / nt = 7
      and k = 31 / nt = 12, 15, 31 and 20, bsearch_lookup with out-of-range bins,
-     invalid lanes, empty bins and bin_start 0 and 12,345;
+     invalid lanes, empty bins and bin_start 0 and 12,345, and bsearch_words
+     (the packed feed's search) on random sorted planes made from the span's
+     own lanes, with bins of 0, 1, 31, 32, 63, 64, 65, 300, 511 and 512 keys,
+     n_iter 10 and 5, bin_start 0 and a shard from 12,345, a later
+     database's pass, and rows of 8,192 bases at nt = 12 and 20;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
@@ -64,7 +73,8 @@ Phases, each raising on failure:
      on both; then the same eight runs through each fallback lookup, on
      copies of the golden databases with the table build made to fail:
      CHD placement (the fused layout, fused_probe) and the whole table
-     build (the binary search, kmer_bins and bsearch_lookup);
+     build (the binary search: bsearch_words on the span route, kmer_bins
+     and bsearch_lookup on the Python route);
   4. the main path at full size, on the span route: a synthetic database
      at the JAX bench's default shape (400 species x 25 kbp, BALLAST = 101M
      ballast keys, a 2.4M-node taxonomy, k=31, nt=12) under
@@ -110,9 +120,19 @@ Phases, each raising on failure:
      with the table build made to fail (caches removed first), its sorted
      planes on the card (keys, vals, vals_dense, offsets: 1.91 GB), dense
      ids under the span dictionary; phase 4's reads byte-equal to phase 4,
-     kmer_bins and bsearch_lookup once a span, one span step against the
-     plain one, both kernels on that span's feed and the real planes
-     (bsearch_lookup with its random-sector floor of 2 + n_iter reads);
+     bsearch_words once a span (kmer_bins and bsearch_lookup never), one
+     span step against the plain one, bsearch_words on that span's feed and
+     the real planes, beside the unpacked feed's pair kmer_bins and
+     bsearch_lookup on the same span (bsearch_lookup with its random-sector
+     floor of 2 + n_iter reads);
+  10. the fused fallback at full size: phase 4's database loaded with CHD
+     placement made to fail (caches removed before and after the load), the
+     fused two-choice layout over pool ids (lb = 27, 2.1 GB); phase 4's
+     reads byte-equal to phase 4, fused_probe once a span and chd_probe
+     never, one span step against the plain one, and fused_probe on that
+     span's hashes and the real plane, with the valid lanes answered by
+     their first row, by their second and missed, the two-row and one-row
+     random-sector floors and the mix of them those shares give;
   8. out of core on phase 4's database directory (one reload with
      preload_size = PRELOAD_SIZE, 512 MiB, its `.htc_torch` cache removed
      first, then a warm reload from that cache): the database cut into at least
@@ -135,9 +155,9 @@ Phases, each raising on failure:
      over as many random rows of that chunk's row plane as it probes), and
      one `ooc` line (budget, chunks, load split, reads/s, host s a span by
      stage, copy and probe ms a chunk, the hidden share, peak memory).
-Phases run in the order 1-5, 5b, 7, 9, 8, 6. Progress goes to stderr; stdout
-carries one JSON line per kernel check, the fallback goldens' line, the
-summaries of phases 4, 5, 5b, 7, 9 and 8, one line per probe setting, the
+Phases run in the order 1-5, 5b, 7, 9, 10, 8, 6. Progress goes to stderr;
+stdout carries one JSON line per kernel check, the fallback goldens' line,
+the summaries of phases 4, 5, 5b, 7, 9, 10 and 8, one line per probe setting, the
 kernel table, the card line and, last, the device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
@@ -145,6 +165,7 @@ Exits non-zero without a result when no CUDA device (or no port) is present.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -225,6 +246,7 @@ SYMBOLS = {
     "fused_probe": ("fused_probe_kernel",),
     "kmer_bins": ("kmer_bins_kernel",),
     "bsearch_lookup": ("bsearch_lookup_kernel",),
+    "bsearch_words": ("bsearch_words_kernel",),
 }
 
 
@@ -530,13 +552,31 @@ def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes
     return bound(moved, ops)
 
 
-def fused_bound(valid) -> dict:
+def fused_rows(fused, h, valid, lb: int) -> dict:
+    """Where the fused probe's answers come from, by the kernel's algorithm
+    (probe_fused_rounds of the package under test; None on a package
+    without it): the valid queries answered by their first row, by their
+    second (row 1 held no value for them), and missed."""
+    from krakenuniq_tpu_torch.lookup import hash_lookup
+
+    rounds = getattr(hash_lookup, "probe_fused_rounds", None)
+    if rounds is None:
+        return {"row1": None, "row2": None, "missed": None}
+    _, answered = rounds(fused, h.reshape(-1), lb)
+    a = answered[valid.reshape(-1)]
+    return {"row1": int((a == 1).sum()), "row2": int((a == 2).sum()), "missed": int((a == 0).sum())}
+
+
+def fused_bound(valid, rows: dict, table_bytes: int) -> dict:
     """`fused_probe`: hash (8 B) and valid (1 B) in, value (4 B) out per
-    query; per valid query the rows of its two buckets (16 B each); ~30
+    query; per valid query its first-choice row (16 B), and its second where
+    the first holds no value for it (`rows`: fused_rows; with no rows known,
+    both rows of every valid query), the rows no more than the plane; ~30
     operations (two bucket indices, two tags and high words, four slot
     compares, the select)."""
     n, nv = valid.numel(), float(valid.sum())
-    return bound(13 * n + 32 * nv, 30 * nv)
+    read = 2 * nv if rows["row1"] is None else nv + rows["row2"] + rows["missed"]
+    return bound(13 * n + min(16 * read, table_bytes), 30 * nv)
 
 
 def bins_bound(b: int, lb: int, k: int, nt: int, packed: bool) -> dict:
@@ -552,15 +592,14 @@ def bins_bound(b: int, lb: int, k: int, nt: int, packed: bool) -> dict:
     return bound((b * lb // 4 if packed else b * lb) + 16 * lanes, 13 * ntmers + 6 * lanes)
 
 
-def bsearch_bound(planes, query, bins, valid, n_iter: int, bin_start: int) -> dict:
-    """`bsearch_lookup`: per lane the query and bin (8 + 8 B) and the flag
-    (1 B) in and two 4 B values out; of the sorted planes each input read
-    once: every offsets entry a searched lane (valid, bin in range) needs (8
-    B each, adjacent bins sharing one), the key at every distinct result
-    position of a searched lane with a non-empty bin (8 B) and the two values
-    at every distinct hit position (8 B); ~7 operations per search step, a
-    lane's steps being what its bin needs (ceil(log2(size + 1))), plus ~8 a
-    lane."""
+def search_reads(planes, query, bins, valid, n_iter: int, bin_start: int) -> tuple[float, float]:
+    """The sorted planes' bytes a search must read, each input once: every
+    offsets entry a searched lane (valid, bin in range) needs (8 B each,
+    adjacent bins sharing one), the key at every distinct result position of
+    a searched lane with a non-empty bin (8 B) and the two values at every
+    distinct hit position (8 B); and its operations, ~7 per search step, a
+    lane's steps being what its bin needs (ceil(log2(size + 1))). Returns
+    (bytes, operations)."""
     import torch
 
     from krakenuniq_tpu_torch.lookup.xla_lookup import search_bins
@@ -576,8 +615,49 @@ def bsearch_bound(planes, query, bins, valid, n_iter: int, bin_start: int) -> di
     pos, found = search_bins(keys, offsets, query, bins, valid, n_iter, bin_start)
     probed = int(torch.unique(pos[searched][sizes > 0]).numel())
     hits = int(torch.unique(pos[found]).numel())
+    return 8 * entries + 8 * probed + 8 * hits, 7 * steps
+
+
+def bsearch_bound(planes, query, bins, valid, n_iter: int, bin_start: int) -> dict:
+    """`bsearch_lookup`: per lane the query and bin (8 + 8 B) and the flag
+    (1 B) in and two 4 B values out, the planes' reads of search_reads, and
+    ~8 operations a lane besides the steps."""
+    moved, ops = search_reads(planes, query, bins, valid, n_iter, bin_start)
     n = bins.numel()
-    return bound(25 * n + 8 * entries + 8 * probed + 8 * hits, 7 * steps + 8 * n)
+    return bound(25 * n + moved, ops + 8 * n)
+
+
+def words_bound(codes, ambig, lengths, k: int, nt: int, plane, n_iter: int, taxon0) -> dict:
+    """`bsearch_words`, one database's pass: the packed code and flag words
+    (3 bits a base) and the length of each row with a lane in its read, and
+    the bin work of its bases as bins_bound counts it (13 operations an
+    nt-mer position, 6 a lane); after the first database (taxon0 given) the
+    taxon word of each lane in its read (4 B); the two 4 B values out per
+    lane written (every lane of the first pass, the searched ones later);
+    the planes' reads of search_reads for the searched lanes (in the read,
+    free of ambiguous bases, still 0), and ~8 operations a lane."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_bins_plain, unpack_input
+    from krakenuniq_tpu_torch.kmer import ops as kops
+
+    keys, vals, vals_dense, offsets, bin_start = plane
+    b, lbw = codes.shape
+    lb = 16 * lbw
+    w = lb - k + 1
+    codes_u, ambig_u = unpack_input(codes, ambig)
+    lane = torch.arange(w, device=codes.device)[None, :]
+    in_read = lane < (lengths - (k - 1)).clamp(min=0)[:, None]
+    searched = in_read & ~kops.window_any(ambig_u, k)
+    if taxon0 is not None:
+        searched &= taxon0 == 0
+    canon, bins = kmer_bins_plain(codes_u, k, nt)
+    moved, ops = search_reads((keys, vals, vals_dense, offsets), canon, bins, searched, n_iter, bin_start)
+    rows = int(in_read.any(dim=1).sum())
+    moved += rows * (lb * 3 // 8 + 4) + (4 * float(in_read.sum()) if taxon0 is not None else 0)
+    moved += 8 * (b * w if taxon0 is None else float(searched.sum()))
+    ops += rows * (13 * (lb - nt + 1) + 6 * w) + 8 * float(in_read.sum())
+    return bound(moved, ops)
 
 
 def counts_bound(segs, t: int) -> dict:
@@ -744,6 +824,8 @@ def phase_kernels(k: int):
     from krakenuniq_tpu_torch.classify import device_step
 
     fused_rec = phase_fallback_kernels() if hasattr(device_step, "kmer_bins") else None
+    if hasattr(device_step, "bsearch_words"):
+        phase_words_kernel()
     phase_acc_kernel()
     phase_counter_kernels()
 
@@ -1038,6 +1120,20 @@ def phase_acc_kernel():
     torch.cuda.empty_cache()
 
 
+def fused_floors(fused, valid, rows: dict, seed: int) -> dict:
+    """The fused probe's random-sector floors on its plane (probe_floor):
+    `floor_ms`, two random 16 B rows a valid query; `floor_1row_ms`, one;
+    `floor_mix_ms`, the mix the data needs, each valid query answered by its
+    first row paying the one-row floor's share and every other the two-row
+    one's (None without `rows`); with the rows' counts."""
+    nv = int(valid.sum())
+    two, one = probe_floor(fused, 2 * nv, seed), probe_floor(fused, nv, seed + 1)
+    f = None if rows["row1"] is None or nv == 0 else rows["row1"] / nv
+    return {**two, "floor_1row_ms": one["floor_ms"], "floor_1row_ms_by": one["floor_ms_by"],
+            "floor_mix_ms": None if f is None else f * one["floor_ms"] + (1 - f) * two["floor_ms"],
+            "rows_answered": rows, "row1_share": f}
+
+
 def plant_fused(fused, h, lb: int, seed: int):
     """Store the first half of `h` in slot 0 of its first-choice bucket and
     the second half in slot 1 of its second-choice bucket (choice bit set),
@@ -1085,12 +1181,13 @@ def phase_fallback_kernels(n: int = 8_500_000):
         h = random_hashes(n, gen)
         valid = torch.rand(n, device="cuda", generator=gen) >= 0.01
         vals = plant_fused(fused, h[: n // 2], lb, 37)
+        rows = fused_rows(fused, h, valid, lb)
         r = check_kernel(
             f"fused_probe lb={lb}", (n,),
             lambda: (hash_lookup_kmers((fused,), h, valid),),
             lambda: (hash_lookup_plain((fused,), h, valid),),
-            reps=10, bound=fused_bound(valid),
-            extra={"lb": lb, "table_gb": fused.numel() * 4 / 1e9, **probe_floor(fused, 2 * int(valid.sum()), 41)},
+            reps=10, bound=fused_bound(valid, rows, fused.numel() * 4),
+            extra={"lb": lb, "table_gb": fused.numel() * 4 / 1e9, **fused_floors(fused, valid, rows, 41)},
         )
         got = hash_lookup_kmers((fused,), h, valid)[: n // 2]
         ok = valid[: n // 2]
@@ -1156,6 +1253,135 @@ def phase_fallback_kernels(n: int = 8_500_000):
             reps=10, bound=bsearch_bound(planes, qs, bns, vs, n_iter, bs), extra={"n_iter": n_iter},
         )
     return rec
+
+
+# bin sizes the words entry's random planes give some queried bins: empty,
+# one key, a few hundred keys (bins of real reads hold ~35) and around
+# 2^n_iter (n_iter 10 converges on 511 keys, not 512; the short n_iter 5 on 31)
+WORDS_SIZES = (0, 1, 31, 32, 127, 128, 129, 300, 511, 512)
+
+
+def words_planes(canon, bins, searched, n_bins: int, bin0: int, seed: int, planted: float = 0.5):
+    """Sorted planes over the bins [bin0, bin0 + n_bins) (offsets relative to
+    bin0, the planes' bin_start) from a feed's lanes: `planted` of the
+    searched lanes in range give their canonical k-mer to their bin, every
+    bin is topped up with junk keys to a geometric size (mean 6.7, a fifth
+    of the bins empty), and 64 queried bins of each size in WORDS_SIZES take
+    that size (their planted keys cut to it). Returns (keys int64, vals
+    int32, vals_dense int32, offsets int64) on the feed's device."""
+    import torch
+
+    dev = canon.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = bins.reshape(-1) - bin0
+    ok = searched.reshape(-1) & (b >= 0) & (b < n_bins)
+    pick = ok & (torch.rand(b.shape, device=dev, generator=gen) < planted)
+    pk, inv = torch.unique(canon.reshape(-1)[pick], return_inverse=True)
+    pb = torch.zeros_like(pk)
+    pb[inv] = b[pick]  # a k-mer has one minimizer bin
+    size = torch.empty(n_bins, device=dev).geometric_(0.15, generator=gen).long()
+    size[torch.rand(n_bins, device=dev, generator=gen) < 0.2] = 0
+    queried = torch.unique(b[ok])
+    menu = torch.tensor(WORDS_SIZES, device=dev)
+    edge = queried[torch.randperm(queried.numel(), device=dev, generator=gen)[: 64 * len(WORDS_SIZES)]]
+    fixed = torch.full((n_bins,), -1, dtype=torch.int64, device=dev)
+    fixed[edge] = menu[torch.arange(edge.numel(), device=dev) % len(WORDS_SIZES)]
+    order = torch.sort(pb, stable=True).indices
+    pb, pk = pb[order], pk[order]
+    rank = torch.arange(pb.numel(), device=dev) - torch.searchsorted(pb, pb)
+    cap = fixed[pb]
+    keep = (cap < 0) | (rank < cap)
+    pb, pk = pb[keep], pk[keep]
+    n_planted = torch.bincount(pb, minlength=n_bins)
+    target = torch.where(fixed >= 0, fixed, n_planted + size)
+    jb = torch.repeat_interleave(torch.arange(n_bins, device=dev), target - n_planted)
+    jk = torch.randint(0, 1 << 62, (jb.numel(),), dtype=torch.int64, device=dev, generator=gen)
+    keys, kb = torch.cat([pk, jk]), torch.cat([pb, jb])
+    o = torch.sort(keys, stable=True).indices
+    o = o[torch.sort(kb[o], stable=True).indices]
+    offsets = torch.zeros(n_bins + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(target, 0)
+    n = keys.numel()
+    vals = torch.randint(1, 1 << 31, (n,), dtype=torch.int32, device=dev, generator=gen)
+    vals_dense = torch.randint(1, 2_400_000, (n,), dtype=torch.int32, device=dev, generator=gen)
+    return keys[o].contiguous(), vals, vals_dense, offsets
+
+
+def phase_words_kernel():
+    """bsearch_words (the binary search from the span route's packed words)
+    against its plain version on random sorted planes made from the feed's
+    own lanes (words_planes): the span shape [65536, 160] at k = 31, nt = 12
+    over all 4^12 bins (~95M keys), with n_iter 10 and a short 5, bin_start
+    0 and a shard from 12,345 that ends 5,000 bins short of the last (lanes
+    out of range on both sides), the first database's pass and a later one
+    (a seeded 30% of the lanes already set); rows of LONG_LB bases at (31,
+    12) over all bins and at (31, 20) over a window of 2^24 bins from the
+    smallest searched bin. Each record has the lanes searched and hit."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import (
+        bsearch_words,
+        bsearch_words_plain,
+        kmer_bins_plain,
+        pack_input,
+        unpack_input,
+    )
+    from krakenuniq_tpu_torch.kmer import ops as kops
+
+    cases = [  # b, lb, k, nt, bin_start, bins short of the end, n_iter, first
+        (65536, 160, 31, 12, 0, 0, 10, True), (65536, 160, 31, 12, 0, 0, 5, True),
+        (65536, 160, 31, 12, 12_345, 5_000, 10, True), (65536, 160, 31, 12, 0, 0, 10, False),
+        (64, LONG_LB, 31, 12, 0, 0, 10, True), (64, LONG_LB, 31, 20, None, 0, 10, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    for i, (b, lb, k, nt, bs, short, n_iter, first) in enumerate(cases):
+        lengths = (150, 160, 0, k - 1, k, 100) if lb == 160 else LONG_LENGTHS
+        codes, ambig = front_inputs(b, lb, 90 + i, lengths)
+        cw, aw = pack_input(codes, ambig)
+        lens = torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda()
+        w = lb - k + 1
+        canon, bins = kmer_bins_plain(unpack_input(cw, aw)[0], k, nt)
+        in_read = torch.arange(w, device="cuda")[None, :] < (lens - (k - 1)).clamp(min=0)[:, None]
+        searched = in_read & ~kops.window_any(unpack_input(cw, aw)[1], k)
+        if bs is None:  # a window of the 2^40 bins at nt = 20
+            bin0, n_all = int(bins[searched].min()), 1 << 24
+        else:
+            bin0, n_all = 0, 4 ** nt
+        keys, vals, vals_dense, offsets = words_planes(canon, bins, searched, n_all, bin0, 85 + i)
+        start = bin0 if bs is None else bs
+        k0 = int(offsets[start - bin0])
+        plane = (keys[k0:], vals[k0:], vals_dense[k0:],
+                 (offsets[start - bin0: n_all - short + 1] - k0).contiguous(), start)
+        t0 = td0 = None
+        if not first:
+            t0 = torch.where(torch.rand((b, w), device="cuda", generator=gen) < 0.3,
+                             torch.randint(1, 1 << 30, (b, w), dtype=torch.int32, device="cuda", generator=gen), 0)
+            td0 = torch.randint(0, 1 << 20, (b, w), dtype=torch.int32, device="cuda", generator=gen)
+        # a later pass updates its planes in place: each form its own copies
+        own = {} if first else {plain: (t0.clone(), td0.clone()) for plain in (False, True)}
+
+        def run(plain):
+            fn = bsearch_words_plain if plain else bsearch_words
+            if first:
+                return fn(plane, cw, aw, lens, k, nt, n_iter)
+            t, td = own[plain]
+            return fn(plane, cw, aw, lens, k, nt, n_iter, t.copy_(t0), td.copy_(td0))
+
+        got = run(True)
+        rb = bins - start
+        rec = check_kernel(
+            f"bsearch_words k={k} nt={nt} n_iter={n_iter} bin_start={start}" + ("" if first else " later"),
+            (b, w), lambda: run(False), lambda: run(True), reps=10,
+            bound=words_bound(cw, aw, lens, k, nt, plane, n_iter, t0),
+            extra={"k": k, "nt": nt, "n_iter": n_iter, "bin_start": start, "n_bins": plane[3].numel() - 1,
+                   "first": first, "keys": plane[0].numel(), "lanes_searched": int(searched.sum()),
+                   "lanes_in_range": int((searched & (rb >= 0) & (rb < plane[3].numel() - 1)).sum()),
+                   "lanes_hit": int((got[0] != 0).sum())},
+        )
+        if rec["lanes_hit"] == 0 or (bs and rec["lanes_in_range"] == rec["lanes_searched"]):
+            raise AssertionError(f"bsearch_words case {i}: no hit, or no lane out of range: {rec}")
+        del keys, vals, vals_dense, offsets, plane, canon, bins
+    torch.cuda.empty_cache()
 
 
 def probe_case(name, planes, h, valid, reps):
@@ -1677,7 +1903,7 @@ def phase_fallback_goldens() -> dict:
                         if got != f.read():
                             raise AssertionError(f"golden {name} differs through the {kind} fallback ({opts})")
         launches[kind] = dict(_kernels.LAUNCHES)
-        want = ("fused_probe",) if kind == "fused" else ("kmer_bins", "bsearch_lookup")
+        want = ("fused_probe",) if kind == "fused" else ("kmer_bins", "bsearch_lookup", "bsearch_words")
         if any(launches[kind][n] == 0 for n in want) or launches[kind]["chd_probe"]:
             raise AssertionError(f"{kind} fallback goldens: launches {launches[kind]}")
         log(f"goldens through the {kind} fallback (2 database sets x 4 runs): byte-equal; "
@@ -2201,15 +2427,19 @@ def phase_bsearch(run4, reps: int):
     the load builds), every lookup a search of the sorted planes on the
     card (dense ids, so the span dictionary engages, as in phase 7); phase
     4's reads through Classifier.run and write_report, byte-equal to phase
-    4, with kmer_bins and bsearch_lookup launched once per span and
-    chd_probe never; one span step against the plain one; kmer_bins and
-    bsearch_lookup against their plain versions on that span's feed and
-    the real planes."""
+    4, with bsearch_words launched once per span, kmer_bins and
+    bsearch_lookup never, and chd_probe never; one span step against the
+    plain one; on that span's feed and the real planes, bsearch_words
+    against its plain version, and the unpacked feed's pair, kmer_bins and
+    bsearch_lookup, each against its plain version (bsearch_lookup with its
+    random-sector floor of 2 + n_iter reads)."""
     import torch
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
     from krakenuniq_tpu_torch.classify.device_step import (
         _unpack_codes,
+        bsearch_words,
+        bsearch_words_plain,
         kmer_bins_plain,
         kmer_bins_words,
         kmer_front_words,
@@ -2218,6 +2448,7 @@ def phase_bsearch(run4, reps: int):
 
     db_dir = os.path.dirname(run4["kraken"])
     remove_port_caches(db_dir)
+    held = torch.cuda.memory_allocated()
     t = time.time()
     with forced_fallback("bsearch"):
         c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
@@ -2234,8 +2465,9 @@ def phase_bsearch(run4, reps: int):
     out_path, report_path = os.path.join(db_dir, "kraken_bsearch.out"), os.path.join(db_dir, "report_bsearch.tsv")
     run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
     log(f"bsearch: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
-    per_span = ("kmer_bins", "bsearch_lookup", "kmer_front", "scores", "pack_runs", "span_dict")
-    if c.n_units or any(launches[k] != c.n_spans for k in per_span) or launches["chd_probe"] or launches["fused_probe"]:
+    per_span = ("bsearch_words", "kmer_front", "scores", "pack_runs", "span_dict")
+    off_path = ("kmer_bins", "bsearch_lookup", "chd_probe", "fused_probe")
+    if c.n_units or any(launches[k] != c.n_spans for k in per_span) or any(launches[k] for k in off_path):
         raise AssertionError(f"bsearch: {c.n_units} Python-route units, launches {launches} for {c.n_spans} spans")
     same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
     log("bsearch kraken output and report: byte-equal to phase 4's")
@@ -2253,6 +2485,16 @@ def phase_bsearch(run4, reps: int):
     lb, k, nt = 16 * lbw, c.k, c.nt
     cw = torch.from_numpy(codes_w.view(np.int32)).cuda()
     aw = torch.from_numpy(ambig_w.view(np.int32)).cuda()
+    lengths = torch.from_numpy(lengths_np).cuda()
+    n_iter = c._cfg.n_iter
+    plane = (*planes, db.bin_start)
+    words_rec = check_kernel(
+        "bsearch_words", (b, lb - k + 1),
+        lambda: bsearch_words(plane, cw, aw, lengths, k, nt, n_iter),
+        lambda: bsearch_words_plain(plane, cw, aw, lengths, k, nt, n_iter),
+        reps=reps, bound=words_bound(cw, aw, lengths, k, nt, plane, n_iter, None),
+        extra={"k": k, "nt": nt, "n_iter": n_iter},
+    )
     codes_u = _unpack_codes(cw)
     bins_rec = check_kernel(
         "kmer_bins words", (b, lb),
@@ -2263,9 +2505,7 @@ def phase_bsearch(run4, reps: int):
     canon, bins = kmer_bins_words(cw, k, nt)
     _, _, kmer_ambig = kmer_front_words(cw, aw, k, c._cfg.hll_p)
     w = lb - k + 1
-    lengths = torch.from_numpy(lengths_np).cuda()
     search = (torch.arange(w, device="cuda")[None, :] < (lengths - (k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
-    n_iter = c._cfg.n_iter
     keys_rows = planes[0][: planes[0].numel() // 2 * 2].view(torch.int32).view(-1, 4)
     floor = probe_floor(keys_rows, int(search.sum()), 53)
     floor = {"floor_ms": floor["floor_ms"] * (2 + n_iter), "floor_ms_by": floor["floor_ms_by"],
@@ -2277,6 +2517,14 @@ def phase_bsearch(run4, reps: int):
         reps=reps, bound=bsearch_bound(planes, canon, bins, search, n_iter, db.bin_start),
         extra={"n_iter": n_iter, **floor},
     )
+    pair_ms = bins_rec["device_ms"] + look_rec["device_ms"]
+    # the keys in the bin of each searched lane
+    rb = bins[search] - db.bin_start
+    sizes = (planes[3][rb + 1] - planes[3][rb]).double()
+    bin_keys = {"mean": float(sizes.mean()), "median": float(sizes.median()), "p90": float(sizes.quantile(0.9)),
+                "max": int(sizes.max()), "share_over_64": float((sizes > 64).double().mean())}
+    log(f"bsearch span: bsearch_words {words_rec['device_ms']:.4f} ms against kmer_bins + bsearch_lookup "
+        f"{pair_ms:.4f} ms of card")
     spans = max(c.n_spans, 1)
     emit({
         "phase": "bsearch",
@@ -2300,13 +2548,212 @@ def phase_bsearch(run4, reps: int):
         "device_s_per_span": c.device_seconds / spans,
         "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
         "span_step_device_ms_by_op": by_op,
+        "searched_lane_bin_keys": bin_keys,
+        "bsearch_words_device_ms": words_rec["device_ms"],
+        "kmer_bins_plus_bsearch_lookup_device_ms": pair_ms,
         "max_memory_allocated_gb": peak / 1e9,
+        "allocated_before_load_gb": held / 1e9,
         "launches": launches,
         "equal_to_phase4": True,
     })
-    del c, db, planes, canon, bins, out_k, out_p, codes_u, keys_rows
+    del c, db, planes, plane, canon, bins, out_k, out_p, codes_u, keys_rows
     torch.cuda.empty_cache()
-    return {"kmer_bins": bins_rec, "bsearch_lookup": look_rec}, launches
+    return {"kmer_bins": bins_rec, "bsearch_lookup": look_rec, "bsearch_words": words_rec}, launches
+
+
+def fused_span(c, reads: str, reps: int, seed: int) -> dict:
+    """fused_probe against its plain version on the first span of `reads`:
+    the span's hashes (kmer_front_words) and search mask on the loaded fused
+    plane, with the rows that answer (fused_rows), the bound those rows give
+    and both random-sector floors (fused_floors)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+
+    db = c.dbs[0]
+    fused, lb = db.hash_table[0], db.hash_lb
+    _, buf, offs, _, _ = next(c._iter_native_spans(reads))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    cw = torch.from_numpy(codes_w.view(np.int32)).cuda()
+    aw = torch.from_numpy(ambig_w.view(np.int32)).cuda()
+    lengths = torch.from_numpy(lengths_np).cuda()
+    hashes, _, kmer_ambig = kmer_front_words(cw, aw, c.k, c._cfg.hll_p)
+    w = hashes.shape[1]
+    search = (torch.arange(w, device="cuda")[None, :] < (lengths - (c.k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    rows = fused_rows(fused, hashes, search, lb)
+    return check_kernel(
+        "fused_probe span", tuple(hashes.shape),
+        lambda: (hash_lookup_kmers((fused,), hashes, search),),
+        lambda: (hash_lookup_plain((fused,), hashes, search),),
+        reps=reps, bound=fused_bound(search, rows, fused.numel() * 4),
+        extra={"lb": lb, "table_gb": fused.numel() * 4 / 1e9, **fused_floors(fused, search, rows, seed)},
+    )
+
+
+def phase_fused(run4, reps: int):
+    """10. The fused fallback at full size: phase 4's database loaded with CHD
+    placement made to fail at every width (its table caches removed first,
+    so the load builds the fused two-choice layout over value-pool ids),
+    the caches removed again after the load (no later phase reads a fused
+    table); phase 4's reads through Classifier.run and write_report,
+    byte-equal to phase 4, with fused_probe launched once per span and
+    chd_probe never; one span step against the plain one; fused_probe on
+    that span's hashes and the real plane (fused_span)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    db_dir = os.path.dirname(run4["kraken"])
+    remove_port_caches(db_dir)
+    held = torch.cuda.memory_allocated()
+    t = time.time()
+    with forced_fallback("fused"):
+        c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
+    load_s = time.time() - t
+    remove_port_caches(db_dir)
+    db = c.dbs[0]
+    if (c._cfg.lookup_mode != "hash" or db.hash_table is None or len(db.hash_table) != 1 or c._pool is None
+            or c.route != "span"):
+        raise AssertionError("the forced fallback should probe the fused layout over pool ids on the span route")
+    table_gb = db.hash_table[0].numel() * 4 / 1e9
+    log(f"fused fallback loaded in {load_s:.1f}s {db.timings}; lb={db.hash_lb}, {table_gb:.3f} GB plane")
+    out_path, report_path = os.path.join(db_dir, "kraken_fused.out"), os.path.join(db_dir, "report_fused.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    log(f"fused: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
+    per_span = ("fused_probe", "kmer_front", "scores", "pack_runs")
+    off_path = ("chd_probe", "bsearch_words", "bsearch_lookup", "kmer_bins")
+    if c.n_units or any(launches[k] != c.n_spans for k in per_span) or any(launches[k] for k in off_path):
+        raise AssertionError(f"fused: {c.n_units} Python-route units, launches {launches} for {c.n_spans} spans")
+    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
+    log("fused kraken output and report: byte-equal to phase 4's")
+
+    _, buf, offs, _, _ = next(c._iter_native_spans(run4["reads"]))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    out_k = c._span_step(codes_w, ambig_w, lengths_np)
+    out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
+    torch.cuda.synchronize()
+    for key in out_p:
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"fused span: kernel step differs from plain step in {key!r}")
+    by_op = device_ms_by_op(lambda: c._span_step(codes_w, ambig_w, lengths_np), reps=5)
+    rec = fused_span(c, run4["reads"], reps, 97)
+    spans = max(c.n_spans, 1)
+    emit({
+        "phase": "fused",
+        "route": c.route,
+        "db_keys": int(db.key_ct),
+        "lb": db.hash_lb,
+        "table_gb": table_gb,
+        "load_s": load_s,
+        "placement_s": db.timings.get("build_place"),
+        "load_steps_s": db.timings,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "classify_s": classify_s,
+        "spans": c.n_spans,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k_: v / spans for k_, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "span_step_device_ms_by_op": by_op,
+        "fused_probe_span": {key: rec.get(key) for key in (
+            "device_ms", "floor_ms", "floor_1row_ms", "floor_mix_ms", "rows_answered", "row1_share", "bound_ms")},
+        "max_memory_allocated_gb": peak / 1e9,
+        "allocated_before_load_gb": held / 1e9,
+        "launches": launches,
+        "equal_to_phase4": True,
+    })
+    del c, db, out_k, out_p
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def phase_fallback_compare(reps: int) -> None:
+    """--fallback-only DIR: phase 4's database and reads (built, or reused
+    from an earlier run of the same call, under this checkout's _build/),
+    loaded by DIR's package under both forced fallbacks, each from a
+    directory of its own that links the database's files: the binary search
+    (no table cache: the build fails), then the fused layout (its table
+    cache kept there, so every load after a call's first is warm; the
+    packages' cache keys agree while their build sources do). On the first
+    span: the bins and the search, as bsearch_words (a package that has
+    it) and as the pair kmer_bins + bsearch_lookup, each against its plain
+    version; fused_probe as phase 10 times it (fused_span); one JSON line."""
+    import torch
+
+    import krakenuniq_tpu_torch
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify import device_step as ds
+    from krakenuniq_tpu_torch.lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
+
+    db_dir, genomes, _ = ensure_db_dir(N_SPECIES, GENOME_LEN, 31, 12, PAD_NODES, BALLAST)
+    reads = ensure_reads(db_dir, genomes)
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(krakenuniq_tpu_torch.__file__)))
+    dirs = {}
+    for kind in ("bsearch", "fused"):
+        dirs[kind] = f"{db_dir}_{kind}"
+        os.makedirs(dirs[kind], exist_ok=True)
+        for name in ("database.kdb", "database.idx", "taxDB"):
+            if not os.path.lexists(os.path.join(dirs[kind], name)):
+                os.symlink(os.path.join(db_dir, name), os.path.join(dirs[kind], name))
+    line = {"phase": "fallback_compare", "package": pkg}
+
+    remove_port_caches(dirs["bsearch"])
+    t = time.time()
+    with forced_fallback("bsearch"):
+        c = Classifier([dirs["bsearch"]], ClassifyOptions(print_progress=False, device="cuda"))
+    line["bsearch_load_s"] = time.time() - t
+    if c._cfg.lookup_mode != "bsearch":
+        raise AssertionError(f"fallback compare: the bsearch load took lookup mode {c._cfg.lookup_mode}")
+    db = c.dbs[0]
+    planes, n_iter, k, nt = db.sorted_planes, c._cfg.n_iter, c.k, c.nt
+    _, buf, offs, _, _ = next(c._iter_native_spans(reads))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    cw = torch.from_numpy(codes_w.view(np.int32)).cuda()
+    aw = torch.from_numpy(ambig_w.view(np.int32)).cuda()
+    lengths = torch.from_numpy(lengths_np).cuda()
+    b, lb = cw.shape[0], 16 * cw.shape[1]
+    if hasattr(ds, "bsearch_words"):
+        plane = (*planes, db.bin_start)
+        line["bsearch_words"] = check_kernel(
+            "bsearch_words", (b, lb - k + 1),
+            lambda: ds.bsearch_words(plane, cw, aw, lengths, k, nt, n_iter),
+            lambda: ds.bsearch_words_plain(plane, cw, aw, lengths, k, nt, n_iter),
+            reps=reps, bound=words_bound(cw, aw, lengths, k, nt, plane, n_iter, None), extra={"n_iter": n_iter},
+        )
+    codes_u = ds._unpack_codes(cw)
+    bins_rec = check_kernel(
+        "kmer_bins words", (b, lb), lambda: ds.kmer_bins_words(cw, k, nt), lambda: ds.kmer_bins_plain(codes_u, k, nt),
+        reps=reps, bound=bins_bound(b, lb, k, nt, True),
+    )
+    canon, bins = ds.kmer_bins_words(cw, k, nt)
+    _, _, kmer_ambig = ds.kmer_front_words(cw, aw, k, c._cfg.hll_p)
+    w = lb - k + 1
+    search = (torch.arange(w, device="cuda")[None, :] < (lengths - (k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    look_rec = check_kernel(
+        "bsearch_lookup", (b, w),
+        lambda: lookup_kmers(*planes, canon, bins, search, n_iter, db.bin_start),
+        lambda: lookup_kmers_plain(*planes, canon, bins, search, n_iter, db.bin_start),
+        reps=reps, bound=bsearch_bound(planes, canon, bins, search, n_iter, db.bin_start), extra={"n_iter": n_iter},
+    )
+    line.update({"kmer_bins": bins_rec, "bsearch_lookup": look_rec,
+                 "kmer_bins_plus_bsearch_lookup_device_ms": bins_rec["device_ms"] + look_rec["device_ms"]})
+    del c, db, planes, canon, bins
+    torch.cuda.empty_cache()
+
+    t = time.time()
+    with forced_fallback("fused"):
+        c = Classifier([dirs["fused"]], ClassifyOptions(print_progress=False, device="cuda"))
+    line["fused_load_s"], line["fused_load_steps_s"] = time.time() - t, c.dbs[0].timings
+    if c.dbs[0].hash_table is None or len(c.dbs[0].hash_table) != 1:
+        raise AssertionError("fallback compare: the fused load did not build the fused layout")
+    line["fused_probe"] = fused_span(c, reads, reps, 97)
+    emit(line)
+    del c
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2822,6 +3269,7 @@ KERNELS = {
     "fused_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:46"),
     "kmer_bins": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/kmer/ops.py:87"),
     "bsearch_lookup": ("krakenuniq_tpu_torch/csrc/bsearch_lookup.cu", "krakenuniq_tpu/lookup/xla_lookup.py:35"),
+    "bsearch_words": ("krakenuniq_tpu_torch/csrc/bsearch_lookup.cu", "krakenuniq_tpu/classify/device_step.py:157"),
 }
 
 
@@ -2835,8 +3283,11 @@ def main(argv=None) -> int:
     only.add_argument("--ooc-only", metavar="DIR",
                       help="measure the out-of-core chunk passes of the krakenuniq_tpu_torch package under "
                            "DIR on phase 4's database and reads (phase 1, then phase 8's passes)")
+    only.add_argument("--fallback-only", metavar="DIR",
+                      help="measure the fallback lookups' kernels of the krakenuniq_tpu_torch package under "
+                           "DIR on phase 4's database and reads (phase 1, then phases 9's and 10's spans)")
     args = ap.parse_args(argv)
-    pkg_dir = args.kernels_only or args.ooc_only
+    pkg_dir = args.kernels_only or args.ooc_only or args.fallback_only
     if pkg_dir:
         sys.path.insert(0, os.path.abspath(pkg_dir))
     import torch
@@ -2865,8 +3316,12 @@ def main(argv=None) -> int:
         phase_ooc_compare(reps=20)
         print(card)
         return 0
+    if args.fallback_only:
+        phase_fallback_compare(reps=20)
+        print(card)
+        return 0
 
-    gather_rec, fused_rec = phase_kernels(k=31)
+    gather_rec, _ = phase_kernels(k=31)
     if args.kernels_only:
         print(card)
         return 0
@@ -2875,8 +3330,15 @@ def main(argv=None) -> int:
     recs, launches, main_run = phase_main(reps=50)
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
     phase_counters(main_run, reps=20)
+    # the later phases load tables of their own: drop phase 4's, so that the
+    # peak device memory each reports is its own
+    del main_run["c"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 4's classifier released: {torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated")
     recs["span_dict"], dict_launches = phase_dense_ids(main_run, reps=20)
     bs_recs, bs_launches = phase_bsearch(main_run, reps=20)
+    fused_rec, fused_launches = phase_fused(main_run, reps=20)
     recs["chd_probe_acc"], ooc_launches = phase_ooc(main_run, reps=20)
     probe_launches = phase_probe()
     recs.update(sc_recs)
@@ -2884,12 +3346,14 @@ def main(argv=None) -> int:
     recs["row_gather"] = gather_rec
     recs["fused_probe"] = fused_rec
     # each kernel's launches come from the run of the path it serves: the
-    # fused probe's from the goldens through the fused fallback, the
-    # binary search's from phase 9
+    # fused probe's from phase 10, the binary search's words entry's from
+    # phase 9, the unpacked feed's bins and search from the goldens through
+    # the bsearch fallback (their Python-route runs)
     launches = {**launches, **{k: sc_launches[k] for k in ("taxon_counts", "hll_regmax", "sparse_stats", "sparse_keys")},
                 "span_dict": dict_launches["span_dict"], "chd_probe_acc": ooc_launches["chd_probe_acc"],
-                "row_gather": probe_launches["row_gather"], "fused_probe": fb_launches["fused"]["fused_probe"],
-                "kmer_bins": bs_launches["kmer_bins"], "bsearch_lookup": bs_launches["bsearch_lookup"]}
+                "row_gather": probe_launches["row_gather"], "fused_probe": fused_launches["fused_probe"],
+                "bsearch_words": bs_launches["bsearch_words"], "kmer_bins": fb_launches["bsearch"]["kmer_bins"],
+                "bsearch_lookup": fb_launches["bsearch"]["bsearch_lookup"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

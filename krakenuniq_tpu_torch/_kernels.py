@@ -11,8 +11,8 @@ process each.
 `LAUNCHES[name]` counts the kernel launches made through `launch`: the
 wrappers (device_step.kmer_front and kmer_front_words, device_step.pack_runs,
 device_step.span_dict, device_step.kmer_bins and kmer_bins_words,
-device_step.probe_chunk_core, hash_lookup.hash_lookup_kmers,
-xla_lookup.lookup_kmers,
+device_step.probe_chunk_core, device_step.bsearch_words,
+hash_lookup.hash_lookup_kmers, xla_lookup.lookup_kmers,
 resolve.scores,
 device_counters.taxon_counts, device_counters.hll_regmax,
 sparse_exact.sparse_stats, tools.probe_gather.row_gather) call it exactly
@@ -23,8 +23,8 @@ library may hold other launching entry points (`ENTRIES`); each counts
 under the name its entry gives: the packed kmer_front under kmer_front,
 sparse_stats' key build under its own name, sparse_keys, chd_probe's
 out-of-core probe and fused-layout probe under their own, chd_probe_acc and
-fused_probe, and kmer_front's minimizer-bin entries (both feeds) under
-kmer_bins.
+fused_probe, kmer_front's minimizer-bin entries (both feeds) under
+kmer_bins, and bsearch_lookup's packed-feed entry under bsearch_words.
 """
 
 from __future__ import annotations
@@ -96,6 +96,12 @@ ENTRIES = {
     # stream: the binary-search lookup's canonical k-mers and minimizer bins
     "kmer_bins": ("kmer_front", (_P, _P, _P, _I, _I, _I, _I, _P), "kmer_bins"),
     "kmer_bins_packed": ("kmer_front", (_P, _P, _P, _I, _I, _I, _I, _P), "kmer_bins"),
+    # packed codes, packed flags, lengths, keys, vals, vals_dense, offsets,
+    # taxon, taxon_dense (read and written in place), B, LB, W, k, nt,
+    # n_keys, n_bins, n_iter, bin_start, first, stream: one database's
+    # binary search of the lanes still 0, bins and k-mers from the words
+    "bsearch_words": ("bsearch_lookup", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
+                                         _L, _I, _P), "bsearch_words"),
 }
 # card records of one launch of an entry point that puts several on the
 # stream: sparse_stats' decide and emit kernels; span_dict's bitmap clear

@@ -6,8 +6,10 @@ for the resident CHD-hash path:
   murmur hashes + HLL encodings (`kmer_front` kernel) -> CHD lookup per
   database, hierarchically (`chd_probe` kernel; `fused_probe` on a table
   that fell back to the fused layout), or the binary search over the sorted
-  planes of databases whose table build failed (lookup_mode "bsearch":
-  canonical k-mers and minimizer bins from the `kmer_bins` kernel, then the
+  planes of databases whose table build failed (lookup_mode "bsearch": on
+  the span route's packed feed one `bsearch_words` kernel a database, which
+  forms the canonical k-mers and minimizer bins from the words itself and
+  searches; on the unpacked feed the `kmer_bins` kernel, then the
   `bsearch_lookup` kernel), or out of core the span's
   word plane that `probe_chunk_core` accumulated over the chunk tables
   (`chd_probe_acc` kernel: the k-mer front, the minimizer bins and the
@@ -550,13 +552,91 @@ class StepConfig:
     n_iter: int = 1  # binary-search trip count (DeviceDB.search_iters)
 
 
-def _bins(codes, cfg: StepConfig, plain: bool):
-    """The bsearch lookup's (canonical k-mers, minimizer bins) on either feed."""
-    if cfg.packed_input:
-        if plain:
-            return kmer_bins_plain(_unpack_codes(codes), cfg.k, cfg.nt)
-        return kmer_bins_words(codes, cfg.k, cfg.nt)
-    return (kmer_bins_plain if plain else kmer_bins)(codes, cfg.k, cfg.nt)
+def _words_check(name, plane, codes, ambig, lengths, k: int, nt: int, taxon, taxon_dense):
+    """Check the words entry's operands; returns (B, LB, W)."""
+    b, lbw = codes.shape
+    lb = 16 * lbw
+    if ambig.shape != (b, lbw // 2) or lbw % 2 or lengths.shape != (b,):
+        raise ValueError(f"{name}: need [B, LB/16] codes, [B, LB/32] flags and [B] lengths, got "
+                         f"{tuple(codes.shape)}, {tuple(ambig.shape)}, {tuple(lengths.shape)}")
+    if not 1 <= nt <= k <= 31 or lb < k:
+        raise ValueError(f"{name}: need 1 <= nt <= k <= 31 and LB >= k (k={k}, nt={nt}, LB={lb})")
+    w = lb - k + 1
+    if (taxon is None) != (taxon_dense is None) or (taxon is not None and not (
+            taxon.shape == taxon_dense.shape == (b, w))):
+        raise ValueError(f"{name}: taxon and taxon_dense are both None or both [B, LB - k + 1] = [{b}, {w}]")
+    if len(plane) != 5:
+        raise ValueError(f"{name}: a database's plane is (keys, vals, vals_dense, offsets, bin_start)")
+    return b, lb, w
+
+
+def _words_lanes(codes, ambig, lengths, k: int, taxon):
+    """The lanes the words entry searches: in the read, free of ambiguous
+    bases and, when `taxon` is given, still 0 there; with the unpacked
+    codes."""
+    codes_u, ambig_u = unpack_input(codes, ambig)
+    w = codes_u.shape[1] - k + 1
+    pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
+    lanes = (pos < torch.clamp(lengths - (k - 1), min=0)[:, None]) & ~kops.window_any(ambig_u, k)
+    if taxon is not None:
+        lanes &= taxon == 0
+    return codes_u, lanes
+
+
+def _words_merge(t, td, lanes, taxon, taxon_dense):
+    if taxon is None:
+        return t, td
+    taxon.copy_(torch.where(lanes, t, taxon))
+    taxon_dense.copy_(torch.where(lanes, td, taxon_dense))
+    return taxon, taxon_dense
+
+
+def bsearch_words_plain(plane, codes, ambig, lengths, k: int, nt: int, n_iter: int, taxon=None,
+                        taxon_dense=None):
+    """Plain version of `bsearch_words`: `kmer_bins_plain` on the unpacked
+    codes, then `lookup_kmers_plain` over the step's mask of the lanes still
+    unclassified (krakenuniq_tpu/classify/device_step.py:157-212)."""
+    _words_check("bsearch_words", plane, codes, ambig, lengths, k, nt, taxon, taxon_dense)
+    keys, vals, vals_dense, offsets, bin_start = plane
+    codes_u, lanes = _words_lanes(codes, ambig, lengths, k, taxon)
+    canon, bins = kmer_bins_plain(codes_u, k, nt)
+    t, td = lookup_kmers_plain(keys, vals, vals_dense, offsets, canon, bins, lanes, n_iter, bin_start)
+    return _words_merge(t, td, lanes, taxon, taxon_dense)
+
+
+def bsearch_words(plane, codes, ambig, lengths, k: int, nt: int, n_iter: int, taxon=None, taxon_dense=None,
+                  plain: bool = False):
+    """One database's binary search of a span's lanes from its packed feed:
+    codes int32 [B, LB/16] and ambig int32 [B, LB/32] words (LB a multiple
+    of 32), lengths int32 [B], `plane` = (keys, vals, vals_dense, offsets,
+    bin_start) as `lookup_kmers` takes them. A lane in its read and free of
+    ambiguous bases searches its canonical k-mer in its minimizer bin (nt)
+    for n_iter steps. With taxon None (the first database), returns new
+    (taxon int32 [B, LB - k + 1] (stored uint32 bits), taxon_dense int32), 0
+    where not found; else updates the given planes in place, only on the
+    lanes still 0 in taxon (a hit is keyed on the stored taxid, so the first
+    database's hit wins), and returns them. CUDA tensors launch the
+    `bsearch_words` kernel (csrc/bsearch_lookup.cu), which forms the k-mers
+    and bins itself: no k-mer or bin plane touches device memory; CPU
+    tensors, or `plain`, run `bsearch_words_plain`."""
+    if plain or codes.device.type == "cpu":
+        return bsearch_words_plain(plane, codes, ambig, lengths, k, nt, n_iter, taxon, taxon_dense)
+    b, lb, w = _words_check("bsearch_words", plane, codes, ambig, lengths, k, nt, taxon, taxon_dense)
+    keys, vals, vals_dense, offsets, bin_start = plane
+    first = taxon is None
+    if first:
+        taxon = torch.empty((b, w), dtype=torch.int32, device=codes.device)
+        taxon_dense = torch.empty_like(taxon)
+    dev = _kernels.check_cuda("bsearch_words", codes=codes, ambig=ambig, lengths=lengths, keys=keys, vals=vals,
+                              vals_dense=vals_dense, offsets=offsets, taxon=taxon, taxon_dense=taxon_dense)
+    if any(t.dtype != torch.int32 for t in (codes, ambig, lengths, vals, vals_dense, taxon, taxon_dense)):
+        raise TypeError("bsearch_words: the words, lengths, vals and taxon planes must be int32")
+    if keys.dtype != torch.int64 or offsets.dtype != torch.int64 or offsets.numel() < 1:
+        raise TypeError("bsearch_words: keys and offsets must be int64, offsets [n_bins + 1]")
+    _kernels.launch("bsearch_words", dev, codes, ambig, lengths, keys, vals, vals_dense, offsets, taxon,
+                    taxon_dense, b, lb, w, k, nt, keys.numel(), offsets.numel() - 1, n_iter, int(bin_start),
+                    int(first))
+    return taxon, taxon_dense
 
 
 def _front(codes, ambig, cfg: StepConfig, plain: bool):
@@ -652,8 +732,6 @@ def classify_step_core(
     valid = pos < n_kmers
 
     search = valid & ~kmer_ambig
-    taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
-    found = torch.zeros((b, w), dtype=torch.bool, device=codes.device)
     # bsearch: the stored taxids (uint32 bits), which the "taxa" plane
     # returns as they are; the other modes map taxon_dense through
     # taxid_table instead
@@ -664,12 +742,28 @@ def classify_step_core(
         taxon_dense = torch.where(search, db_planes, 0)
         found = taxon_dense != 0
         db_planes = ()
-    elif cfg.lookup_mode == "bsearch":
-        canon, bins = _bins(codes, cfg, plain)
-        taxon = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
-        search_fn = lookup_kmers_plain if plain else lookup_kmers
-    elif cfg.lookup_mode != "hash":
-        raise ValueError(f"lookup_mode must be 'hash', 'bsearch' or 'acc', got {cfg.lookup_mode!r}")
+    elif cfg.lookup_mode == "bsearch" and cfg.packed_input:
+        # one pass a database from the span's words, each writing only the
+        # lanes still 0 in taxon: a hit is keyed on the stored taxid, as the
+        # JAX package's bsearch branch keys it (a value whose taxon is
+        # missing from the taxonomy, dense id 0, is still a hit), so a lane
+        # is found iff its taxon is nonzero and the first database's hit wins
+        for plane in db_planes:
+            taxon, taxon_dense = bsearch_words(plane, codes, ambig, lengths, k, cfg.nt, cfg.n_iter, taxon,
+                                               None if taxon is None else taxon_dense, plain=plain)
+        if taxon is None:  # no database
+            taxon = taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
+        found = taxon != 0
+        db_planes = ()
+    else:
+        taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
+        found = torch.zeros((b, w), dtype=torch.bool, device=codes.device)
+        if cfg.lookup_mode == "bsearch":
+            canon, bins = (kmer_bins_plain if plain else kmer_bins)(codes, cfg.k, cfg.nt)
+            taxon = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
+            search_fn = lookup_kmers_plain if plain else lookup_kmers
+        elif cfg.lookup_mode != "hash":
+            raise ValueError(f"lookup_mode must be 'hash', 'bsearch' or 'acc', got {cfg.lookup_mode!r}")
     # hierarchical multi-DB: later DBs only fill lanes still unclassified
     # (classify.cpp:927-936)
     for plane in db_planes:
@@ -680,9 +774,7 @@ def classify_step_core(
                                   bin_start)
             taxon = torch.where(remaining, t_i, taxon)
             taxon_dense = torch.where(remaining, td_i, taxon_dense)
-            # a hit is keyed on the stored taxid, as the JAX package's
-            # bsearch branch keys it: a value whose taxon is missing from
-            # the taxonomy (dense id 0) is still a hit
+            # keyed on the stored taxid, as above
             found = found | (t_i != 0)
             continue
         word = lookup(plane, hashes, remaining)

@@ -77,10 +77,19 @@
 // its value word are the choice bit and the low 32-lb bits of hc: all 64
 // bits of hc, so the lookup is exact. The value is the word's low lb-1
 // bits; an empty all-zero slot yields 0. Bound: random 32-byte sectors,
-// two 16-byte rows per valid query at independent addresses. Design: a
-// thread takes the same Q = 4 queries with the same vector loads and
-// cache policy as chd_probe, and issues all 2Q row loads (they do not
-// depend on each other) before the first compare.
+// one 16-byte row per valid query, and a second where the first holds no
+// value for it. Design: the build is a two-choice cuckoo (db/hash_table.py,
+// _host_place) that starts every key in its first bucket and moves it to
+// its second only when evicted, so at the tables' loads most keys sit in
+// b1. A thread takes kQF = 8 queries (hashes as four 16-byte vectors, flags
+// as one 8-byte word, values out as two 16-byte stores), loads all their b1
+// rows, compares, and then loads the b2 row only of the valid queries whose
+// row-1 value is 0 (reusing row 1's registers where b2 == b1). Row 2 is
+// never skipped on a tag match alone: an all-zero empty slot of b1 matches a
+// query whose tag and high bits are zero, and yields 0. A nonzero row-1
+// value matched all 64 bits of h, and GOLDEN is odd, so the same key cannot
+// also match in b2 (the build stores each key once): max(v1, v2) = v1. Rows
+// use chd_probe's cache policy.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -91,6 +100,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kQ = 4;  // queries per thread
+constexpr int kQF = 8;  // queries per thread (fused_probe)
 constexpr int kNeed = 4;  // acc words a thread reads at once (chd_probe_acc)
 constexpr uint64_t kGolden = 0x9E3779B97F4A7C15ull;
 constexpr uint64_t kC2 = 0xC2B2AE3D27D4EB4Full;
@@ -310,61 +320,74 @@ __global__ void __launch_bounds__(kThreads)
 fused_probe_kernel(const uint4* __restrict__ fused, const uint64_t* __restrict__ hashes,
                    const uint8_t* __restrict__ valid, uint32_t* __restrict__ out, long long n,
                    int lb) {
-  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQF;
   if (i0 >= n) return;
-  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
-                   !((uintptr_t)valid & 3);
-  uint64_t h[kQ];
-  bool v[kQ];
+  const bool vec = i0 + kQF <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
+                   !((uintptr_t)valid & 7);
+  uint64_t h[kQF];
+  bool v[kQF];
   if (vec) {
-    const ulonglong2 h01 = reinterpret_cast<const ulonglong2*>(hashes + i0)[0];
-    const ulonglong2 h23 = reinterpret_cast<const ulonglong2*>(hashes + i0)[1];
-    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
-    h[0] = h01.x;
-    h[1] = h01.y;
-    h[2] = h23.x;
-    h[3] = h23.y;
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) v[j] = (flags >> (8 * j)) & 0xFFu;
+    for (int j = 0; j < kQF; j += 2) {
+      const ulonglong2 hh = reinterpret_cast<const ulonglong2*>(hashes + i0)[j / 2];
+      h[j] = hh.x;
+      h[j + 1] = hh.y;
+    }
+    const uint2 flags = *reinterpret_cast<const uint2*>(valid + i0);
+#pragma unroll
+    for (int j = 0; j < kQF; ++j) v[j] = ((j < 4 ? flags.x : flags.y) >> (8 * (j & 3))) & 0xFFu;
   } else {
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) {
+    for (int j = 0; j < kQF; ++j) {
       v[j] = i0 + j < n && valid[i0 + j];
       h[j] = v[j] ? hashes[i0 + j] : 0;
     }
   }
-  // every row of the thread's queries is asked for before the first compare
-  uint4 r1[kQ], r2[kQ];
-#pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    const uint4* a1 = fused + (h[j] >> (64 - lb));
-    const uint4* a2 = fused + ((h[j] * kGolden) >> (64 - lb));
-    r1[j] = !v[j] ? zero : kStreamRows ? __ldcs(a1) : __ldg(a1);
-    r2[j] = !v[j] ? zero : kStreamRows ? __ldcs(a2) : __ldg(a2);
-  }
   const int v_bits = lb - 1;
   const uint32_t tax_mask = (1u << v_bits) - 1, hi_mask = ~tax_mask;
   const uint64_t spare_mask = (1ull << (32 - lb)) - 1;
-  uint32_t res[kQ];
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // round 1: every query's first-choice row
+  uint4 rw[kQF];
 #pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    const uint64_t hg = h[j] * kGolden;
-    const uint32_t t1 = (uint32_t)((h[j] << lb) >> 32), t2 = (uint32_t)((hg << lb) >> 32);
+  for (int j = 0; j < kQF; ++j) {
+    const uint4* a1 = fused + (h[j] >> (64 - lb));
+    rw[j] = !v[j] ? zero : kStreamRows ? __ldcs(a1) : __ldg(a1);
+  }
+  uint32_t res[kQF];
+#pragma unroll
+  for (int j = 0; j < kQF; ++j) {
+    const uint32_t t1 = (uint32_t)((h[j] << lb) >> 32);
     const uint32_t hi1 = (uint32_t)(h[j] & spare_mask) << v_bits;
-    const uint32_t hi2 = ((uint32_t)(hg & spare_mask) << v_bits) | 0x80000000u;
     uint32_t best = 0u;
-    if (r1[j].x == t1 && (r1[j].y & hi_mask) == hi1) best = max(best, r1[j].y & tax_mask);
-    if (r1[j].z == t1 && (r1[j].w & hi_mask) == hi1) best = max(best, r1[j].w & tax_mask);
-    if (r2[j].x == t2 && (r2[j].y & hi_mask) == hi2) best = max(best, r2[j].y & tax_mask);
-    if (r2[j].z == t2 && (r2[j].w & hi_mask) == hi2) best = max(best, r2[j].w & tax_mask);
+    if (rw[j].x == t1 && (rw[j].y & hi_mask) == hi1) best = max(best, rw[j].y & tax_mask);
+    if (rw[j].z == t1 && (rw[j].w & hi_mask) == hi1) best = max(best, rw[j].w & tax_mask);
     res[j] = v[j] ? best : 0u;
   }
+  // round 2: the second-choice row of the valid queries row 1 left at 0
+#pragma unroll
+  for (int j = 0; j < kQF; ++j) {
+    const uint32_t b1 = (uint32_t)(h[j] >> (64 - lb));
+    const uint32_t b2 = (uint32_t)((h[j] * kGolden) >> (64 - lb));
+    if (v[j] && res[j] == 0u && b2 != b1) rw[j] = kStreamRows ? __ldcs(fused + b2) : __ldg(fused + b2);
+  }
+#pragma unroll
+  for (int j = 0; j < kQF; ++j) {
+    if (!v[j] || res[j] != 0u) continue;
+    const uint64_t hg = h[j] * kGolden;
+    const uint32_t t2 = (uint32_t)((hg << lb) >> 32);
+    const uint32_t hi2 = ((uint32_t)(hg & spare_mask) << v_bits) | 0x80000000u;
+    uint32_t best = 0u;
+    if (rw[j].x == t2 && (rw[j].y & hi_mask) == hi2) best = max(best, rw[j].y & tax_mask);
+    if (rw[j].z == t2 && (rw[j].w & hi_mask) == hi2) best = max(best, rw[j].w & tax_mask);
+    res[j] = best;
+  }
   if (vec) {
-    *reinterpret_cast<uint4*>(out + i0) = make_uint4(res[0], res[1], res[2], res[3]);
+    reinterpret_cast<uint4*>(out + i0)[0] = make_uint4(res[0], res[1], res[2], res[3]);
+    reinterpret_cast<uint4*>(out + i0)[1] = make_uint4(res[4], res[5], res[6], res[7]);
   } else {
 #pragma unroll
-    for (int j = 0; j < kQ; ++j)
+    for (int j = 0; j < kQF; ++j)
       if (i0 + j < n) out[i0 + j] = res[j];
   }
 }
@@ -432,7 +455,7 @@ extern "C" int kuniq_fused_probe(const void* fused, const void* hashes, const vo
   bool streamed = false;
   const int err = stream_rows(lb, &streamed);
   if (err != 0) return err;
-  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
+  const long long grid = ((n + kQF - 1) / kQF + kThreads - 1) / kThreads;
   const auto kernel = streamed ? fused_probe_kernel<true> : fused_probe_kernel<false>;
   kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)fused, (const uint64_t*)hashes, (const uint8_t*)valid, (uint32_t*)out, n, lb);

@@ -1,6 +1,7 @@
-// Device code shared by csrc/kmer_front.cu and csrc/chd_probe.cu: a block's
-// staged bit string of bases, the canonical k-mer of a lane, murmur's
-// finalizer, and the minimizer bins of a block's lanes.
+// Device code shared by csrc/kmer_front.cu, csrc/chd_probe.cu and
+// csrc/bsearch_lookup.cu: a block's staged bit string of bases, the
+// canonical k-mer of a lane, murmur's finalizer, and the minimizer bins of a
+// block's lanes.
 //
 // Staging. A block owns a tile of lanes: R whole rows (rows of at most a
 // tile's bases), or, for a longer row, tl consecutive lanes of one row. It
@@ -29,9 +30,9 @@
 // The values live in shared memory (S in place of the values, P beside it),
 // 4 B each for nt <= 16 and 8 B beyond, so a block stages 4,096 bases
 // (kTileBasesU32) or 2,048 (kTileBasesU64): about 36 KB either way. A
-// kernel that needs the bins of some lanes only (the out-of-core probe)
-// marks the blocks of values those lanes read (segment_needs), and phases A
-// and B skip the others.
+// kernel that needs the bins of some lanes only (the out-of-core probe, the
+// binary search's words entry) marks the blocks of values those lanes read
+// (segment_needs), and phases A and B skip the others.
 
 #pragma once
 

@@ -93,6 +93,31 @@ def probe_fused_plain(fused, h, lb: int):
     return found, val
 
 
+def probe_fused_rounds(fused, h, lb: int):
+    """The `fused_probe` kernel's algorithm in plain torch: each query's
+    first-choice row, then its second-choice row only where the first holds
+    no nonzero value for it (a nonzero match pins all 64 bits of h, and the
+    build stores a key once, so the second row cannot hold it too). Returns
+    (value int64 [n], the row that answered int64 [n]: 1 or 2, 0 on a
+    miss); the value equals probe_fused_plain's."""
+    v_bits = lb - 1
+    spare_mask = (1 << (32 - lb)) - 1
+    tax_mask = (1 << v_bits) - 1
+    hi_mask = 0xFFFFFFFF & ~tax_mask
+    vals = []
+    for hc, choice in ((h, 0), (h * _GOLDEN, 1)):
+        row = i32_to_u32(fused[lsr(hc, 64 - lb)])  # [n, 4]
+        tag = lsr(hc << lb, 32)
+        hi = ((hc & spare_mask) << v_bits) | (choice << 31)
+        m = (row[:, 0::2] == tag[:, None]) & ((row[:, 1::2] & hi_mask) == hi[:, None])
+        vals.append(torch.where(m, row[:, 1::2] & tax_mask, 0).max(dim=1).values)
+    v1, v2 = vals
+    second = v1 == 0
+    val = torch.where(second, v2, v1)
+    answered = torch.where(~second, 1, torch.where(v2 != 0, 2, 0))
+    return val, answered
+
+
 def probe_chd_plain(disp4, rows, h, lr: int):
     """Plain PyTorch CHD probe (krakenuniq_tpu.lookup.hash_lookup._probe_chd):
     returns (found bool [n], value int64 [n]) for int64 query hashes `h`."""

@@ -426,6 +426,10 @@ STEP_CASES = {
     "span": ((".",), False, True, False),
     "missing-taxon": ((".",), False, False, True),
     "missing-taxon-span": ((".",), False, True, True),
+    # the span feed over two databases: one bsearch_words pass each, the
+    # second only on the lanes the first left at 0
+    "hierarchical-span": (("db_bact", "db_viral"), False, True, False),
+    "missing-taxon-hierarchical-span": (("db_bact", "db_viral"), False, True, True),
 }
 
 

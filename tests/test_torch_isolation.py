@@ -99,23 +99,25 @@ def test_kernel_wrappers_refuse_cpu_launch():
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
         "pack_runs", "sparse_stats", "span_dict", "sparse_keys", "chd_probe_acc",
-        "fused_probe", "kmer_bins", "bsearch_lookup",
+        "fused_probe", "kmer_bins", "bsearch_lookup", "bsearch_words",
     }
     # one library per source; sparse_keys is an entry of sparse_stats'
     # library, chd_probe_acc and fused_probe of chd_probe's, kmer_bins (both
-    # feeds) of kmer_front's
+    # feeds) of kmer_front's, bsearch_words of bsearch_lookup's
     assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc")) if f.endswith(".cu")) == sorted(
         _kernels.SIGNATURES)
     assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys", "chd_probe_acc", "fused_probe",
-                                      "kmer_bins"}
+                                      "kmer_bins", "bsearch_words"}
     assert _kernels.ENTRIES["chd_probe_acc"][0] == _kernels.ENTRIES["fused_probe"][0] == "chd_probe"
     assert _kernels.ENTRIES["kmer_bins"][0] == _kernels.ENTRIES["kmer_bins_packed"][0] == "kmer_front"
+    assert _kernels.ENTRIES["bsearch_words"][0] == "bsearch_lookup"
 
 
 def test_kernel_digest_covers_included_headers(tmp_path, monkeypatch):
     """A library is named by its source and the csrc/ headers it includes:
-    an edit to kmer_window.cuh renames the libraries of kmer_front.cu and
-    chd_probe.cu (so no stale build is reused) and no other."""
+    an edit to kmer_window.cuh renames the libraries of kmer_front.cu,
+    chd_probe.cu and bsearch_lookup.cu (so no stale build is reused) and no
+    other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(PKG, "csrc"), csrc)
     monkeypatch.setattr(_kernels, "CSRC", str(csrc))
@@ -123,7 +125,7 @@ def test_kernel_digest_covers_included_headers(tmp_path, monkeypatch):
     with open(csrc / "kmer_window.cuh", "a") as f:
         f.write("\n// an edit\n")
     after = {n: _kernels._lib_path(n) for n in _kernels.SIGNATURES}
-    assert {n for n in before if before[n] != after[n]} == {"kmer_front", "chd_probe"}
+    assert {n for n in before if before[n] != after[n]} == {"kmer_front", "chd_probe", "bsearch_lookup"}
 
 
 def test_native_loader_is_the_ports_own():
