@@ -65,7 +65,11 @@ Phases, each raising on failure:
      (the packed feed's search) on random sorted planes made from the span's
      own lanes, with bins of 0, 1, 31, 32, 63, 64, 65, 300, 511 and 512 keys,
      n_iter 10 and 5, bin_start 0 and a shard from 12,345, a later
-     database's pass, and rows of 8,192 bases at nt = 12 and 20;
+     database's pass, and rows of 8,192 bases at nt = 12 and 20; and the
+     long-read step's rows [8, 32768]: kmer_front on both entries with and
+     without its canon plane (also with it at the span shape), chd_probe on
+     those rows' hashes over random planes of the phase-4 table's size,
+     chd_probe_acc and bsearch_words on such rows;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
@@ -78,7 +82,8 @@ Phases, each raising on failure:
   4. the main path at full size, on the span route: a synthetic database
      at the JAX bench's default shape (400 species x 25 kbp, BALLAST = 101M
      ballast keys, a 2.4M-node taxonomy, k=31, nt=12) under
-     krakenuniq_tpu_torch/_build/, loaded by Classifier(device="cuda")
+     krakenuniq_tpu_torch/_build/ (synthesised with the reads in a child
+     process while phases 2 and 3 run), loaded by Classifier(device="cuda")
      with the port's table caches removed first (a cold build, which
      writes `database.kdb.ht_torch`), then loaded again (a warm load: the
      cached table, no build step, planes bit-equal),
@@ -101,8 +106,10 @@ Phases, each raising on failure:
      with the update is held against the same forced to the plain
      versions, and the three counter kernels are timed on that span's
      planes;
-  5b. --device-counters on the Python host route (use_native=False), the
-     same reads, byte-equal to phase 4 (so the routes agree at full size),
+  5b. --device-counters on the Python host route (use_native=False) on the
+     first 200,000 of the reads (a cut that keeps the script within its
+     time limit), byte-equal to phase 4's configuration on the same reads
+     and to phase 4's lines for them (so the routes agree at full size),
      the counter kernels launched once per work unit; one unit's update
      against the plain update;
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
@@ -133,6 +140,20 @@ Phases, each raising on failure:
      span's hashes and the real plane, with the valid lanes answered by
      their first row, by their second and missed, the two-row and one-row
      random-sector floors and the mix of them those shares give;
+  11. long reads on phase 4's loaded database (with_shared_db): phase 4's
+     first 100,000 reads with 500 reads of 33-100 kbp among them (zipf-1.5
+     species, each read from its genome as a circle from a random offset);
+     the short reads' lines byte-equal to phase 4's, each long read's hit
+     list L - k + 1 k-mers long and equal, k-mer by k-mer, to its chunks'
+     classified as ordinary reads on the span route, its call its species;
+     a --device-counters run byte-equal; kmer_front and chd_probe once a
+     long read and scores only in the short reads' steps; long reads/s,
+     Mbp/s, ms a long read and one long-read step's card time by operation;
+  12. --exact on phase 4's loaded database: phase 4's reads on the span
+     route, the kraken output byte-equal to phase 4's and the report equal
+     outside kmers, dup and cov; on the first 200,000 reads the exact
+     reports with and without --device-counters (counts only on the card)
+     byte-equal;
   8. out of core on phase 4's database directory (one reload with
      preload_size = PRELOAD_SIZE, 512 MiB, its `.htc_torch` cache removed
      first, then a warm reload from that cache): the database cut into at least
@@ -154,11 +175,13 @@ Phases, each raising on failure:
      of the span's merged words already set, beside floor_ms (row_gather
      over as many random rows of that chunk's row plane as it probes), and
      one `ooc` line (budget, chunks, load split, reads/s, host s a span by
-     stage, copy and probe ms a chunk, the hidden share, peak memory).
-Phases run in the order 1-5, 5b, 7, 9, 10, 8, 6. Progress goes to stderr;
-stdout carries one JSON line per kernel check, the fallback goldens' line,
-the summaries of phases 4, 5, 5b, 7, 9, 10 and 8, one line per probe setting, the
-kernel table, the card line and, last, the device line.
+     stage, copy and probe ms a chunk, the hidden share, peak memory); then
+     50 of phase 11's long reads out of core, byte-equal to phase 11's lines.
+Phases run in the order 1-5, 5b, 11, 12, 7, 9, 10, 8, 6. Progress goes to
+stderr; stdout carries one JSON line per kernel check, the fallback
+goldens' line, the summaries of phases 4, 5, 5b, 11, 12, 7, 9, 10 and 8,
+one line per probe setting, the kernel table, the card line and, last, the
+device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
 
@@ -199,6 +222,17 @@ N_READS_SINGLE = 200_000
 LONG_LB = 8192
 LONG_LENGTHS = (8192, 8100, 6000, 4200, 150, 10)
 LONG_KNT = ((31, 12), (31, 20), (21, 20), (17, 16))
+# The long-read step's rows for phase 2: [8, LONG_READ_LB], the default
+# max_read_len (a long read's chunk), full and partial chunks, a read's last
+# chunk of k bases and rows shorter than k.
+LONG_READ_LB = 1 << 15
+LONG_READ_LENGTHS = (32768, 32768, 32700, 20000, 5000, 31, 30, 0)
+# Phase 11: phase 4's first N_LONG_SHORT reads with N_LONG long reads of
+# 33-100 kbp among them, N_LONG_OOC of which phase 8 runs out of core.
+# Phase 12: --exact on phase 4's reads, and on the first N_READS_SINGLE with
+# and without device counters.
+N_LONG_SHORT, N_LONG, N_LONG_OOC = 100_000, 500, 50
+LONG_MIN, LONG_MAX = 33_000, 100_000
 
 T0 = time.time()
 
@@ -486,18 +520,19 @@ def scores_bound(hit) -> dict:
 FRONT_OPS_PER_LANE = 49
 
 
-def front_bound(b: int, lb: int, k: int) -> dict:
+def front_bound(b: int, lb: int, k: int, canon: bool = False) -> dict:
     """Codes and flags in (1 byte each per base); hash, enc, ambiguity out
-    (8 + 4 + 1 bytes per lane); FRONT_OPS_PER_LANE operations per lane."""
+    (8 + 4 + 1 bytes per lane, and 8 more with the canon plane);
+    FRONT_OPS_PER_LANE operations per lane."""
     lanes = b * (lb - k + 1)
-    return bound(2 * b * lb + 13 * lanes, FRONT_OPS_PER_LANE * lanes)
+    return bound(2 * b * lb + (21 if canon else 13) * lanes, FRONT_OPS_PER_LANE * lanes)
 
 
-def front_words_bound(b: int, lb: int, k: int) -> dict:
+def front_words_bound(b: int, lb: int, k: int, canon: bool = False) -> dict:
     """kmer_front on the packed feed: 3 bits per base in (2 code bits and
     a flag bit, as int32 words); as front_bound otherwise."""
     lanes = b * (lb - k + 1)
-    return bound(b * lb * 3 // 8 + 13 * lanes, FRONT_OPS_PER_LANE * lanes)
+    return bound(b * lb * 3 // 8 + (21 if canon else 13) * lanes, FRONT_OPS_PER_LANE * lanes)
 
 
 # pack_runs' integer operations per valid lane: two loads, two shuffles and
@@ -821,6 +856,7 @@ def phase_kernels(k: int):
         )
     phase_span_kernels(k)
     phase_probe_kernel()
+    phase_long_front_kernels(k)
     from krakenuniq_tpu_torch.classify import device_step
 
     fused_rec = phase_fallback_kernels() if hasattr(device_step, "kmer_bins") else None
@@ -1065,6 +1101,55 @@ def phase_probe_kernel():
     torch.cuda.empty_cache()
 
 
+def phase_long_front_kernels(k: int):
+    """kmer_front's canon plane, both entries against their plain versions
+    with canon at the span shape [65536, 160] (the exact span step) and with
+    and without it at the long-read step's rows [8, LONG_READ_LB] (one block
+    a row); then chd_probe on those rows' hashes over random planes of the
+    phase-4 table's size (lr = 26), half the searched lanes planted.
+    Skipped, with a note, on a package whose kmer_front has no canon."""
+    import inspect
+
+    import torch
+
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    if "canon" not in inspect.signature(ds.kmer_front).parameters:
+        log("this package's kmer_front has no canon output")
+        return
+    for b, lb, lengths in ((65536, 160, None), (8, LONG_READ_LB, LONG_READ_LENGTHS)):
+        codes, ambig = front_inputs(b, lb, 7, lengths)
+        cw, aw = ds.pack_input(codes, ambig)
+        for canon in ((False, True) if lb == LONG_READ_LB else (True,)):
+            label = " canon" if canon else ""
+            check_kernel(
+                "kmer_front" + label, (b, lb),
+                lambda: ds.kmer_front(codes, ambig, k, 12, canon=canon),
+                lambda: ds.kmer_front_plain(codes, ambig, k, 12, canon=canon),
+                reps=20, bound=front_bound(b, lb, k, canon), extra={"k": k, "canon": canon},
+            )
+            check_kernel(
+                "kmer_front packed" + label, (b, lb),
+                lambda: ds.kmer_front_words(cw, aw, k, 12, canon=canon),
+                lambda: ds.kmer_front_packed(cw, aw, lb, k, 12, canon=canon),
+                reps=20, bound=front_words_bound(b, lb, k, canon), extra={"k": k, "canon": canon},
+            )
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rand_i32 = lambda *shape: torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device="cuda",
+                                            generator=gen)
+    planes = (rand_i32(1 << 22, 4), rand_i32(1 << 26, 4))
+    b, lb = len(LONG_READ_LENGTHS), LONG_READ_LB
+    h, _, amb = ds.kmer_front(*front_inputs(b, lb, 9, LONG_READ_LENGTHS), k, 12)
+    lens = torch.tensor(LONG_READ_LENGTHS, device="cuda")
+    valid = (torch.arange(lb - k + 1, device="cuda")[None, :] < (lens - (k - 1)).clamp(min=0)[:, None]) & ~amb
+    plant_hits(planes, h[valid & (torch.rand(valid.shape, device="cuda", generator=gen) < 0.5)], 41)
+    got = probe_case("chd_probe long-read rows 1 GiB table", planes, h, valid, 20)
+    if not bool((got != 0).any()):
+        raise AssertionError("chd_probe long-read rows: no planted lane found")
+    del planes, h, valid, got
+    torch.cuda.empty_cache()
+
+
 def phase_acc_kernel():
     """chd_probe_acc against its plain version (probe_chunk_core) on random
     CHD planes: lr = 20 (16 MB of rows, within the L2) and lr = 24 (268 MB,
@@ -1084,9 +1169,10 @@ def phase_acc_kernel():
                                             generator=gen)
     cases = [(20, 4096, 160, 31, 12), (20, 4096, 160, 31, 20), (24, 4096, 160, 31, 12)]
     cases += [(20, 64, LONG_LB, k, nt) for k, nt in LONG_KNT]
+    cases += [(24, 8, LONG_READ_LB, 31, 12)]  # the long-read step's rows out of core
     for i, (lr, b, lb, k, nt) in enumerate(cases):
         planes = (rand_i32(1 << (lr - 4), 4), rand_i32(1 << lr, 4))
-        lengths = (150, 160, 0, k - 1, k, 100) if lb == 160 else LONG_LENGTHS
+        lengths = {160: (150, 160, 0, k - 1, k, 100), LONG_LB: LONG_LENGTHS}.get(lb, LONG_READ_LENGTHS)
         codes, ambig = front_inputs(b, lb, 70 + i, lengths)
         feed = (*pack_input(codes, ambig), torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda())
         in_read, searched, bins = span_lanes(feed, k, nt)
@@ -1332,10 +1418,11 @@ def phase_words_kernel():
         (65536, 160, 31, 12, 0, 0, 10, True), (65536, 160, 31, 12, 0, 0, 5, True),
         (65536, 160, 31, 12, 12_345, 5_000, 10, True), (65536, 160, 31, 12, 0, 0, 10, False),
         (64, LONG_LB, 31, 12, 0, 0, 10, True), (64, LONG_LB, 31, 20, None, 0, 10, True),
+        (8, LONG_READ_LB, 31, 12, 0, 0, 10, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(83)
     for i, (b, lb, k, nt, bs, short, n_iter, first) in enumerate(cases):
-        lengths = (150, 160, 0, k - 1, k, 100) if lb == 160 else LONG_LENGTHS
+        lengths = {160: (150, 160, 0, k - 1, k, 100), LONG_LB: LONG_LENGTHS}.get(lb, LONG_READ_LENGTHS)
         codes, ambig = front_inputs(b, lb, 90 + i, lengths)
         cw, aw = pack_input(codes, ambig)
         lens = torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda()
@@ -1965,16 +2052,59 @@ def write_reads(path, genomes, n_reads, read_len=150, seed=3):
             f.write(f">r{i}_{sid}\n{genomes[sid][s:s + read_len]}\n")
 
 
-def ensure_reads(db_dir: str, genomes) -> str:
-    """Write-or-reuse phase 4's N_READS reads beside the database."""
-    reads_path = os.path.join(db_dir, f"reads_{N_READS}.fa")
+def ensure_reads(db_dir: str, genomes, n_reads: int | None = None) -> str:
+    """Write-or-reuse phase 4's reads (N_READS by default) beside the
+    database."""
+    n_reads = N_READS if n_reads is None else n_reads
+    reads_path = os.path.join(db_dir, f"reads_{n_reads}.fa")
     if not os.path.exists(reads_path):
-        write_reads(reads_path + ".tmp", genomes, N_READS)
+        write_reads(reads_path + ".tmp", genomes, n_reads)
         os.replace(reads_path + ".tmp", reads_path)
     return reads_path
 
 
-def phase_main(reps: int):
+def _synth_child(queue, shape, n_reads: int) -> None:
+    """The body of start_synthesis' process: phase 4's database (shape:
+    species, genome length, pad nodes, ballast keys) and reads; puts
+    (synthesis s, reads file s) on the queue."""
+    n_species, genome_len, pad_nodes, ballast = shape
+    db_dir, genomes, synth_s = ensure_db_dir(n_species, genome_len, 31, 12, pad_nodes, ballast)
+    t = time.time()
+    ensure_reads(db_dir, genomes, n_reads)
+    queue.put((synth_s, time.time() - t))
+
+
+def start_synthesis():
+    """Start phase 4's database and reads synthesis (host numpy, ~100 s) in a
+    child process, so that it overlaps phases 2 and 3 on the card; phase_main
+    waits for it (finish_synthesis). Returns (process, queue)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    # daemonic: ended at the interpreter's exit if phase 4 never waits for it
+    proc = ctx.Process(target=_synth_child, args=(queue, (N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST), N_READS),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def finish_synthesis(synth) -> tuple[float, float]:
+    """Wait for start_synthesis' process; returns its (synthesis s, reads
+    file s). Raises when the process failed."""
+    proc, queue = synth
+    try:
+        times = queue.get(timeout=1800)
+    except Exception:  # the child died before putting its times
+        proc.join(timeout=10)
+        raise RuntimeError(f"the database synthesis process failed (exit code {proc.exitcode})")
+    proc.join(timeout=60)
+    if proc.is_alive() or proc.exitcode != 0:
+        raise RuntimeError(f"the database synthesis process did not end cleanly (exit code {proc.exitcode})")
+    return times
+
+
+def phase_main(reps: int, synth=None):
     import torch
 
     from krakenuniq_tpu_torch import _kernels
@@ -1990,10 +2120,15 @@ def phase_main(reps: int):
     from krakenuniq_tpu_torch.taxonomy.resolve import _scores_plain, scores
 
     k, nt = 31, 12
-    db_dir, genomes, synth_s = ensure_db_dir(N_SPECIES, GENOME_LEN, k, nt, PAD_NODES, BALLAST)
+    if synth is not None:  # started beside phases 2-3
+        t = time.time()
+        synth_s, reads_s = finish_synthesis(synth)
+        log(f"waited {time.time() - t:.1f}s for the synthesis process ({synth_s:.1f}s of synthesis)")
+    db_dir, genomes, synth_here = ensure_db_dir(N_SPECIES, GENOME_LEN, k, nt, PAD_NODES, BALLAST)
     t = time.time()
     reads_path = ensure_reads(db_dir, genomes)
-    reads_s = time.time() - t
+    if synth is None:
+        synth_s, reads_s = synth_here, time.time() - t
 
     # the directory outlives the call that built it: drop the port's table
     # caches so that the first load is a cold build
@@ -2169,7 +2304,7 @@ def phase_main(reps: int):
         "launches": launches,
     })
     run = {"c": c, "reads": reads_path, "kraken": out_path, "report": report_path,
-           "reads_per_s": c.total_sequences / run_s}
+           "reads_per_s": c.total_sequences / run_s, "genomes": genomes}
     return {"scores": score, "kmer_front": front, "chd_probe": probe, "pack_runs": rle}, launches, run
 
 
@@ -3053,6 +3188,20 @@ def phase_ooc(run4, reps: int):
     passes, rec = ooc_passes(c, feeds, reps)
     del feeds
 
+    # N_LONG_OOC of phase 11's long reads out of core: its lines for them
+    run4_long = {}
+    if "long_ooc" in run4:
+        long_path, want_long = run4["long_ooc"]
+        cl = Classifier.with_shared_db(c)
+        lp = (os.path.join(db_dir, "kraken_ooc_long.out"), os.path.join(db_dir, "report_ooc_long.tsv"))
+        rl_s, _, rl_launches, _ = timed_run(cl, long_path, *lp)
+        with open(lp[0], "rb") as f:
+            if f.read() != want_long or cl.n_long_reads != N_LONG_OOC:
+                raise AssertionError("out-of-core long reads differ from phase 11's lines for them")
+        run4_long = {"reads": cl.n_long_reads, "run_s": rl_s, "launches": rl_launches}
+        log(f"out of core, {cl.n_long_reads} long reads in {rl_s:.1f}s: byte-equal to phase 11's lines")
+        del cl
+
     # a warm reload: the chunk tables from the port's cache
     t = time.time()
     cw = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
@@ -3093,6 +3242,7 @@ def phase_ooc(run4, reps: int):
         "equal_to_phase4": True,
         "device_counters_run": run2,
         "single_buffered_run": run3,
+        "long_reads_run": run4_long,
     })
     del c
     torch.cuda.empty_cache()
@@ -3132,10 +3282,11 @@ def phase_ooc_compare(reps: int) -> None:
 
 def phase_counters(run4, reps: int):
     """--device-counters on the Python route (use_native=False) on phase
-    4's loaded database and reads."""
+    4's loaded database and its first N_READS_SINGLE reads (a cut from all
+    of phase 4's reads that keeps the script within its time limit):
+    byte-equal to phase 4's configuration on the same reads."""
     import torch
 
-    from krakenuniq_tpu_torch import _kernels
     from krakenuniq_tpu_torch.classify import Classifier
     from krakenuniq_tpu_torch.classify.device_counters import update_core
     from krakenuniq_tpu_torch.classify.sparse_exact import sparse_stats
@@ -3147,21 +3298,12 @@ def phase_counters(run4, reps: int):
     if dc.host_stats or dc.sparse_cap == 0 or dc.lut is not None:
         raise AssertionError("phase 5 should run the pool layout with device sparse stats")
     db_dir = os.path.dirname(run4["kraken"])
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    ref_paths = (os.path.join(db_dir, "kraken_sub.out"), os.path.join(db_dir, "report_sub.tsv"))
+    ref_s, _, _, _ = timed_run(Classifier.with_shared_db(run4["c"]), sub, *ref_paths)
     out_path = os.path.join(db_dir, "kraken_dc.out")
     report_path = os.path.join(db_dir, "report_dc.tsv")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launches()
-    t = time.time()
-    with open(out_path, "w") as kf:
-        c.run([run4["reads"]], kraken_fh=kf)
-    classify_s = time.time() - t
-    with open(report_path, "w") as rf:
-        c.write_report(rf)
-    torch.cuda.synchronize()
-    run_s = time.time() - t
-    launches = dict(_kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    run_s, classify_s, launches, peak = timed_run(c, sub, out_path, report_path)
     log(f"device counters: {c.total_sequences} reads in {run_s:.1f}s, launches {launches}")
     units = c.n_units
     want = {"taxon_counts": units, "hll_regmax": units, "scores": units,
@@ -3170,14 +3312,16 @@ def phase_counters(run4, reps: int):
         raise AssertionError(f"device-counters path launches {launches}, want {want}")
     if dc.tracker.overflows:
         raise AssertionError(f"{dc.tracker.overflows} sparse-buffer overflows: host fallback taken")
-    for a, b in ((out_path, run4["kraken"]), (report_path, run4["report"])):
-        with open(a, "rb") as fa, open(b, "rb") as fb:
-            if fa.read() != fb.read():
-                raise AssertionError(f"{os.path.basename(a)} differs from phase 4's {os.path.basename(b)}")
-    log("device-counters kraken output and report: byte-equal to phase 4's")
+    same_bytes(zip((out_path, report_path), ref_paths))
+    with open(run4["kraken"], "rb") as f:
+        want_lines = b"".join(line for _, line in zip(range(N_READS_SINGLE), f))
+    with open(out_path, "rb") as f:
+        if f.read() != want_lines:
+            raise AssertionError("phase 5b's lines differ from phase 4's for its reads")
+    log("device-counters kraken output and report: byte-equal to phase 4's configuration on the same reads")
 
     # one full unit's update: kernels vs the same update forced to plain
-    unit = next(c._work_units(run4["reads"]))[0]
+    unit = next(c._work_units(sub))[0]
     enc = c._encode_unit(unit)
     out = c._device_step(enc.codes, enc.ambig, enc.lengths)
     b, w = out["taxa_dense"].shape
@@ -3217,6 +3361,7 @@ def phase_counters(run4, reps: int):
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
         "reads_per_s_phase4": run4["reads_per_s"],
+        "reads_per_s_phase4_config_same_reads": N_READS_SINGLE / ref_s,
         "classify_s": classify_s,
         "finalize_s": finalize_s,
         "sparse_stats_ms_unit0": stats_ms,
@@ -3227,9 +3372,279 @@ def phase_counters(run4, reps: int):
         "sparse_entries_unit0": n_used,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-        "equal_to_phase4": True,
+        "equal_to_phase4_config": True,
     })
     return {"taxon_counts": counts, "hll_regmax": regmax}, launches
+
+
+# ----------------------------------------------------------- phases 11, 12
+
+
+def write_long_reads(path: str, genomes, short_path: str, seed: int = 5) -> list:
+    """Phase 11's input: the first N_LONG_SHORT reads of `short_path` with a
+    long read after every N_LONG_SHORT / N_LONG of them. Each long read's
+    species is drawn zipf-1.5, as write_reads draws it, and its bases are
+    LONG_MIN-LONG_MAX of the genome read as a circle from a random offset
+    (bacterial chromosomes and plasmids are circular; the demo genomes are
+    shorter than a long read). Returns the long reads' (id, sequence)."""
+    rng = np.random.default_rng(seed)
+    sids = list(genomes)
+    wts = 1.0 / np.arange(1, len(sids) + 1, dtype=np.float64) ** 1.5
+    gsel = np.searchsorted(np.cumsum(wts) / wts.sum(), rng.random(N_LONG))
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=N_LONG)
+    longs = []
+    for i in range(N_LONG):
+        sid = sids[gsel[i]]
+        g = genomes[sid]
+        off, n = int(rng.integers(0, len(g))), int(lens[i])
+        longs.append((f"L{i}_{sid}", (g * ((off + n) // len(g) + 1))[off : off + n]))
+    every = N_LONG_SHORT // N_LONG
+    with open(short_path) as fin, open(path + ".tmp", "w") as f:
+        for i in range(N_LONG_SHORT):
+            f.write(fin.readline())
+            f.write(fin.readline())
+            if (i + 1) % every == 0:
+                rid, seq = longs[(i + 1) // every - 1]
+                f.write(f">{rid}\n{seq}\n")
+    os.replace(path + ".tmp", path)
+    return longs
+
+
+def expand_hitlist(hitlist: str) -> np.ndarray:
+    """A kraken line's hit list as one code per k-mer (-1 for A)."""
+    parts = [p.rsplit(":", 1) for p in hitlist.split()]
+    codes = np.array([-1 if t == "A" else int(t) for t, _ in parts], dtype=np.int64)
+    return np.repeat(codes, [int(n) for _, n in parts])
+
+
+def kraken_lines_by_id(path: str) -> dict:
+    """{read id: the line's bytes} of a kraken output."""
+    with open(path, "rb") as f:
+        return {line.split(b"\t", 2)[1].decode(): line for line in f}
+
+
+def phase_long_reads(run4, reps: int):
+    """Long reads on phase 4's loaded database (Classifier.with_shared_db, no
+    reload): phase 4's first N_LONG_SHORT reads with N_LONG reads of 33-100
+    kbp among them (write_long_reads). The short reads' lines must be
+    byte-equal to phase 4's; each long read's hit list covers L - k + 1
+    k-mers and its per-k-mer taxa equal those of its chunks (max_read_len
+    bases, k - 1 overlap) classified as ordinary reads by the span route;
+    the long reads' calls are their species; a --device-counters run gives
+    the same kraken bytes; the launches follow the plan: every long read
+    one kmer_front and one chd_probe, and scores only in the short reads'
+    steps (a unit or a span each). One long-read step is timed and split by
+    operation on the card."""
+    import dataclasses
+
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier
+    from krakenuniq_tpu_torch.kmer import encode_batch
+
+    c4 = run4["c"]
+    k = c4.k
+    db_dir = os.path.dirname(run4["kraken"])
+    path = os.path.join(db_dir, f"long_reads_{N_LONG_SHORT}_{N_LONG}.fa")
+    t = time.time()
+    longs = write_long_reads(path, run4["genomes"], run4["reads"])
+    write_s = time.time() - t
+    long_bases = sum(len(seq) for _, seq in longs)
+
+    c = Classifier.with_shared_db(c4)
+    long_s = [0.0]
+    classify_long = c._classify_long_read
+
+    def timed_long(seq):
+        t0 = time.perf_counter()
+        res = classify_long(seq)  # returns host arrays: the card has finished
+        long_s[0] += time.perf_counter() - t0
+        return res
+
+    c._classify_long_read = timed_long
+    out_path, report_path = os.path.join(db_dir, "kraken_long.out"), os.path.join(db_dir, "report_long.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, path, out_path, report_path)
+    steps = c.n_units + c.n_spans  # the short reads' steps
+    log(f"long reads: {c.total_sequences} reads ({c.n_long_reads} long) in {run_s:.1f}s, {c.n_units} units, "
+        f"{c.n_spans} spans, long-read route {long_s[0]:.1f}s, launches {launches}")
+    want = {"scores": steps, "kmer_front": steps + N_LONG, "chd_probe": steps + N_LONG}
+    if c.n_long_reads != N_LONG or c.total_sequences != N_LONG_SHORT + N_LONG or any(
+            launches[kk] != v for kk, v in want.items()):
+        raise AssertionError(f"long reads: {c.n_long_reads} long of {c.total_sequences}, launches {launches}, "
+                             f"want {want}")
+
+    # the short reads' lines are phase 4's
+    got = kraken_lines_by_id(out_path)
+    with open(run4["kraken"], "rb") as f:
+        want_short = b"".join(line for _, line in zip(range(N_LONG_SHORT), f))
+    with open(out_path, "rb") as f:
+        short = b"".join(line for line in f if not line.split(b"\t", 2)[1].startswith(b"L"))
+    if short != want_short:
+        raise AssertionError("long reads: the short reads' lines differ from phase 4's")
+
+    # each long read: its species, every k-mer in its hit list, and the
+    # per-k-mer taxa of its chunks classified as ordinary reads
+    mrl = c.opts.max_read_len
+    payload = mrl - (k - 1)
+    chunk_path = os.path.join(db_dir, f"long_read_chunks_{N_LONG}.fa")
+    with open(chunk_path, "w") as f:
+        for rid, seq in longs:
+            for j, st in enumerate(range(0, len(seq) - k + 1, payload)):
+                f.write(f">{rid}#{j}\n{seq[st : st + mrl]}\n")
+    cc = Classifier.with_shared_db(c4)
+    chunk_out = os.path.join(db_dir, "kraken_long_chunks.out")
+    t = time.time()
+    with open(chunk_out, "w") as kf:
+        cc.run([chunk_path], kraken_fh=kf)
+    chunks_s = time.time() - t
+    if cc.n_units or cc.n_long_reads or cc.n_spans == 0:
+        raise AssertionError(f"the chunks ran {cc.n_units} Python-route units and {cc.n_spans} spans")
+    chunk_rows: dict = {}
+    with open(chunk_out) as f:
+        for line in f:
+            cid, hl = line.split("\t")[1], line.rstrip("\n").split("\t")[4]
+            chunk_rows.setdefault(cid.split("#")[0], []).append(expand_hitlist(hl))
+    n_right = 0
+    for rid, seq in longs:
+        fields = got[rid].decode().rstrip("\n").split("\t")
+        codes = expand_hitlist(fields[4])
+        if int(fields[3]) != len(seq) or len(codes) != len(seq) - k + 1:
+            raise AssertionError(f"long read {rid}: length {fields[3]}, {len(codes)} k-mers in its hit list")
+        if not np.array_equal(codes, np.concatenate(chunk_rows[rid])):
+            raise AssertionError(f"long read {rid}: its per-k-mer taxa differ from its chunks' on the span route")
+        n_right += int(fields[2]) == int(rid.rsplit("_", 1)[1])
+    if n_right < 0.99 * N_LONG:
+        raise AssertionError(f"long reads: {n_right} of {N_LONG} called as their species")
+    log(f"long reads: short lines == phase 4's, {N_LONG} hit lists == their chunks' on the span route "
+        f"({cc.n_spans} spans, {chunks_s:.1f}s), {n_right} called right")
+
+    # --device-counters: the same bytes
+    cd = Classifier.with_shared_db(c4, device_counters=True)
+    dc_paths = (os.path.join(db_dir, "kraken_long_dc.out"), os.path.join(db_dir, "report_long_dc.tsv"))
+    dc_s, _, dc_launches, _ = timed_run(cd, path, *dc_paths)
+    same_bytes([(dc_paths[0], out_path)])
+    log(f"long reads, device counters: {dc_s:.1f}s, kraken output byte-equal")
+    del cd
+
+    # one long-read step (the longest read: ceil(L / payload) chunks in a
+    # batch of 8 rows) on the card: timed, split by operation
+    rid, seq = max(longs, key=lambda x: len(x[1]))
+    chunks = [seq[st : st + mrl] for st in range(0, len(seq) - k + 1, payload)]
+    enc = encode_batch(chunks, lb=mrl, batch=8)
+    cfg = dataclasses.replace(c._cfg, resolve=False, max_runs=0, quick=False)
+    step = lambda: c._device_step(enc.codes, enc.ambig, enc.lengths, cfg=cfg)
+    step_ms = time_ms(step, reps)
+    by_op = device_ms_by_op(step, reps=5)
+    torch.cuda.synchronize()
+
+    ooc_path = os.path.join(db_dir, f"long_reads_{N_LONG_OOC}.fa")
+    with open(ooc_path, "w") as f:
+        for rid, seq in longs[:N_LONG_OOC]:
+            f.write(f">{rid}\n{seq}\n")
+    run4["long_ooc"] = (ooc_path, b"".join(got[rid] for rid, _ in longs[:N_LONG_OOC]))
+    emit({
+        "phase": "long_reads",
+        "reads": c.total_sequences,
+        "long_reads": c.n_long_reads,
+        "long_read_bases": long_bases,
+        "input_write_s": write_s,
+        "run_s": run_s,
+        "classify_s": classify_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "long_route_s": long_s[0],
+        "long_reads_per_s": N_LONG / long_s[0],
+        "long_mbp_per_s": long_bases / long_s[0] / 1e6,
+        "ms_per_long_read": 1e3 * long_s[0] / N_LONG,
+        "long_step_shape": list(enc.codes.shape),
+        "long_step_ms": step_ms,
+        "long_step_device_ms_by_op": by_op,
+        "units": c.n_units,
+        "spans": c.n_spans,
+        "calls_right": n_right,
+        "chunks_as_reads_s": chunks_s,
+        "chunks_as_reads_spans": cc.n_spans,
+        "device_counters_run_s": dc_s,
+        "device_counters_launches": dc_launches,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "short_lines_equal_to_phase4": True,
+    })
+    return launches
+
+
+def report_rows(path: str) -> list:
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+def phase_exact(run4):
+    """--exact on phase 4's loaded database (Classifier.with_shared_db, no
+    reload), phase 4's reads on the span route: the kraken output byte-equal
+    to phase 4's, every report column but kmers, dup and cov equal to phase
+    4's; then the first N_READS_SINGLE reads with and without
+    --device-counters (the counts-only state on the card), the two reports
+    byte-equal, the counters' kernel once a span and no register or
+    sparse-stats kernel."""
+    from krakenuniq_tpu_torch.classify import Classifier
+
+    db_dir = os.path.dirname(run4["kraken"])
+    c = Classifier.with_shared_db(run4["c"], exact=True)
+    paths = (os.path.join(db_dir, "kraken_exact.out"), os.path.join(db_dir, "report_exact.tsv"))
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], *paths)
+    spans = max(c.n_spans, 1)
+    log(f"exact: {c.total_sequences} reads in {run_s:.1f}s ({classify_s:.1f}s before the report), {c.n_spans} spans, "
+        f"launches {launches}")
+    want = {"kmer_front": c.n_spans, "chd_probe": c.n_spans, "scores": c.n_spans, "pack_runs": c.n_spans}
+    if c.route != "span" or c.n_units or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"exact: route {c.route}, {c.n_units} units, launches {launches}, want {want}")
+    same_bytes([(paths[0], run4["kraken"])])
+    got, base = report_rows(paths[1]), report_rows(run4["report"])
+    keep = [i for i in range(len(base[0])) if base[0][i] not in ("kmers", "dup", "cov")]
+    if len(got) != len(base) or any([a[i] for i in keep] != [b[i] for i in keep] for a, b in zip(got, base)):
+        raise AssertionError("exact: the report differs from phase 4's outside kmers, dup and cov")
+    n_kmers_diff = sum(a[3] != b[3] for a, b in zip(got[1:], base[1:]))
+    log(f"exact: kraken output byte-equal to phase 4's, report equal outside kmers/dup/cov "
+        f"({n_kmers_diff} of {len(base) - 1} k-mer counts differ from the HLL estimates)")
+
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    runs = {}
+    for dc in (False, True):
+        cs = Classifier.with_shared_db(run4["c"], exact=True, device_counters=dc)
+        tag = "_dc" if dc else ""
+        sp = (os.path.join(db_dir, f"kraken_exact_sub{tag}.out"), os.path.join(db_dir, f"report_exact_sub{tag}.tsv"))
+        s_, _, l_, _ = timed_run(cs, sub, *sp)
+        runs[dc] = {"run_s": s_, "reads_per_s": cs.total_sequences / s_, "spans": cs.n_spans, "launches": l_,
+                    "paths": sp}
+        if dc:
+            d = cs.dev_counters
+            want = {"taxon_counts": cs.n_spans, "hll_regmax": 0, "sparse_stats": 0, "sparse_keys": 0}
+            if not d.counts_only or any(l_[k] != v for k, v in want.items()):
+                raise AssertionError(f"exact, device counters: counts_only {d.counts_only}, launches {l_}")
+        del cs
+    same_bytes([(runs[False]["paths"][1], runs[True]["paths"][1]), (runs[False]["paths"][0], runs[True]["paths"][0])])
+    log(f"exact on {N_READS_SINGLE} reads: the device-counters report byte-equal to the host fold's")
+    emit({
+        "phase": "exact",
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "classify_s": classify_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "reads_per_s_phase4": run4["reads_per_s"],
+        "spans": c.n_spans,
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "kmer_counts_differing": n_kmers_diff,
+        "taxa": len(base) - 1,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "sub_reads": N_READS_SINGLE,
+        "sub_host": {k: v for k, v in runs[False].items() if k != "paths"},
+        "sub_device_counters": {k: v for k, v in runs[True].items() if k != "paths"},
+        "kraken_equal_to_phase4": True,
+    })
+    return launches
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3303,6 +3718,7 @@ def main(argv=None) -> int:
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    synth = None if pkg_dir else start_synthesis()
     t = time.time()
     paths = _kernels.build()
     log(f"kernels built in {time.time() - t:.1f}s: {sorted(paths)}")
@@ -3327,9 +3743,11 @@ def main(argv=None) -> int:
         return 0
     phase_goldens()
     fb_launches = phase_fallback_goldens()
-    recs, launches, main_run = phase_main(reps=50)
+    recs, launches, main_run = phase_main(reps=50, synth=synth)
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
     phase_counters(main_run, reps=20)
+    phase_long_reads(main_run, reps=20)
+    phase_exact(main_run)
     # the later phases load tables of their own: drop phase 4's, so that the
     # peak device memory each reports is its own
     del main_run["c"]

@@ -51,8 +51,9 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulon
 SIGNATURES = {
     # tins, touts, hit, out, B, W, row stride, lane stride, stream
     "scores": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
-    # codes, ambig, hash, enc, kmer_ambig, B, LB, k, p, stream
-    "kmer_front": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # codes, ambig, hash, enc, kmer_ambig, canon (NULL: not written), B, LB,
+    # k, p, stream
+    "kmer_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # disp, rows, hashes, valid, out, n, lr, lg, stream
     "chd_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # ids, mask, acc, n of segment a, the same of segment b, t, shared form,

@@ -19,7 +19,9 @@ for the resident CHD-hash path:
   over a per-span taxon dictionary when the ids pass u16 (`span_dict`
   kernel). `classify_and_count_core` adds the --device-counters update
   (`taxon_counts`, `hll_regmax` and `sparse_stats` kernels) on the same
-  stream.
+  stream. With `with_kmers` (--exact) the step also returns the canonical
+  k-mers from `kmer_front`'s optional canon plane; with `resolve=False`
+  (the long-read step) it skips the tree resolution and returns zero calls.
 
 The returned dict carries what the host text/report layer needs, with the
 JAX step's keys: uint32 planes come back as int32 bit patterns (read them on
@@ -68,12 +70,14 @@ def encode_hash_device(h: torch.Tensor, p: int) -> torch.Tensor:
     return u32_to_i32(enc)
 
 
-def kmer_front_plain(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
+def kmer_front_plain(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int, canon: bool = False):
     """Plain version of `kmer_front`: (hash int64, enc int32, kmer_ambig
-    bool), each [B, LB-k+1]."""
-    canon = kops.canonical_representation(kops.pack_windows(codes, k), k)
-    hashes = murmur3_finalizer_device(canon)
-    return hashes, encode_hash_device(hashes, p), kops.window_any(ambig, k)
+    bool), each [B, LB-k+1], and with `canon` the canonical k-mers (int64)
+    last."""
+    kmers = kops.canonical_representation(kops.pack_windows(codes, k), k)
+    hashes = murmur3_finalizer_device(kmers)
+    out = (hashes, encode_hash_device(hashes, p), kops.window_any(ambig, k))
+    return (*out, kmers) if canon else out
 
 
 def pack_input(codes: torch.Tensor, ambig: torch.Tensor):
@@ -113,7 +117,8 @@ def _window64(s64: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
     return lo | ((hi << 1) << (63 - sh))
 
 
-def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb: int, k: int, p: int):
+def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb: int, k: int, p: int,
+                      canon: bool = False):
     """The `kmer_front` kernel's algorithm in plain torch, from the packed
     feed (`pack_input`) of rows of `lb` bases: per lane l the code window
     r = sum c[l + t] << 2t and flag window from one funnel shift each, the
@@ -122,8 +127,10 @@ def kmer_front_packed(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, lb
     what `kmer_front` returns."""
     lane = torch.arange(lb - k + 1, device=codes_packed.device)
     amb = (_window64(_words64(ambig_packed), lane) & ((1 << k) - 1)) != 0
-    hashes = murmur3_finalizer_device(_canonical_windows(_words64(codes_packed), lane, k))
-    return hashes, encode_hash_device(hashes, p), amb
+    kmers = _canonical_windows(_words64(codes_packed), lane, k)
+    hashes = murmur3_finalizer_device(kmers)
+    out = (hashes, encode_hash_device(hashes, p), amb)
+    return (*out, kmers) if canon else out
 
 
 def _canonical_windows(s64: torch.Tensor, first: torch.Tensor, n: int) -> torch.Tensor:
@@ -156,13 +163,23 @@ def unpack_input(codes_packed: torch.Tensor, ambig_packed: torch.Tensor):
     return _unpack_codes(codes_packed), ((a & 1) != 0).reshape(codes_packed.shape[0], -1)
 
 
-def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
+def _front_outputs(b: int, w: int, dev, canon: bool):
+    """The kernel's output planes: hashes, encodings, k-mer ambiguity and,
+    with `canon`, the canonical k-mers (else None: not written)."""
+    return (torch.empty((b, w), dtype=torch.int64, device=dev), torch.empty((b, w), dtype=torch.int32, device=dev),
+            torch.empty((b, w), dtype=torch.bool, device=dev),
+            torch.empty((b, w), dtype=torch.int64, device=dev) if canon else None)
+
+
+def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int, canon: bool = False):
     """Canonical k-mer hashes, their HLL encodings and the per-k-mer
     ambiguity of a (B, LB) batch of 2-bit codes (uint8 in 0..3) and base
-    ambiguity flags (bool). CUDA tensors launch the `kmer_front` kernel
-    (csrc/kmer_front.cu; `kmer_front_packed` is its algorithm in torch)."""
+    ambiguity flags (bool); with `canon`, the canonical k-mers (int64, below
+    2^62) last, from the same launch. CUDA tensors launch the `kmer_front`
+    kernel (csrc/kmer_front.cu; `kmer_front_packed` is its algorithm in
+    torch)."""
     if codes.device.type == "cpu":
-        return kmer_front_plain(codes, ambig, k, p)
+        return kmer_front_plain(codes, ambig, k, p, canon)
     dev = _kernels.check_cuda("kmer_front", codes=codes, ambig=ambig)
     if codes.dtype != torch.uint8 or ambig.dtype != torch.bool or codes.dim() != 2:
         raise TypeError("kmer_front: codes must be uint8 [B, LB] and ambig bool")
@@ -171,15 +188,13 @@ def kmer_front(codes: torch.Tensor, ambig: torch.Tensor, k: int, p: int):
     b, lb = codes.shape
     if not 1 <= k <= 31 or lb < k or not 0 <= p < 32:
         raise ValueError(f"kmer_front: need 1 <= k <= 31, LB >= k, 0 <= p < 32 (k={k}, LB={lb}, p={p})")
-    w = lb - k + 1
-    hashes = torch.empty((b, w), dtype=torch.int64, device=dev)
-    enc = torch.empty((b, w), dtype=torch.int32, device=dev)
-    kmer_ambig = torch.empty((b, w), dtype=torch.bool, device=dev)
-    _kernels.launch("kmer_front", dev, codes, ambig, hashes, enc, kmer_ambig, b, lb, k, p)
-    return hashes, enc, kmer_ambig
+    out = _front_outputs(b, lb - k + 1, dev, canon)
+    _kernels.launch("kmer_front", dev, codes, ambig, *out, b, lb, k, p)
+    return out if canon else out[:3]
 
 
-def kmer_front_words(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, k: int, p: int):
+def kmer_front_words(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, k: int, p: int,
+                     canon: bool = False):
     """`kmer_front` on the span route's packed feed: int32 [B, LB/16] code
     words and [B, LB/32] flag words (encode_unit_packed's layout, LB a
     multiple of 32). CUDA tensors launch the kernel's packed entry point,
@@ -196,17 +211,13 @@ def kmer_front_words(codes_packed: torch.Tensor, ambig_packed: torch.Tensor, k: 
     if not 1 <= k <= 31 or lb < k or not 0 <= p < 32:
         raise ValueError(f"kmer_front_words: need 1 <= k <= 31, LB >= k, 0 <= p < 32 (k={k}, LB={lb}, p={p})")
     if codes_packed.device.type == "cpu":
-        return kmer_front_packed(codes_packed, ambig_packed, lb, k, p)
+        return kmer_front_packed(codes_packed, ambig_packed, lb, k, p, canon)
     dev = _kernels.check_cuda("kmer_front", codes=codes_packed, ambig=ambig_packed)
     if codes_packed.dtype != torch.int32 or ambig_packed.dtype != torch.int32:
         raise TypeError("kmer_front_words: the words must be int32")
-    w = lb - k + 1
-    hashes = torch.empty((b, w), dtype=torch.int64, device=dev)
-    enc = torch.empty((b, w), dtype=torch.int32, device=dev)
-    kmer_ambig = torch.empty((b, w), dtype=torch.bool, device=dev)
-    _kernels.launch("kmer_front_packed", dev, codes_packed, ambig_packed, hashes, enc, kmer_ambig,
-                    b, lb, k, p)
-    return hashes, enc, kmer_ambig
+    out = _front_outputs(b, lb - k + 1, dev, canon)
+    _kernels.launch("kmer_front_packed", dev, codes_packed, ambig_packed, *out, b, lb, k, p)
+    return out if canon else out[:3]
 
 
 def kmer_bins_plain(codes: torch.Tensor, k: int, nt: int):
@@ -550,6 +561,13 @@ class StepConfig:
     lookup_mode: str = "hash"
     nt: int = 0  # minimizer length (the bsearch bins)
     n_iter: int = 1  # binary-search trip count (DeviceDB.search_iters)
+    # False: no tree resolution on the device (the long-read step, whose
+    # per-read resolve would be quadratic in the row's width; the host
+    # resolves from the returned per-k-mer taxa): call and call_dense are 0
+    resolve: bool = True
+    # also return the canonical k-mers, out["canon"] int64 [B, W], from the
+    # `kmer_front` launch (--exact)
+    with_kmers: bool = False
 
 
 def _words_check(name, plane, codes, ambig, lengths, k: int, nt: int, taxon, taxon_dense):
@@ -640,15 +658,20 @@ def bsearch_words(plane, codes, ambig, lengths, k: int, nt: int, n_iter: int, ta
 
 
 def _front(codes, ambig, cfg: StepConfig, plain: bool):
-    """The step's k-mer front on either feed: (hashes, enc, kmer_ambig, B,
-    LB)."""
+    """The step's k-mer front on either feed: (hashes, enc, kmer_ambig,
+    canon (None without cfg.with_kmers), B, LB)."""
+    kw = dict(canon=cfg.with_kmers)
     if cfg.packed_input:
         b, lb = codes.shape[0], 16 * codes.shape[1]
         if plain:
-            return (*kmer_front_packed(codes, ambig, lb, cfg.k, cfg.hll_p), b, lb)
-        return (*kmer_front_words(codes, ambig, cfg.k, cfg.hll_p), b, lb)
-    b, lb = codes.shape
-    return (*(kmer_front_plain if plain else kmer_front)(codes, ambig, cfg.k, cfg.hll_p), b, lb)
+            front = kmer_front_packed(codes, ambig, lb, cfg.k, cfg.hll_p, **kw)
+        else:
+            front = kmer_front_words(codes, ambig, cfg.k, cfg.hll_p, **kw)
+    else:
+        b, lb = codes.shape
+        front = (kmer_front_plain if plain else kmer_front)(codes, ambig, cfg.k, cfg.hll_p, **kw)
+    hashes, enc, kmer_ambig = front[:3]
+    return hashes, enc, kmer_ambig, front[3] if cfg.with_kmers else None, b, lb
 
 
 def probe_chunk_core(
@@ -724,7 +747,7 @@ def classify_step_core(
     every kernel on any device, for holding the kernels against it."""
     k = cfg.k
     lookup = hash_lookup_plain if plain else hash_lookup_kmers
-    hashes, enc, kmer_ambig, b, lb = _front(codes, ambig, cfg, plain)
+    hashes, enc, kmer_ambig, kmers, b, lb = _front(codes, ambig, cfg, plain)
     w = lb - k + 1
 
     pos = torch.arange(w, dtype=torch.int32, device=codes.device)[None, :]
@@ -799,10 +822,13 @@ def classify_step_core(
     else:
         processed = valid
         total_hits = hit.sum(dim=1, dtype=torch.int32)
-        call_dense = resolve_reads(
-            taxon_dense, hit & processed, io, parent, root_dense, cfg.max_depth,
-            plain=plain,
-        )
+        if cfg.resolve:
+            call_dense = resolve_reads(
+                taxon_dense, hit & processed, io, parent, root_dense, cfg.max_depth,
+                plain=plain,
+            )
+        else:
+            call_dense = torch.zeros(b, dtype=torch.int32, device=codes.device)
     call = taxid_table[call_dense.long()]
 
     out = {
@@ -817,6 +843,8 @@ def classify_step_core(
     asked = lambda key: cfg.outputs is None or key in cfg.outputs
     if asked("processed"):
         out["processed"] = processed
+    if cfg.with_kmers and asked("canon"):
+        out["canon"] = kmers
     # HLL: every processed non-ambiguous k-mer is counted, including misses
     # under taxon 0 (classify.cpp:939)
     hll_lanes = processed & ~kmer_ambig if asked("hll_lanes") or asked("hll_pairs") else None

@@ -56,12 +56,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-hits", type=int, default=1, help="hits required in quick mode")
     p.add_argument("--unclassified-out", metavar="FILENAME")
     p.add_argument("--classified-out", metavar="FILENAME")
+    p.add_argument("--print-sequence", action="store_true", help="end each kraken line with the read's sequence")
     p.add_argument("-o", "--output", metavar="FILENAME", help="kraken output ('off' to suppress)")
     p.add_argument("--report-file", metavar="FILENAME", help="report output ('off' to suppress)")
     p.add_argument("--paired", action="store_true", help="two input files are mate pairs")
     p.add_argument("--check-names", action="store_true")
     p.add_argument("--hll-precision", type=int, default=12)
+    p.add_argument("--exact", action="store_true", help="exact unique-k-mer counting")
     p.add_argument("--only-classified-output", action="store_true")
+    p.add_argument("--full-report", action="store_true", help="report with DB k-mer columns")
     p.add_argument(
         "--device-counters",
         action="store_true",
@@ -140,7 +143,10 @@ def main(argv: list[str] | None = None) -> int:
         quick=args.quick,
         min_hits=args.min_hits,
         hll_precision=args.hll_precision,
+        exact=args.exact,
         only_classified_output=args.only_classified_output,
+        print_sequence=args.print_sequence,
+        full_report=args.full_report,
         device_counters=args.device_counters,
         device=args.device,
         preload_size=preload_size,

@@ -11,13 +11,19 @@
 //   amb   = OR of the window's ambiguity flags
 //   hash  = murmur3 finalizer of canon             (hyperloglogplus.cpp:830-838)
 //   enc   = the 32-bit sparse HLL encoding of hash (hyperloglogplus.cpp:181-204)
+// and, when the caller passes a canon plane (--exact, the long-read step),
+// canon itself; a null canon_out writes nothing more (the template's
+// kCanon = false form, the span route's default launch).
 //
-// Bound on the H100: bytes (2 B per base in, 13 B per lane out) and the
-// per-lane integer work (window, reversal, murmur's two 64-bit multiplies,
-// the encoder) are of one size; see chip_smoke.front_bound.
+// Bound on the H100: bytes (2 B per base in, 13 B per lane out, 21 with the
+// canon plane) and the per-lane integer work (window, reversal, murmur's
+// two 64-bit multiplies, the encoder) are of one size; see
+// chip_smoke.front_bound.
 //
-// Design: a block owns R whole rows (about 4,096 bases). Stage: it reads
-// their codes and flags with aligned 16-byte loads and packs each 16 bases
+// Design: a block owns R whole rows (about 4,096 bases; a longer row, such
+// as a long read's 32,768-base chunk, is one block, with 12.3 KB of shared
+// memory at that length on either feed). Stage: it reads their codes and
+// flags with aligned 16-byte loads and packs each 16 bases
 // in registers (two multiplies per 4 bytes) into shared memory, as one bit
 // string per plane: base f at bits 2f of the code words and bit f of the
 // flag words, the layout of kuniq_native.encode_unit_packed (base j in bits
@@ -96,27 +102,34 @@ __device__ __forceinline__ uint32_t pack4_flags(uint32_t x) {
 
 // The per-lane work on a block's staged bit strings (code bit 2f and flag
 // bit f hold the block's base f - off): lanes idx of the block's rows.
+// kCanon: also store each lane's canonical k-mer in canon_out.
+template <bool kCanon>
 __device__ __forceinline__ void front_lanes(const uint64_t* c64, const uint64_t* a64, int offc,
                                             int offa, long long o0, int rows, int LB, int W,
                                             int k, int p, uint64_t* __restrict__ hash_out,
                                             uint32_t* __restrict__ enc_out,
-                                            uint8_t* __restrict__ amb_out) {
+                                            uint8_t* __restrict__ amb_out,
+                                            uint64_t* __restrict__ canon_out) {
   const uint64_t maskk = (1ull << k) - 1;
   for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
     const int rr = (int)((unsigned)idx / (unsigned)W);
     const int f = rr * LB + (idx - rr * W);  // the window's first base in the block
     const bool amb = (window64(a64, f + offa) & maskk) != 0;
-    const uint64_t h = murmur3_finalizer(canonical(window64(c64, 2 * (f + offc)), k));
+    const uint64_t canon = canonical(window64(c64, 2 * (f + offc)), k);
+    const uint64_t h = murmur3_finalizer(canon);
     hash_out[o0 + idx] = h;
     enc_out[o0 + idx] = encode_hash(h, p);
     amb_out[o0 + idx] = amb;
+    if (kCanon) canon_out[o0 + idx] = canon;
   }
 }
 
+template <bool kCanon>
 __global__ void __launch_bounds__(kThreads)
 kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__ ambig,
                   uint64_t* __restrict__ hash_out, uint32_t* __restrict__ enc_out,
-                  uint8_t* __restrict__ amb_out, int B, int LB, int k, int p, int R) {
+                  uint8_t* __restrict__ amb_out, uint64_t* __restrict__ canon_out, int B, int LB,
+                  int k, int p, int R) {
   extern __shared__ uint64_t smem[];
   const long long r0 = (long long)blockIdx.x * R;
   const int rows = (int)min((long long)R, (long long)B - r0);
@@ -154,17 +167,19 @@ kmer_front_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__
   }
   __syncthreads();
 
-  front_lanes(smem, smem + nc64, offc, offa, r0 * W, rows, LB, W, k, p, hash_out, enc_out,
-              amb_out);
+  front_lanes<kCanon>(smem, smem + nc64, offc, offa, r0 * W, rows, LB, W, k, p, hash_out,
+                      enc_out, amb_out, canon_out);
 }
 
 // The packed feed: row b's codes are words [b * LB/16, (b + 1) * LB/16) of
 // `codes` and its flags words [b * LB/32, (b + 1) * LB/32) of `ambig`, so a
 // block's rows are one contiguous run of words in each plane.
+template <bool kCanon>
 __global__ void __launch_bounds__(kThreads)
 kmer_front_packed_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restrict__ ambig,
                          uint64_t* __restrict__ hash_out, uint32_t* __restrict__ enc_out,
-                         uint8_t* __restrict__ amb_out, int B, int LB, int k, int p, int R) {
+                         uint8_t* __restrict__ amb_out, uint64_t* __restrict__ canon_out, int B,
+                         int LB, int k, int p, int R) {
   extern __shared__ uint64_t smem[];
   const long long r0 = (long long)blockIdx.x * R;
   const int rows = (int)min((long long)R, (long long)B - r0);
@@ -178,7 +193,8 @@ kmer_front_packed_kernel(const uint32_t* __restrict__ codes, const uint32_t* __r
   for (int c = threadIdx.x; c < 2 * nc64; c += kThreads) s_code[c] = c < ncw ? cw[c] : 0u;
   for (int c = threadIdx.x; c < 2 * na64; c += kThreads) s_flag[c] = c < naw ? aw[c] : 0u;
   __syncthreads();
-  front_lanes(smem, smem + nc64, 0, 0, r0 * W, rows, LB, W, k, p, hash_out, enc_out, amb_out);
+  front_lanes<kCanon>(smem, smem + nc64, 0, 0, r0 * W, rows, LB, W, k, p, hash_out, enc_out,
+                      amb_out, canon_out);
 }
 
 // The minimizer-bin pass of a block's tile: canonical k-mer and bin of every
@@ -246,9 +262,11 @@ int launch_bins(const void* codes, void* canon_out, void* bin_out, int B, int LB
 
 }  // namespace
 
+// codes: uint8 [B, LB] (0..3), ambig: uint8 [B, LB] (0/1); hash int64, enc
+// int32, amb uint8 and canon (null: not written) int64, each [B, LB - k + 1].
 extern "C" int kuniq_kmer_front(const void* codes, const void* ambig, void* hash_out,
-                                void* enc_out, void* amb_out, int B, int LB, int k, int p,
-                                void* stream) {
+                                void* enc_out, void* amb_out, void* canon_out, int B, int LB,
+                                int k, int p, void* stream) {
   if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
   const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
   // shared words for the largest block, at the worst 15-byte misalignment
@@ -256,17 +274,18 @@ extern "C" int kuniq_kmer_front(const void* codes, const void* ambig, void* hash
   const size_t smem = sizeof(uint64_t) * (size_t)((ncc + 1) / 2 + 1 + (ncc + 3) / 4 + 1);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = (B + R - 1) / R;
-  kmer_front_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const auto kernel = canon_out ? kmer_front_kernel<true> : kmer_front_kernel<false>;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint8_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
-      (uint8_t*)amb_out, B, LB, k, p, R);
+      (uint8_t*)amb_out, (uint64_t*)canon_out, B, LB, k, p, R);
   return (int)cudaGetLastError();
 }
 
 // codes: int32 [B, LB/16] and ambig: int32 [B, LB/32] words of
 // encode_unit_packed (LB a multiple of 32); the outputs as above.
 extern "C" int kuniq_kmer_front_packed(const void* codes, const void* ambig, void* hash_out,
-                                       void* enc_out, void* amb_out, int B, int LB, int k,
-                                       int p, void* stream) {
+                                       void* enc_out, void* amb_out, void* canon_out, int B,
+                                       int LB, int k, int p, void* stream) {
   if (B <= 0 || LB - k + 1 <= 0) return (int)cudaGetLastError();
   if (LB % 32 != 0) return (int)cudaErrorInvalidValue;
   const int R = LB >= kBlockBases ? 1 : kBlockBases / LB;
@@ -274,9 +293,10 @@ extern "C" int kuniq_kmer_front_packed(const void* codes, const void* ambig, voi
                                                   (R * (LB / 32) + 1) / 2 + 1);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = (B + R - 1) / R;
-  kmer_front_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const auto kernel = canon_out ? kmer_front_packed_kernel<true> : kmer_front_packed_kernel<false>;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)codes, (const uint32_t*)ambig, (uint64_t*)hash_out, (uint32_t*)enc_out,
-      (uint8_t*)amb_out, B, LB, k, p, R);
+      (uint8_t*)amb_out, (uint64_t*)canon_out, B, LB, k, p, R);
   return (int)cudaGetLastError();
 }
 

@@ -88,8 +88,36 @@ def test_cli_report_body_matches_golden(tmp_path):
 
 
 def test_long_read_names_the_later_slice(tmp_path):
+    """A read past max_read_len (32,768 bases by default) takes the
+    long-read route, on the span route's fallback chunk and on the Python
+    route: its kraken line is the reference oracle's (every k-mer's taxon,
+    the host resolve of its hits)."""
+    import reference_oracle as oracle
+
+    from krakenuniq_tpu_torch.formats import read_kdb
+    from krakenuniq_tpu_torch.formats.seqio import read_sequences
+    from krakenuniq_tpu_torch.taxonomy import Taxonomy
+
+    genomes = {d.id: d.seq for d in read_sequences(os.path.join(DATA, "library.fna"))}
+    seq = (genomes["seq_211"] * 40)[:36_000]
     reads = tmp_path / "long.fa"
-    reads.write_text(">long\n" + "ACGT" * 9000 + "\n")
-    c = Classifier([DATA], ClassifyOptions(print_progress=False, device="cpu"))
-    with pytest.raises(NotImplementedError, match="long-read route"):
-        c.run([str(reads)], io.StringIO())
+    reads.write_text(">long\n" + seq + "\n")
+    k = 21
+    _, keys, vals = read_kdb(os.path.join(DATA, "database.kdb"))
+    kv = dict(zip(keys.tolist(), vals.tolist()))
+    scan = oracle.scan_kmers(seq, k)
+    taxa = [0 if amb else kv.get(oracle.canon(km, k), 0) for km, amb in scan]
+    hits = {}
+    for t in taxa:
+        if t:
+            hits[t] = hits.get(t, 0) + 1
+    tax = Taxonomy.from_taxdb_file(os.path.join(DATA, "taxDB"))
+    call = oracle.resolve_tree(hits, tax.parent_map())
+    want = (f"{'C' if call else 'U'}\tlong\t{call}\t{len(seq)}\t"
+            f"{oracle.hitlist_string(taxa, [a for _, a in scan])}\n")
+    for native in (True, False):
+        c = Classifier([DATA], ClassifyOptions(print_progress=False, device="cpu", use_native=native))
+        out = io.StringIO()
+        c.run([str(reads)], out)
+        assert out.getvalue() == want
+        assert c.n_long_reads == 1
