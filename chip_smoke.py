@@ -69,12 +69,20 @@ Phases, each raising on failure:
      long-read step's rows [8, 32768]: kmer_front on both entries with and
      without its canon plane (also with it at the span shape), chd_probe on
      those rows' hashes over random planes of the phase-4 table's size,
-     chd_probe_acc and bsearch_words on such rows;
+     chd_probe_acc and bsearch_words on such rows; and the raw two-level
+     (UID) table's kernels: rows_probe on its edge cases (coinciding
+     buckets, zero tags behind an empty slot, a false screen in the first
+     bucket), on random planes of phase 13's size (lb = 27, 3.2 GB: 8.5M
+     queries, half planted) and at the long-read rows, and rows_probe_acc
+     on a random raw chunk of phase 8's width (lb = 23) with half the words
+     set, each with its floor_ms on the confirm plane;
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
      through the span route, the Python host route and --device-counters
-     on both; then the same eight runs through each fallback lookup, on
+     on both; the UID golden (kraken_uid.out, Classifier(...,
+     uid_database=True)) on those four and out of core at a quarter of its
+     raw table; then the same eight runs through each fallback lookup, on
      copies of the golden databases with the table build made to fail:
      CHD placement (the fused layout, fused_probe) and the whole table
      build (the binary search: bsearch_words on the span route, kmer_bins
@@ -149,11 +157,12 @@ Phases, each raising on failure:
      a --device-counters run byte-equal; kmer_front and chd_probe once a
      long read and scores only in the short reads' steps; long reads/s,
      Mbp/s, ms a long read and one long-read step's card time by operation;
-  12. --exact on phase 4's loaded database: phase 4's reads on the span
-     route, the kraken output byte-equal to phase 4's and the report equal
-     outside kmers, dup and cov; on the first 200,000 reads the exact
-     reports with and without --device-counters (counts only on the card)
-     byte-equal;
+  12. --exact on phase 4's loaded database: phase 4's first 200,000 reads
+     on the span route (a cut that keeps the script within its time limit),
+     the kraken output byte-equal to phase 4's configuration on the same
+     reads (phase 5b's reference run) and the report equal outside kmers,
+     dup and cov; the same reads with --device-counters (counts only on the
+     card) byte-equal, output and report;
   8. out of core on phase 4's database directory (one reload with
      preload_size = PRELOAD_SIZE, 512 MiB, its `.htc_torch` cache removed
      first, then a warm reload from that cache): the database cut into at least
@@ -176,10 +185,23 @@ Phases, each raising on failure:
      over as many random rows of that chunk's row plane as it probes), and
      one `ooc` line (budget, chunks, load split, reads/s, host s a span by
      stage, copy and probe ms a chunk, the hidden share, peak memory); then
-     50 of phase 11's long reads out of core, byte-equal to phase 11's lines.
-Phases run in the order 1-5, 5b, 11, 12, 7, 9, 10, 8, 6. Progress goes to
-stderr; stdout carries one JSON line per kernel check, the fallback
-goldens' line, the summaries of phases 4, 5, 5b, 11, 12, 7, 9, 10 and 8,
+     50 of phase 11's long reads out of core, byte-equal to phase 11's lines;
+  13. UID databases at full size: a UID database over phase 4's keys
+     (written by the synthesis process: 400 singleton UIDs and 10,000 of
+     2-4 species chained as the UID build chains them; genome keys take
+     their species' UID, 5% of them a set holding it, ballast keys uniform
+     UIDs), loaded cold with Classifier(..., uid_database=True) (3.2 GB of
+     raw planes); phase 4's first 200,000 reads on the span route, 99%
+     called as their species, rows_probe once a span and chd_probe never;
+     --device-counters byte-equal; the first 20,000 reads on the Python
+     route byte-equal to the span route's lines; 20 of phase 11's long
+     reads each called as its species; one span step against the plain
+     one, rows_probe on that span's hashes and the real planes; one `uid`
+     line (reads/s, host s a span with the UID resolve alone, card s a
+     span, the load split, peak memory).
+Phases run in the order 1-5, 5b, 11, 12, 7, 9, 10, 8, 13, 6. Progress goes
+to stderr; stdout carries one JSON line per kernel check, the fallback and
+UID goldens' lines, the summaries of phases 4, 5, 5b, 11, 12, 7, 9, 10, 8 and 13,
 one line per probe setting, the kernel table, the card line and, last, the
 device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
@@ -229,10 +251,17 @@ LONG_READ_LB = 1 << 15
 LONG_READ_LENGTHS = (32768, 32768, 32700, 20000, 5000, 31, 30, 0)
 # Phase 11: phase 4's first N_LONG_SHORT reads with N_LONG long reads of
 # 33-100 kbp among them, N_LONG_OOC of which phase 8 runs out of core.
-# Phase 12: --exact on phase 4's reads, and on the first N_READS_SINGLE with
-# and without device counters.
+# Phase 12: --exact on phase 4's first N_READS_SINGLE reads, with and
+# without device counters.
 N_LONG_SHORT, N_LONG, N_LONG_OOC = 100_000, 500, 50
 LONG_MIN, LONG_MAX = 33_000, 100_000
+# Phase 13: a UID database over phase 4's keys (400 singleton UIDs, one a
+# species, and N_UID_SETS UIDs of 2-4 species; UID_SET_SHARE of the genome
+# keys take a set holding their species), phase 4's first N_READS_UID reads
+# on the span route, the first N_READS_UID_PY of them on the Python route and
+# N_LONG_UID of phase 11's long reads
+N_UID_SETS, UID_SET_SHARE = 10_000, 0.05
+N_READS_UID, N_READS_UID_PY, N_LONG_UID = 200_000, 20_000, 20
 
 T0 = time.time()
 
@@ -281,6 +310,10 @@ SYMBOLS = {
     "kmer_bins": ("kmer_bins_kernel",),
     "bsearch_lookup": ("bsearch_lookup_kernel",),
     "bsearch_words": ("bsearch_words_kernel",),
+    "rows_probe": ("rows_probe_kernel",),
+    # the out-of-core pass's instance over the raw table (the CHD one names
+    # ChdTable)
+    "rows_probe_acc": ("RawTable",),
 }
 
 
@@ -568,7 +601,7 @@ def probe_bound(valid) -> dict:
     return bound(13 * n + 20 * nv, 24 * nv)
 
 
-def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes) -> dict:
+def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes, sectors=None) -> dict:
     """`chd_probe_acc`, the routed pass: the acc word (4 B) in per lane in
     its read (`in_read`: the lanes still 0 are found by reading it); the
     packed code and flag words (3 bits a base) and the length of each row
@@ -577,14 +610,44 @@ def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes
     probed lane (`probed`: still 0, free of ambiguous bases, its bin in the
     chunk's range) of each table plane a 32 B sector, but no more than the
     plane (each input read once), and ~33 operations (the hash 9, the probe
-    24); the acc word out where it hit (`hits`)."""
+    24); the acc word out where it hit (`hits`). `sectors`: the random
+    sectors each plane needs, where they are not one a probed lane (a raw
+    table's `rows_probe_acc`: two tag rows a probed lane, a confirm row a
+    screened one)."""
     lb = 16 * codes.shape[1]
     rows = int(unset.any(dim=1).sum())
     n_probed = float(probed.sum())
-    table = sum(min(p.numel() * p.element_size(), 32 * n_probed) for p in planes)
+    sectors = sectors or [n_probed] * len(planes)
+    table = sum(min(p.numel() * p.element_size(), 32 * n) for p, n in zip(planes, sectors))
     moved = 4 * float(in_read.sum()) + rows * (lb * 3 // 8 + 4) + table + 4 * float(hits.sum())
     ops = rows * (13 * (lb - nt + 1) + 6 * (lb - k + 1)) + 33 * n_probed
     return bound(moved, ops)
+
+
+def rows_screened(ptags, h, valid):
+    """The valid queries of the two-level probe whose tag matches in one of
+    their buckets (the second only where it differs from the first): those
+    whose confirm row the probe reads."""
+    from krakenuniq_tpu_torch.db.hash_table import GOLDEN
+    from krakenuniq_tpu_torch.ints import i32_to_u32, lsr, s64
+
+    lb = ptags.shape[0].bit_length() - 1
+    hg = h * s64(int(GOLDEN))
+    r1, r2 = lsr(h, 64 - lb), lsr(hg, 64 - lb)
+    eq1 = (i32_to_u32(ptags[r1]) == lsr(h << lb, 32)[:, None]).any(dim=1)
+    eq2 = (i32_to_u32(ptags[r2]) == lsr(hg << lb, 32)[:, None]).any(dim=1) & (r1 != r2)
+    return valid & (eq1 | eq2)
+
+
+def rows_bound(valid, screened, planes) -> dict:
+    """`rows_probe`: hash (8 B) and valid (1 B) in, value (4 B) out per
+    query; per valid query a random 32 B sector of each of its two tag rows
+    and, where a tag screens (`screened`), of its confirm row, the sectors
+    no more than each plane; ~30 operations (two buckets and tags, four tag
+    compares, the slot index, the confirm compare)."""
+    n, nv, ns = valid.numel(), float(valid.sum()), float(screened.sum())
+    ptags, confirm = planes
+    return bound(13 * n + min(64 * nv, ptags.numel() * 4) + min(32 * ns, confirm.numel() * 4), 30 * nv)
 
 
 def fused_rows(fused, h, valid, lb: int) -> dict:
@@ -863,13 +926,16 @@ def phase_kernels(k: int):
     if hasattr(device_step, "bsearch_words"):
         phase_words_kernel()
     phase_acc_kernel()
+    from krakenuniq_tpu_torch.lookup import hash_lookup
+
+    rows_acc_rec = phase_rows_kernels() if hasattr(hash_lookup, "probe_rows_plain") else None
     phase_counter_kernels()
 
     if hasattr(device_step, "span_dict"):
         phase_dict_stats_kernels()
     else:
         log("this package has no span_dict or sparse_stats kernel")
-    return phase_gather_kernel(), fused_rec
+    return phase_gather_kernel(), fused_rec, rows_acc_rec
 
 
 def rle_inputs(b, w, seed, k=31):
@@ -1204,6 +1270,188 @@ def phase_acc_kernel():
         )
         del planes
     torch.cuda.empty_cache()
+
+
+# Phase 13's UID table: 110,988,000 keys at load 0.6 take lb = 27 (ptags
+# 1.07 GB, confirm 2.15 GB); phase 8's budget (512 MiB, planned at half for
+# two slots) gives raw chunk tables of lb = 23 (201 MB)
+UID_LB, UID_CHUNK_LB = 27, 23
+
+
+def plant_raw(planes, h, seed: int, split=None):
+    """Store the first half of `h` (the first `split` keys) in slot 0 of its
+    first-choice bucket and the rest in slot 1 of its second-choice bucket, as the two-level
+    build lays keys out (the bucket's tag, the slot's confirm row: the low
+    32 hash bits and a random nonzero 32-bit value); returns the values as
+    int32 bit patterns (a later query wins a slot that two share)."""
+    import torch
+
+    from krakenuniq_tpu_torch.db.hash_table import GOLDEN
+    from krakenuniq_tpu_torch.ints import lsr, s64, u32_to_i32
+
+    ptags, confirm = planes
+    lb = ptags.shape[0].bit_length() - 1
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    vals = u32_to_i32(torch.randint(1, 1 << 32, h.shape, dtype=torch.int64, device=h.device, generator=gen))
+    half = h.numel() // 2 if split is None else split
+    for part, choice in ((slice(0, half), 0), (slice(half, None), 1)):
+        hp = h[part]
+        hc = hp * s64(int(GOLDEN)) if choice else hp
+        bucket = lsr(hc, 64 - lb)
+        ptags[bucket, choice] = u32_to_i32(lsr(hc << lb, 32))
+        confirm[2 * bucket + choice, 0] = u32_to_i32(hp & 0xFFFFFFFF)
+        confirm[2 * bucket + choice, 1] = vals[part]
+    return vals
+
+
+def raw_planes(lb: int, gen):
+    """Random two-level planes of width 2^lb on the card: ptags int32
+    [2^lb, 2], confirm int32 [2^(lb+1), 2]."""
+    import torch
+
+    return tuple(torch.randint(-(1 << 31), 1 << 31, (n << lb, 2), dtype=torch.int32, device="cuda", generator=gen)
+                 for n in (1, 2))
+
+
+def rows_case(name, planes, h, valid, reps, seed):
+    """rows_probe against its plain version (check_kernel) with its bound
+    (rows_bound) and floor_ms (row_gather over the confirm plane's 16-byte
+    rows, one random row a valid query); returns the kernel's output and
+    the record."""
+    from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+
+    hf, vf = h.reshape(-1), valid.reshape(-1)
+    screened = rows_screened(planes[0], hf, vf)
+    rec = check_kernel(
+        name, tuple(h.shape),
+        lambda: (hash_lookup_kmers(planes, h, valid),),
+        lambda: (hash_lookup_plain(planes, h, valid),),
+        reps=reps, bound=rows_bound(vf, screened, planes),
+        extra={"lb": planes[0].shape[0].bit_length() - 1, "table_gb": sum(p.numel() * 4 for p in planes) / 1e9,
+               "queries_screened": int(screened.sum()),
+               **probe_floor(planes[1].view(-1, 4), int(vf.sum()), seed)},
+    )
+    return hash_lookup_kmers(planes, hf, vf), rec
+
+
+def raw_edge_case(gen, lb: int = 18):
+    """rows_probe's edge cases on random planes of width 2^lb (small, so
+    that coinciding buckets are common), each planted and probed by the
+    kernel and its plain version: keys whose two buckets coincide (stored
+    in slot 0 of it), keys stored in their second bucket behind a first
+    bucket that screens them falsely (a tag equal to theirs, a confirm row
+    that is not), and zero-tag keys stored in slot 1 behind an empty slot 0
+    (tag 0, confirm (0, 0)). The probe confirms only the first screened
+    slot, so the last two kinds miss; the kernel must agree with the plain
+    version on all of them."""
+    import torch
+
+    from krakenuniq_tpu_torch.db.hash_table import GOLDEN
+    from krakenuniq_tpu_torch.ints import lsr, s64, u32_to_i32
+
+    planes = raw_planes(lb, gen)
+    ptags, confirm = planes
+    h = random_hashes(1 << 26, gen)
+    same = h[lsr(h, 64 - lb) == lsr(h * s64(int(GOLDEN)), 64 - lb)]
+    vals_same = plant_raw(planes, same, 83, split=same.numel())  # first-choice tags, as the build stores them
+    false_screen = random_hashes(1024, gen)
+    b1 = lsr(false_screen, 64 - lb)
+    hg = false_screen * s64(int(GOLDEN))
+    b2 = lsr(hg, 64 - lb)
+    ptags[b1, 0] = u32_to_i32(lsr(false_screen << lb, 32))
+    confirm[2 * b1, 0] = u32_to_i32((false_screen & 0xFFFFFFFF) ^ 1)
+    ptags[b2, 0] = u32_to_i32(lsr(hg << lb, 32))
+    confirm[2 * b2, 0] = u32_to_i32(false_screen & 0xFFFFFFFF)
+    confirm[2 * b2, 1] = 7
+    zero_tag = (torch.randint(0, 1 << lb, (1024,), device="cuda", generator=gen) << (64 - lb)) | torch.randint(
+        1, 1 << (32 - lb), (1024,), device="cuda", generator=gen)
+    zb = lsr(zero_tag, 64 - lb)
+    ptags[zb] = 0
+    confirm[2 * zb] = 0
+    confirm[2 * zb + 1, 0] = u32_to_i32(zero_tag & 0xFFFFFFFF)
+    confirm[2 * zb + 1, 1] = 9
+    h = torch.cat([same, false_screen, zero_tag, random_hashes(4096, gen)])
+    valid = torch.ones(h.shape, dtype=torch.bool, device="cuda")
+    got = rows_case(f"rows_probe edge cases lb={lb}", planes, h, valid, 10, 87)[0]
+    n1, n2 = same.numel(), same.numel() + false_screen.numel()
+    found_same = float((got[:n1] == vals_same).float().mean()) if n1 else 1.0
+    missed = float((got[n1:n2 + zero_tag.numel()] == 0).float().mean())
+    if n1 < 16 or found_same < 0.9 or missed < 0.9:
+        raise AssertionError(f"rows_probe edge cases: {n1} coinciding-bucket keys ({found_same:.3f} found), "
+                             f"{missed:.3f} of the first-slot-only misses missed")
+    return {"coinciding_bucket_keys": n1, "false_screen_keys": false_screen.numel(), "zero_tag_keys": zero_tag.numel()}
+
+
+def phase_rows_kernels(n: int = 8_500_000):
+    """The raw two-level (UID) table's kernels against their plain versions:
+    rows_probe's edge cases (raw_edge_case); rows_probe on random planes of
+    phase 13's table size (lb = UID_LB: 3.2 GB) with n uniform queries, ~1%
+    invalid, half of them planted, and on the long-read step's rows [8,
+    LONG_READ_LB] over the same planes, half the searched lanes planted; and
+    rows_probe_acc (probe_chunk_core on a raw chunk table) on a random raw
+    chunk of phase 8's chunk width (lb = UID_CHUNK_LB) at the span shape
+    [4096, 160] (k = 31, nt = 12), half the words already set, half the
+    searched lanes planted, the bin range the middle half of the searched
+    lanes' bins. Returns rows_probe_acc's record."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    edges = raw_edge_case(gen)
+    log(f"rows_probe edge cases: kernel == plain {edges}")
+    planes = raw_planes(UID_LB, gen)
+    h = random_hashes(n, gen)
+    valid = torch.rand(n, device="cuda", generator=gen) >= 0.01
+    vals = plant_raw(planes, h[: n // 2], 89)
+    got = rows_case(f"rows_probe lb={UID_LB}", planes, h, valid, 10, 91)[0]
+    ok = valid[: n // 2]
+    if float((got[: n // 2][ok] == vals[ok]).float().mean()) < 0.9:
+        raise AssertionError(f"rows_probe lb={UID_LB}: planted keys did not return their values")
+
+    b, lb, k = len(LONG_READ_LENGTHS), LONG_READ_LB, 31
+    hl, _, amb = ds.kmer_front(*front_inputs(b, lb, 9, LONG_READ_LENGTHS), k, 12)
+    lens = torch.tensor(LONG_READ_LENGTHS, device="cuda")
+    lvalid = (torch.arange(lb - k + 1, device="cuda")[None, :] < (lens - (k - 1)).clamp(min=0)[:, None]) & ~amb
+    plant_raw(planes, hl[lvalid & (torch.rand(lvalid.shape, device="cuda", generator=gen) < 0.5)], 93)
+    if not bool((rows_case("rows_probe long-read rows", planes, hl, lvalid, 20, 95)[0] != 0).any()):
+        raise AssertionError("rows_probe long-read rows: no planted lane found")
+    del planes, h, valid, vals, got, hl, lvalid
+    torch.cuda.empty_cache()
+
+    planes = raw_planes(UID_CHUNK_LB, gen)
+    b, lb, nt = 4096, 160, 12
+    lengths = (150, 160, 0, k - 1, k, 100)
+    codes, ambig = front_inputs(b, lb, 97, lengths)
+    feed = (*ds.pack_input(codes, ambig), torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda())
+    in_read, searched, bins = span_lanes(feed, k, nt)
+    hashes = ds.kmer_front_words(feed[0], feed[1], k, 12)[0]
+    plant_raw(planes, hashes[searched & (torch.rand(searched.shape, device="cuda", generator=gen) < 0.5)], 99)
+    sb = bins[searched].sort().values
+    lo, hi = int(sb[sb.numel() // 4]), int(sb[3 * sb.numel() // 4])
+    acc0 = torch.where(torch.rand(bins.shape, device="cuda", generator=gen) < 0.5,
+                       torch.randint(1, 1 << 31, bins.shape, dtype=torch.int32, device="cuda", generator=gen), 0)
+    run = acc_pass(feed, planes, (lo, hi), k, nt)
+    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
+    hits = run(acc_p.copy_(acc0), plain=True) != acc0
+    probed = searched & (acc0 == 0) & (bins >= lo) & (bins < hi)
+    n_screened = int(rows_screened(planes[0], hashes[probed], torch.ones(int(probed.sum()), dtype=torch.bool,
+                                                                         device="cuda")).sum())
+    if not hits.any():
+        raise AssertionError("rows_probe_acc: the pass set no lane")
+    acc_rec = check_kernel(
+        f"rows_probe_acc lb={UID_CHUNK_LB}", (b, lb - k + 1),
+        lambda: (run(acc_k.copy_(acc0)),),
+        lambda: (run(acc_p.copy_(acc0), plain=True),),
+        reps=10, bound=probe_acc_bound(feed[0], k, nt, in_read, in_read & (acc0 == 0), probed, hits, planes,
+                                       sectors=[2 * float(probed.sum()), n_screened]),
+        extra={"k": k, "nt": nt, "lb": UID_CHUNK_LB, "chunk_gb": sum(p.numel() * 4 for p in planes) / 1e9,
+               "bins": [lo, hi], "lanes_probed": int(probed.sum()), "lanes_screened": n_screened,
+               "lanes_set": int(hits.sum()), **probe_floor(planes[1].view(-1, 4), int(probed.sum()), 101)},
+    )
+    del planes
+    torch.cuda.empty_cache()
+    return acc_rec
 
 
 def fused_floors(fused, valid, rows: dict, seed: int) -> dict:
@@ -1914,6 +2162,51 @@ def phase_goldens():
           "routes": ["span", "python", "span + device_counters", "python + device_counters"], "equal": True})
 
 
+def phase_uid_goldens() -> dict:
+    """The UID golden (kraken_uid.out, the reference's --uid-mapping run)
+    through the span route, the Python route, --device-counters on both and
+    out of core at a budget of a quarter of the raw table (at least 2 chunk
+    tables), each kraken output byte-equal to the golden and each report to
+    the first run's; rows_probe launched by the resident runs and
+    rows_probe_acc by the out-of-core one, chd_probe and chd_probe_acc by
+    none. Returns the launches of the out-of-core run."""
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.db.chunked import table_bytes
+    from krakenuniq_tpu_torch.formats.kdb import read_header
+
+    with open(os.path.join(GOLDEN, "kraken_uid.out")) as f:
+        want = f.read()
+    budget = table_bytes(read_header(os.path.join(GOLDEN, "uid_database.kdb")).key_ct, 0, True) // 4
+    report0 = None
+    launches = {}
+    for label, route, opts in (("span", "span", {}), ("python", "python", {"use_native": False}),
+                               ("span + device_counters", "span", {"device_counters": True}),
+                               ("python + device_counters", "python", {"device_counters": True, "use_native": False}),
+                               ("span, out of core", "span", {"preload_size": budget})):
+        _kernels.reset_launches()
+        c = Classifier([GOLDEN], ClassifyOptions(print_progress=False, device="cuda", **opts), uid_database=True)
+        kraken, report = io.StringIO(), io.StringIO()
+        c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=kraken)
+        with contextlib.redirect_stderr(io.StringIO()):  # the report names the uids it finds no taxon for
+            c.write_report(report)
+        report0 = report0 or report.getvalue()
+        launches = dict(_kernels.LAUNCHES)
+        ooc = "preload_size" in opts
+        probe = "rows_probe_acc" if ooc else "rows_probe"
+        if c.route != route or (ooc and (c._ooc is None or c._ooc[0].n_chunks < 2)):
+            raise AssertionError(f"UID golden {label}: {c.route} route, out-of-core tables {c._ooc}")
+        if not launches[probe] or launches["chd_probe"] or launches["chd_probe_acc"]:
+            raise AssertionError(f"UID golden {label}: launches {launches}")
+        if kraken.getvalue() != want or report.getvalue() != report0:
+            raise AssertionError(f"UID golden {label}: kraken output or report differs on the card")
+        log(f"UID golden kraken_uid.out ({label}): byte-equal, report equal; {probe} {launches[probe]}")
+    emit({"check": "uid goldens", "files": ["kraken_uid.out"],
+          "routes": ["span", "python", "span + device_counters", "python + device_counters", "span, out of core"],
+          "ooc_budget": budget, "equal": True, "ooc_launches": launches})
+    return launches
+
+
 @contextlib.contextmanager
 def forced_fallback(kind: str):
     """Make every table build fail as the tests make it fail: "fused" makes
@@ -1937,11 +2230,11 @@ def forced_fallback(kind: str):
         setattr(target, name, saved)
 
 
-def remove_port_caches(db_dir: str) -> None:
+def remove_port_caches(db_dir: str, kdb: str = "database.kdb") -> None:
     """Delete the port's table caches beside db_dir's kdb (never the JAX
     package's .ht/.htc files)."""
     for suffix in (".ht_torch", ".ht_dense_torch", ".htc_torch"):
-        path = os.path.join(db_dir, "database.kdb" + suffix)
+        path = os.path.join(db_dir, kdb + suffix)
         if os.path.exists(path):
             os.unlink(path)
 
@@ -2005,15 +2298,18 @@ def phase_fallback_goldens() -> dict:
 # ------------------------------------------------------------------ phase 4
 
 
+def demo_db_dir(n_species, genome_len, k, nt, pad_nodes, ballast, seed=7) -> str:
+    """The synthetic database's directory under the port's _build/."""
+    return os.path.join(ROOT, "krakenuniq_tpu_torch", "_build",
+                        f"demo_db_{n_species}_{genome_len}_{k}_{nt}_{pad_nodes}_{ballast}_{seed}")
+
+
 def ensure_db_dir(n_species, genome_len, k, nt, pad_nodes, ballast, seed=7):
     """Build-or-reuse the synthetic reference-layout database directory."""
     from krakenuniq_tpu_torch.formats import write_index, write_kdb
     from krakenuniq_tpu_torch.utils.demo import make_demo_db
 
-    db_dir = os.path.join(
-        ROOT, "krakenuniq_tpu_torch", "_build",
-        f"demo_db_{n_species}_{genome_len}_{k}_{nt}_{pad_nodes}_{ballast}_{seed}",
-    )
+    db_dir = demo_db_dir(n_species, genome_len, k, nt, pad_nodes, ballast, seed)
     genomes_npz = os.path.join(db_dir, "genomes.npz")
     if os.path.exists(genomes_npz):
         z = np.load(genomes_npz, allow_pickle=True)
@@ -2063,9 +2359,101 @@ def ensure_reads(db_dir: str, genomes, n_reads: int | None = None) -> str:
     return reads_path
 
 
+def uid_chain(species, n_sets: int, seed: int = 9):
+    """uid_to_taxid.map's records for the species' singleton UIDs (UID i + 1:
+    (species[i], 0)) and n_sets UIDs of 2-4 species, chained as the UID
+    build chains them: each new set is an existing one of 1-3 species (its
+    parent UID) plus one species, recorded as (added taxid, parent UID), and
+    a set (sorted) that exists already is not recorded again. Returns the
+    records and each UID's sorted set."""
+    rng = np.random.default_rng(seed)
+    chain = [(int(t), 0) for t in species]
+    sets = [(int(t),) for t in species]
+    known = set(sets)
+    for _ in range(100 * n_sets):
+        if len(chain) == len(species) + n_sets:
+            break
+        parent = int(rng.integers(1, len(chain) + 1))
+        t = int(species[rng.integers(len(species))])
+        new = tuple(sorted(sets[parent - 1] + (t,)))
+        if len(new) > 4 or t in sets[parent - 1] or new in known:
+            continue
+        known.add(new)
+        sets.append(new)
+        chain.append((t, parent))
+    if len(chain) < len(species) + n_sets:
+        raise ValueError(f"{len(species)} species give no {n_sets} distinct sets of 2-4 in 100 draws a set")
+    return chain, sets
+
+
+def ensure_uid_db(db_dir: str, genomes) -> float:
+    """Write-or-reuse phase 13's UID database beside phase 4's database
+    (write_uid_db over its kdb); returns the seconds it took (0 when
+    reused)."""
+    from krakenuniq_tpu_torch.formats import read_kdb
+
+    if all(os.path.exists(os.path.join(db_dir, f)) for f in ("uid_database.kdb", "uid_to_taxid.map")):
+        return 0.0
+    t = time.time()
+    hdr, keys, vals = read_kdb(os.path.join(db_dir, "database.kdb"))
+    write_uid_db(db_dir, keys, vals, hdr.k, genomes)
+    return time.time() - t
+
+
+def write_uid_db(db_dir: str, keys, vals, k: int, genomes, seed: int = 9) -> None:
+    """Write phase 13's UID database (`uid_database.kdb` over phase 4's keys
+    in their order, and `uid_to_taxid.map`; database.idx and taxDB are
+    phase 4's): genome keys (the genomes' canonical k-mers, found through a
+    byte map of their murmur hashes, then exactly) take their species'
+    singleton UID, and UID_SET_SHARE of them a UID whose set holds their
+    species; ballast keys take uniform UIDs. `vals` are phase 4's values:
+    each key's species."""
+    from krakenuniq_tpu_torch.formats import write_kdb
+    from krakenuniq_tpu_torch.utils.bits import canonical_representation, murmur3_finalizer
+    from krakenuniq_tpu_torch.utils.demo import _host_pack_windows
+
+    t = time.time()
+    kdb, map_path = os.path.join(db_dir, "uid_database.kdb"), os.path.join(db_dir, "uid_to_taxid.map")
+    species = np.asarray(sorted(genomes), dtype=np.uint32)
+    chain, sets = uid_chain(species, N_UID_SETS, seed)
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    codes = np.stack([lut[np.frombuffer(genomes[int(sid)].encode(), np.uint8)] for sid in species])
+    gk = np.sort(canonical_representation(_host_pack_windows(codes, k).reshape(-1), k))
+    mark = np.zeros(1 << 28, np.uint8)
+    mark[(murmur3_finalizer(gk) >> np.uint64(36)).astype(np.int64)] = 1
+    cand = np.flatnonzero(mark[(murmur3_finalizer(keys) >> np.uint64(36)).astype(np.int64)])
+    del mark
+    pos = np.minimum(np.searchsorted(gk, keys[cand]), len(gk) - 1)
+    genome = np.zeros(len(keys), bool)
+    genome[cand[gk[pos] == keys[cand]]] = True
+    rng = np.random.default_rng(seed)
+    sp = np.searchsorted(species, vals)  # each key's species index (its LCA value is its species)
+    uvals = np.where(genome, sp + 1, 0).astype(np.uint32)
+    ballast = ~genome
+    uvals[ballast] = rng.integers(1, len(chain) + 1, size=int(ballast.sum()))
+    holding = [[] for _ in species]
+    for uid, members in enumerate(sets[len(species):], start=len(species) + 1):
+        for m in members:
+            holding[int(np.searchsorted(species, m))].append(uid)
+    pick = np.flatnonzero(genome & (rng.random(len(keys)) < UID_SET_SHARE))
+    pick_sp = sp[pick]
+    for i, uids in enumerate(holding):
+        sel = pick[pick_sp == i]
+        if uids and len(sel):
+            uvals[sel] = np.asarray(uids, np.uint32)[rng.integers(0, len(uids), size=len(sel))]
+    os.makedirs(db_dir, exist_ok=True)
+    write_kdb(kdb + ".tmp", keys, uvals, k=k)
+    np.asarray(chain, dtype="<u4").reshape(-1).tofile(map_path + ".tmp")
+    os.replace(map_path + ".tmp", map_path)
+    os.replace(kdb + ".tmp", kdb)
+    log(f"UID database written: {len(keys)} keys ({int(genome.sum())} genome keys), {len(chain)} UIDs "
+        f"in {time.time() - t:.1f}s")
+
+
 def _synth_child(queue, shape, n_reads: int) -> None:
-    """The body of start_synthesis' process: phase 4's database (shape:
-    species, genome length, pad nodes, ballast keys) and reads; puts
+    """The body of start_synthesis' first process: phase 4's database
+    (shape: species, genome length, pad nodes, ballast keys) and reads; puts
     (synthesis s, reads file s) on the queue."""
     n_species, genome_len, pad_nodes, ballast = shape
     db_dir, genomes, synth_s = ensure_db_dir(n_species, genome_len, 31, 12, pad_nodes, ballast)
@@ -2074,34 +2462,74 @@ def _synth_child(queue, shape, n_reads: int) -> None:
     queue.put((synth_s, time.time() - t))
 
 
+def _uid_child(queue, shape) -> None:
+    """The body of start_synthesis' second process: phase 4's keys and
+    values made again in memory (make_demo_db is deterministic) and phase
+    13's UID database written from them into phase 4's directory, while
+    the first process writes phase 4's database; puts its seconds."""
+    from krakenuniq_tpu_torch.utils.demo import make_demo_db
+
+    t = time.time()
+    n_species, genome_len, pad_nodes, ballast = shape
+    keys, vals, _, _, genomes = make_demo_db(n_species=n_species, genome_len=genome_len, k=31, nt=12, seed=7,
+                                             species_base=10_000_000, pad_nodes=pad_nodes, ballast_keys=ballast)
+    write_uid_db(demo_db_dir(n_species, genome_len, 31, 12, pad_nodes, ballast), keys, vals, 31, genomes)
+    queue.put(time.time() - t)
+
+
 def start_synthesis():
-    """Start phase 4's database and reads synthesis (host numpy, ~100 s) in a
-    child process, so that it overlaps phases 2 and 3 on the card; phase_main
-    waits for it (finish_synthesis). Returns (process, queue)."""
+    """Start phase 4's database and reads synthesis (host numpy, ~110 s) in a
+    child process, and phase 13's UID database (its own make_demo_db, then
+    ~40 s) in a second, so that both overlap phases 2 and 3 on the card;
+    phase_main waits for the first (finish_synthesis), phase_uid for the
+    second (finish_uid_synthesis). Returns ((process, queue), (process,
+    queue))."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
-    # daemonic: ended at the interpreter's exit if phase 4 never waits for it
-    proc = ctx.Process(target=_synth_child, args=(queue, (N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST), N_READS),
-                       daemon=True)
-    proc.start()
-    return proc, queue
+    shape = (N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST)
+    out = []
+    for target, args in ((_synth_child, (shape, N_READS)), (_uid_child, (shape,))):
+        queue = ctx.Queue()
+        # daemonic: ended at the interpreter's exit if nothing waits for it
+        proc = ctx.Process(target=target, args=(queue, *args), daemon=True)
+        proc.start()
+        out.append((proc, queue))
+    return tuple(out)
+
+
+def _synth_result(child):
+    """What one of start_synthesis' processes puts on its queue, after the
+    process has ended; raises as soon as the process has died without
+    putting it (or after 1,800 s)."""
+    from queue import Empty
+
+    proc, queue = child
+    deadline = time.time() + 1800
+    while True:
+        try:
+            result = queue.get(timeout=5)
+            break
+        except Empty:
+            if not proc.is_alive() or time.time() > deadline:
+                proc.join(timeout=10)
+                raise RuntimeError(f"a database synthesis process failed (exit code {proc.exitcode})")
+    proc.join(timeout=60)
+    if proc.is_alive() or proc.exitcode != 0:
+        raise RuntimeError(f"a database synthesis process did not end cleanly (exit code {proc.exitcode})")
+    return result
 
 
 def finish_synthesis(synth) -> tuple[float, float]:
-    """Wait for start_synthesis' process; returns its (synthesis s, reads
-    file s). Raises when the process failed."""
-    proc, queue = synth
-    try:
-        times = queue.get(timeout=1800)
-    except Exception:  # the child died before putting its times
-        proc.join(timeout=10)
-        raise RuntimeError(f"the database synthesis process failed (exit code {proc.exitcode})")
-    proc.join(timeout=60)
-    if proc.is_alive() or proc.exitcode != 0:
-        raise RuntimeError(f"the database synthesis process did not end cleanly (exit code {proc.exitcode})")
-    return times
+    """Wait for phase 4's database and reads (start_synthesis' first
+    process); returns (synthesis s, reads file s)."""
+    return _synth_result(synth[0])
+
+
+def finish_uid_synthesis(synth) -> float:
+    """Wait for phase 13's UID database (start_synthesis' second process);
+    returns its seconds."""
+    return _synth_result(synth[1])
 
 
 def phase_main(reps: int, synth=None):
@@ -2304,7 +2732,7 @@ def phase_main(reps: int, synth=None):
         "launches": launches,
     })
     run = {"c": c, "reads": reads_path, "kraken": out_path, "report": report_path,
-           "reads_per_s": c.total_sequences / run_s, "genomes": genomes}
+           "reads_per_s": c.total_sequences / run_s, "genomes": genomes, "synth": synth}
     return {"scores": score, "kmer_front": front, "chd_probe": probe, "pack_runs": rle}, launches, run
 
 
@@ -3579,50 +4007,46 @@ def report_rows(path: str) -> list:
 
 def phase_exact(run4):
     """--exact on phase 4's loaded database (Classifier.with_shared_db, no
-    reload), phase 4's reads on the span route: the kraken output byte-equal
-    to phase 4's, every report column but kmers, dup and cov equal to phase
-    4's; then the first N_READS_SINGLE reads with and without
-    --device-counters (the counts-only state on the card), the two reports
-    byte-equal, the counters' kernel once a span and no register or
-    sparse-stats kernel."""
+    reload), on phase 4's first N_READS_SINGLE reads on the span route (a
+    cut from all of phase 4's reads that keeps the script within its time
+    limit): the kraken output byte-equal to phase 4's configuration on the
+    same reads (phase 5b's reference run), every report column but kmers,
+    dup and cov equal to its report; then the same reads with
+    --device-counters (the counts-only state on the card), kraken output and
+    report byte-equal to the host fold's, the counters' kernel once a span
+    and no register or sparse-stats kernel."""
     from krakenuniq_tpu_torch.classify import Classifier
 
     db_dir = os.path.dirname(run4["kraken"])
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    ref = (os.path.join(db_dir, "kraken_sub.out"), os.path.join(db_dir, "report_sub.tsv"))  # phase 5b's
     c = Classifier.with_shared_db(run4["c"], exact=True)
     paths = (os.path.join(db_dir, "kraken_exact.out"), os.path.join(db_dir, "report_exact.tsv"))
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], *paths)
+    run_s, classify_s, launches, peak = timed_run(c, sub, *paths)
     spans = max(c.n_spans, 1)
     log(f"exact: {c.total_sequences} reads in {run_s:.1f}s ({classify_s:.1f}s before the report), {c.n_spans} spans, "
         f"launches {launches}")
     want = {"kmer_front": c.n_spans, "chd_probe": c.n_spans, "scores": c.n_spans, "pack_runs": c.n_spans}
     if c.route != "span" or c.n_units or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"exact: route {c.route}, {c.n_units} units, launches {launches}, want {want}")
-    same_bytes([(paths[0], run4["kraken"])])
-    got, base = report_rows(paths[1]), report_rows(run4["report"])
+    same_bytes([(paths[0], ref[0])])
+    got, base = report_rows(paths[1]), report_rows(ref[1])
     keep = [i for i in range(len(base[0])) if base[0][i] not in ("kmers", "dup", "cov")]
     if len(got) != len(base) or any([a[i] for i in keep] != [b[i] for i in keep] for a, b in zip(got, base)):
-        raise AssertionError("exact: the report differs from phase 4's outside kmers, dup and cov")
+        raise AssertionError("exact: the report differs from phase 4's configuration outside kmers, dup and cov")
     n_kmers_diff = sum(a[3] != b[3] for a, b in zip(got[1:], base[1:]))
-    log(f"exact: kraken output byte-equal to phase 4's, report equal outside kmers/dup/cov "
+    log(f"exact: kraken output byte-equal to phase 4's configuration, report equal outside kmers/dup/cov "
         f"({n_kmers_diff} of {len(base) - 1} k-mer counts differ from the HLL estimates)")
 
-    sub = head_reads(run4["reads"], N_READS_SINGLE)
-    runs = {}
-    for dc in (False, True):
-        cs = Classifier.with_shared_db(run4["c"], exact=True, device_counters=dc)
-        tag = "_dc" if dc else ""
-        sp = (os.path.join(db_dir, f"kraken_exact_sub{tag}.out"), os.path.join(db_dir, f"report_exact_sub{tag}.tsv"))
-        s_, _, l_, _ = timed_run(cs, sub, *sp)
-        runs[dc] = {"run_s": s_, "reads_per_s": cs.total_sequences / s_, "spans": cs.n_spans, "launches": l_,
-                    "paths": sp}
-        if dc:
-            d = cs.dev_counters
-            want = {"taxon_counts": cs.n_spans, "hll_regmax": 0, "sparse_stats": 0, "sparse_keys": 0}
-            if not d.counts_only or any(l_[k] != v for k, v in want.items()):
-                raise AssertionError(f"exact, device counters: counts_only {d.counts_only}, launches {l_}")
-        del cs
-    same_bytes([(runs[False]["paths"][1], runs[True]["paths"][1]), (runs[False]["paths"][0], runs[True]["paths"][0])])
-    log(f"exact on {N_READS_SINGLE} reads: the device-counters report byte-equal to the host fold's")
+    cs = Classifier.with_shared_db(run4["c"], exact=True, device_counters=True)
+    dc_paths = (os.path.join(db_dir, "kraken_exact_dc.out"), os.path.join(db_dir, "report_exact_dc.tsv"))
+    dc_s, _, dc_launches, _ = timed_run(cs, sub, *dc_paths)
+    want = {"taxon_counts": cs.n_spans, "hll_regmax": 0, "sparse_stats": 0, "sparse_keys": 0}
+    if not cs.dev_counters.counts_only or any(dc_launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"exact, device counters: counts_only {cs.dev_counters.counts_only}, "
+                             f"launches {dc_launches}")
+    same_bytes(zip(dc_paths, paths))
+    log(f"exact on {N_READS_SINGLE} reads: the device-counters output and report byte-equal to the host fold's")
     emit({
         "phase": "exact",
         "reads": c.total_sequences,
@@ -3639,15 +4063,155 @@ def phase_exact(run4):
         "taxa": len(base) - 1,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-        "sub_reads": N_READS_SINGLE,
-        "sub_host": {k: v for k, v in runs[False].items() if k != "paths"},
-        "sub_device_counters": {k: v for k, v in runs[True].items() if k != "paths"},
-        "kraken_equal_to_phase4": True,
+        "device_counters": {"run_s": dc_s, "reads_per_s": cs.total_sequences / dc_s, "spans": cs.n_spans,
+                            "launches": dc_launches},
+        "kraken_equal_to_phase4_config": True,
     })
     return launches
 
 
 # ------------------------------------------------------------------ phase 6
+
+
+def phase_uid(run4, reps: int):
+    """UID databases at full size (--uid-mapping): phase 4's key set under
+    the UID values of ensure_uid_db, loaded cold by Classifier(...,
+    uid_database=True) (the port's caches of uid_database.kdb removed
+    first: a raw two-level table of 3.2 GB on the card). Phase 4's first
+    N_READS_UID reads on the span route: at least 99% called as their
+    species, rows_probe, kmer_front, scores and pack_runs once a span and
+    chd_probe never, no Python-route unit; a --device-counters run byte-equal
+    (kraken output and report); the first N_READS_UID_PY reads through the
+    Python route, their lines byte-equal to the span route's; N_LONG_UID of
+    phase 11's long reads, each called as its species (resolve_uids on the
+    host); one span step equal to the same step forced to the plain
+    versions, and rows_probe on that span's hashes and the real planes.
+    Returns (rows_probe's record, the span run's launches)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+
+    db_dir = os.path.dirname(run4["kraken"])
+    t = time.time()
+    if run4["synth"] is not None:  # the synthesis process writes it while phase 4 runs
+        uid_write_s = finish_uid_synthesis(run4["synth"])
+        log(f"waited {time.time() - t:.1f}s for the UID database ({uid_write_s:.1f}s of synthesis)")
+    else:
+        uid_write_s = ensure_uid_db(db_dir, run4["genomes"])
+    reads = head_reads(run4["reads"], N_READS_UID)
+    remove_port_caches(db_dir, "uid_database.kdb")
+    t = time.time()
+    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"), uid_database=True)
+    load_s = time.time() - t
+    db = c.dbs[0]
+    log(f"UID database loaded in {load_s:.1f}s {db.timings}; lb={db.hash_lb}, {db.table_bytes / 1e9:.3f} GB "
+        f"raw planes, {len(c.uid_map)} UIDs")
+    if not db.store_raw or db.timings.get("cache") != "miss" or c.route != "span":
+        raise AssertionError(f"UID load: store_raw {db.store_raw}, {db.timings}, {c.route} route")
+
+    paths = {kind: (os.path.join(db_dir, f"kraken_uid{kind}.out"), os.path.join(db_dir, f"report_uid{kind}.tsv"))
+             for kind in ("", "_dc", "_py", "_long")}
+    with contextlib.redirect_stderr(io.StringIO()):  # the report names every UID with no taxon
+        run_s, classify_s, launches, peak = timed_run(c, reads, *paths[""])
+    spans = max(c.n_spans, 1)
+    log(f"UID: {c.total_sequences} reads in {run_s:.1f}s ({classify_s:.1f}s classify), {c.n_spans} spans, "
+        f"launches {launches}")
+    want = {n: c.n_spans for n in ("rows_probe", "kmer_front", "scores", "pack_runs")}
+    if c.n_units or launches["chd_probe"] or any(launches[n] != v for n, v in want.items()):
+        raise AssertionError(f"UID: {c.n_units} Python-route units, launches {launches}, want {want}")
+    n_right = n_lines = 0
+    with open(paths[""][0]) as f:
+        for line in f:
+            _, rid, call = line.split("\t", 3)[:3]
+            n_lines += 1
+            n_right += int(call) == int(rid.rsplit("_", 1)[1])
+    if n_lines != N_READS_UID or n_right < 0.99 * N_READS_UID:
+        raise AssertionError(f"UID: {n_lines} lines, {n_right} called as their species")
+
+    cd = Classifier.with_shared_db(c, device_counters=True)
+    with contextlib.redirect_stderr(io.StringIO()):
+        dc_s, _, dc_launches, _ = timed_run(cd, reads, *paths["_dc"])
+    same_bytes(zip(paths["_dc"], paths[""]))
+    if cd.dev_counters.tracker.overflows or not all(dc_launches[n] for n in ("taxon_counts", "hll_regmax")):
+        raise AssertionError(f"UID device counters: {cd.dev_counters.tracker.overflows} overflows, "
+                             f"launches {dc_launches}")
+    log(f"UID, device counters: {dc_s:.1f}s, kraken output and report byte-equal")
+    del cd
+
+    cp = Classifier.with_shared_db(c, use_native=False)
+    with contextlib.redirect_stderr(io.StringIO()):
+        py_s, _, _, _ = timed_run(cp, head_reads(reads, N_READS_UID_PY), *paths["_py"])
+    with open(paths[""][0], "rb") as f:
+        head = b"".join(line for _, line in zip(range(N_READS_UID_PY), f))
+    with open(paths["_py"][0], "rb") as f:
+        if f.read() != head or cp.n_units == 0:
+            raise AssertionError("UID: the Python route's lines differ from the span route's")
+    log(f"UID, Python route: {N_READS_UID_PY} reads in {py_s:.1f}s, lines byte-equal to the span route's")
+    del cp
+
+    long_path = os.path.join(db_dir, f"long_reads_uid_{N_LONG_UID}.fa")
+    with open(run4["long_ooc"][0]) as f, open(long_path, "w") as g:
+        g.writelines(line for _, line in zip(range(2 * N_LONG_UID), f))
+    cl = Classifier.with_shared_db(c)
+    with contextlib.redirect_stderr(io.StringIO()):
+        long_s, _, long_launches, _ = timed_run(cl, long_path, *paths["_long"])
+    with open(paths["_long"][0]) as f:
+        long_right = sum(int(line.split("\t")[2]) == int(line.split("\t")[1].rsplit("_", 1)[1]) for line in f)
+    if cl.n_long_reads != N_LONG_UID or long_right != N_LONG_UID or long_launches["rows_probe"] < N_LONG_UID:
+        raise AssertionError(f"UID long reads: {cl.n_long_reads} long, {long_right} called right, "
+                             f"launches {long_launches}")
+    log(f"UID, long reads: {N_LONG_UID} in {long_s:.1f}s, each called as its species")
+    del cl
+
+    kind, buf, offs, _, _ = next(c._iter_native_spans(reads))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    out_k = c._span_step(codes_w, ambig_w, lengths_np)
+    out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
+    torch.cuda.synchronize()
+    for key in out_p:
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"UID span: kernel step differs from plain step in {key!r}")
+    cw, aw = (torch.from_numpy(a.view(np.int32)).cuda() for a in (codes_w, ambig_w))
+    hashes, _, kmer_ambig = kmer_front_words(cw, aw, c.k, c._cfg.hll_p)
+    lengths = torch.from_numpy(lengths_np).cuda()
+    search = (torch.arange(hashes.shape[1], device="cuda")[None, :]
+              < (lengths - (c.k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    _, rec = rows_case("rows_probe", c._db_planes[0], hashes, search, reps, 103)
+    by_op = device_ms_by_op(lambda: c._span_step(codes_w, ambig_w, lengths_np), reps=5)
+    emit({
+        "phase": "uid",
+        "route": c.route,
+        "db_keys": int(db.key_ct),
+        "uids": len(c.uid_map),
+        "uid_db_write_s": uid_write_s,
+        "table_gb": db.table_bytes / 1e9,
+        "lb": db.hash_lb,
+        "load_s": load_s,
+        "load_steps_s": db.timings,
+        "reads": c.total_sequences,
+        "run_s": run_s,
+        "classify_s": classify_s,
+        "reads_per_s": c.total_sequences / run_s,
+        "spans": c.n_spans,
+        "span_shape": list(codes_w.shape),
+        "host_s_per_span": c.host_seconds / spans,
+        "host_s_per_span_by_stage": {k: v / spans for k, v in c.span_host_seconds.items()},
+        "uid_resolve_s_per_span": c.span_host_seconds["uid"] / spans,
+        "device_s_per_span": c.device_seconds / spans,
+        "fetch_ms_per_span": 1e3 * c.fetch_seconds / spans,
+        "span_step_device_ms_by_op": by_op,
+        "calls_right": n_right,
+        "device_counters_run_s": dc_s,
+        "device_counters_launches": dc_launches,
+        "python_route_reads": N_READS_UID_PY,
+        "python_route_s": py_s,
+        "long_reads": N_LONG_UID,
+        "long_reads_s": long_s,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+    })
+    return rec, launches
 
 
 def phase_probe():
@@ -3685,6 +4249,8 @@ KERNELS = {
     "kmer_bins": ("krakenuniq_tpu_torch/csrc/kmer_front.cu", "krakenuniq_tpu/kmer/ops.py:87"),
     "bsearch_lookup": ("krakenuniq_tpu_torch/csrc/bsearch_lookup.cu", "krakenuniq_tpu/lookup/xla_lookup.py:35"),
     "bsearch_words": ("krakenuniq_tpu_torch/csrc/bsearch_lookup.cu", "krakenuniq_tpu/classify/device_step.py:157"),
+    "rows_probe": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/lookup/hash_lookup.py:78"),
+    "rows_probe_acc": ("krakenuniq_tpu_torch/csrc/chd_probe.cu", "krakenuniq_tpu/classify/device_step.py:496"),
 }
 
 
@@ -3737,11 +4303,12 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    gather_rec, _ = phase_kernels(k=31)
+    gather_rec, _, rows_acc_rec = phase_kernels(k=31)
     if args.kernels_only:
         print(card)
         return 0
     phase_goldens()
+    uid_ooc_launches = phase_uid_goldens()
     fb_launches = phase_fallback_goldens()
     recs, launches, main_run = phase_main(reps=50, synth=synth)
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
@@ -3758,6 +4325,8 @@ def main(argv=None) -> int:
     bs_recs, bs_launches = phase_bsearch(main_run, reps=20)
     fused_rec, fused_launches = phase_fused(main_run, reps=20)
     recs["chd_probe_acc"], ooc_launches = phase_ooc(main_run, reps=20)
+    recs["rows_probe"], uid_launches = phase_uid(main_run, reps=20)
+    recs["rows_probe_acc"] = rows_acc_rec
     probe_launches = phase_probe()
     recs.update(sc_recs)
     recs.update(bs_recs)
@@ -3771,7 +4340,10 @@ def main(argv=None) -> int:
                 "span_dict": dict_launches["span_dict"], "chd_probe_acc": ooc_launches["chd_probe_acc"],
                 "row_gather": probe_launches["row_gather"], "fused_probe": fused_launches["fused_probe"],
                 "bsearch_words": bs_launches["bsearch_words"], "kmer_bins": fb_launches["bsearch"]["kmer_bins"],
-                "bsearch_lookup": fb_launches["bsearch"]["bsearch_lookup"]}
+                "bsearch_lookup": fb_launches["bsearch"]["bsearch_lookup"],
+                # the raw probes' from phase 13's span run and the UID golden's
+                # out-of-core run
+                "rows_probe": uid_launches["rows_probe"], "rows_probe_acc": uid_ooc_launches["rows_probe_acc"]}
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

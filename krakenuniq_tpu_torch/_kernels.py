@@ -22,8 +22,8 @@ records on the card in order on the stream (`RECORDS_PER_LAUNCH`). A
 library may hold other launching entry points (`ENTRIES`); each counts
 under the name its entry gives: the packed kmer_front under kmer_front,
 sparse_stats' key build under its own name, sparse_keys, chd_probe's
-out-of-core probe and fused-layout probe under their own, chd_probe_acc and
-fused_probe, kmer_front's minimizer-bin entries (both feeds) under
+out-of-core probe, fused-layout probe and raw two-level probes under their
+own, chd_probe_acc, fused_probe, rows_probe and rows_probe_acc, kmer_front's minimizer-bin entries (both feeds) under
 kmer_bins, and bsearch_lookup's packed-feed entry under bsearch_words.
 """
 
@@ -93,6 +93,14 @@ ENTRIES = {
                       "chd_probe_acc"),
     # fused, hashes, valid, out, n, lb, stream: the fused two-choice layout
     "fused_probe": ("chd_probe", (_P, _P, _P, _P, _L, _I, _P), "fused_probe"),
+    # ptags, confirm, hashes, valid, out, n, lb, stream: the raw two-level
+    # layout of UID databases
+    "rows_probe": ("chd_probe", (_P, _P, _P, _P, _P, _L, _I, _P), "rows_probe"),
+    # packed codes, packed flags, lengths, ptags, confirm, acc, B, LB, W, k,
+    # nt, bin_lo, bin_hi, lb, stream: chd_probe_acc's pass over a raw chunk
+    # table
+    "rows_probe_acc": ("chd_probe", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _I, _P),
+                       "rows_probe_acc"),
     # codes (uint8 [B, LB], or the packed words), canon, bin, B, LB, k, nt,
     # stream: the binary-search lookup's canonical k-mers and minimizer bins
     "kmer_bins": ("kmer_front", (_P, _P, _P, _I, _I, _I, _I, _P), "kmer_bins"),

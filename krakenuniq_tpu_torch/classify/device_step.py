@@ -39,7 +39,14 @@ import torch
 from .. import _kernels
 from ..ints import clz64, i32_to_u32, lsr, s64, u32_to_i32
 from ..kmer import ops as kops
-from ..lookup.hash_lookup import _chd_widths, hash_lookup_acc_plain, hash_lookup_kmers, hash_lookup_plain, table_layout
+from ..lookup.hash_lookup import (
+    _chd_widths,
+    _raw_width,
+    hash_lookup_acc_plain,
+    hash_lookup_kmers,
+    hash_lookup_plain,
+    table_layout,
+)
 from ..lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
 from ..taxonomy.resolve import resolve_reads
 from ..utils.bits import INDEX2_XOR_MASK, P_PRIME
@@ -561,6 +568,12 @@ class StepConfig:
     lookup_mode: str = "hash"
     nt: int = 0  # minimizer length (the bsearch bins)
     n_iter: int = 1  # binary-search trip count (DeviceDB.search_iters)
+    # (True,): the one database's table stores raw 32-bit values (a UID
+    # database: taxon-set ids, not taxids; searched alone, never in quick
+    # mode); its words go to the "taxa" plane as they are, never to
+    # taxa_dense, and the wide rows, hll_pairs and the counters key on
+    # them. Empty = dense
+    raw_dbs: tuple = ()
     # False: no tree resolution on the device (the long-read step, whose
     # per-read resolve would be quadratic in the row's width; the host
     # resolves from the returned per-k-mer taxa): call and call_dense are 0
@@ -676,7 +689,7 @@ def _front(codes, ambig, cfg: StepConfig, plain: bool):
 
 def probe_chunk_core(
     acc: torch.Tensor,  # int32 [B, W]: the merged word plane so far (updated in place)
-    planes,  # one chunk table's (disp4, rows) planes on the step's device
+    planes,  # one chunk table's (disp4, rows) or raw (ptags, confirm) planes on the step's device
     bounds,  # the chunk's minimizer-bin range [lo, hi) (ChunkedHashDB.bounds)
     codes: torch.Tensor,  # int32 [B, LB/16] packed code words (pack_input's layout)
     ambig: torch.Tensor,  # int32 [B, LB/32] packed flag words
@@ -695,19 +708,22 @@ def probe_chunk_core(
     ranges, so every other lane's k-mer is a key of another chunk or of
     none, and the exact probe would miss it here; the result equals the JAX
     package's probe of every lane. W <= LB - k + 1. CUDA tensors launch the
-    `chd_probe_acc` kernel, which computes the front, the bins and the probe
-    in one pass; CPU tensors, or `plain`, run `kmer_front_packed`,
-    `kmer_bins_plain`, the range mask and `hash_lookup_acc_plain`."""
+    `chd_probe_acc` kernel (`rows_probe_acc` on a raw two-level chunk
+    table), which computes the front, the bins and the probe in one pass;
+    CPU tensors, or `plain`, run `kmer_front_packed`, `kmer_bins_plain`,
+    the range mask and `hash_lookup_acc_plain`."""
     b, lbw = codes.shape
     lb, w = 16 * lbw, acc.shape[1]
     lo, hi = (int(x) for x in bounds)
+    raw = table_layout(planes) == "raw"
+    name = "rows_probe_acc" if raw else "chd_probe_acc"  # the kernel the pass launches
     if ambig.shape != (b, lbw // 2) or lbw % 2 or lengths.shape != (b,) or acc.shape[0] != b:
         raise ValueError(
-            f"chd_probe_acc: need [B, LB/16] codes, [B, LB/32] flags, [B] lengths and [B, W] acc, got "
+            f"{name}: need [B, LB/16] codes, [B, LB/32] flags, [B] lengths and [B, W] acc, got "
             f"{tuple(codes.shape)}, {tuple(ambig.shape)}, {tuple(lengths.shape)}, {tuple(acc.shape)}"
         )
     if not 1 <= nt <= k <= 31 or not 1 <= w <= lb - k + 1 or not 0 <= lo <= hi:
-        raise ValueError(f"chd_probe_acc: need 1 <= nt <= k <= 31, 1 <= W <= LB - k + 1 and a bin range "
+        raise ValueError(f"{name}: need 1 <= nt <= k <= 31, 1 <= W <= LB - k + 1 and a bin range "
                          f"(k={k}, nt={nt}, LB={lb}, W={w}, bounds={bounds})")
     if plain or codes.device.type == "cpu":
         hashes, _, kmer_ambig = kmer_front_packed(codes, ambig, lb, k, 0)  # the encodings go unused
@@ -716,16 +732,17 @@ def probe_chunk_core(
         search = (pos < torch.clamp(lengths - (k - 1), min=0)[:, None]) & ~kmer_ambig[:, :w]
         search &= (bins >= lo) & (bins < hi)
         return hash_lookup_acc_plain(planes, hashes[:, :w], search, acc)
-    if table_layout(planes) != "chd":
-        raise ValueError("chd_probe_acc: chunk tables are CHD (disp4, rows) planes")
-    lr, lg = _chd_widths(*planes)
-    dev = _kernels.check_cuda("chd_probe_acc", codes=codes, ambig=ambig, lengths=lengths, disp4=planes[0],
-                              rows=planes[1], acc=acc)
+    if table_layout(planes) == "fused":
+        raise ValueError("chd_probe_acc: chunk tables are CHD (disp4, rows) or raw (ptags, confirm) planes")
+    widths = (_raw_width(*planes),) if raw else _chd_widths(*planes)
+    dev = _kernels.check_cuda(name, codes=codes, ambig=ambig, lengths=lengths, table0=planes[0],
+                              table1=planes[1], acc=acc)
     if any(t.dtype != torch.int32 for t in (codes, ambig, lengths, acc, *planes)):
-        raise TypeError("chd_probe_acc: the words, lengths, acc and table planes must be int32")
-    if not 4 <= lr <= 30 or planes[1].data_ptr() % 16:
-        raise ValueError("chd_probe_acc: rows must be a 16-byte aligned [2^lr, 4] plane, 4 <= lr <= 30")
-    _kernels.launch("chd_probe_acc", dev, codes, ambig, lengths, *planes, acc, b, lb, w, k, nt, lo, hi, lr, lg)
+        raise TypeError(f"{name}: the words, lengths, acc and table planes must be int32")
+    # the kernels load 16-byte rows, or a raw table's 8-byte tag and confirm rows
+    if not 4 <= widths[0] <= 30 or (any(p.data_ptr() % 8 for p in planes) if raw else planes[1].data_ptr() % 16):
+        raise ValueError(f"{name}: the row planes must be aligned to their rows, of width 2^4 to 2^30")
+    _kernels.launch(name, dev, codes, ambig, lengths, *planes, acc, b, lb, w, k, nt, lo, hi, *widths)
     return acc
 
 
@@ -756,14 +773,21 @@ def classify_step_core(
 
     search = valid & ~kmer_ambig
     # bsearch: the stored taxids (uint32 bits), which the "taxa" plane
-    # returns as they are; the other modes map taxon_dense through
-    # taxid_table instead
+    # returns as they are; so do raw (UID) databases' words, which no id
+    # table maps. The other modes map taxon_dense through taxid_table
+    any_raw = any(cfg.raw_dbs)
+    if any_raw and (cfg.quick or tuple(cfg.raw_dbs) != (True,)):
+        raise ValueError("a raw (UID) database is searched alone and never in quick mode")
     taxon = None
     if cfg.lookup_mode == "acc":
         # out-of-core finish: the merged word plane, already masked to the
         # searched lanes at probe time (re-masking is a no-op)
-        taxon_dense = torch.where(search, db_planes, 0)
-        found = taxon_dense != 0
+        word = torch.where(search, db_planes, 0)
+        if any_raw:
+            taxon, taxon_dense = word, torch.zeros_like(word)
+        else:
+            taxon_dense = word
+        found = word != 0
         db_planes = ()
     elif cfg.lookup_mode == "bsearch" and cfg.packed_input:
         # one pass a database from the span's words, each writing only the
@@ -781,6 +805,8 @@ def classify_step_core(
     else:
         taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
         found = torch.zeros((b, w), dtype=torch.bool, device=codes.device)
+        if any_raw:
+            taxon = torch.zeros_like(taxon_dense)
         if cfg.lookup_mode == "bsearch":
             canon, bins = (kmer_bins_plain if plain else kmer_bins)(codes, cfg.k, cfg.nt)
             taxon = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
@@ -801,7 +827,10 @@ def classify_step_core(
             found = found | (t_i != 0)
             continue
         word = lookup(plane, hashes, remaining)
-        taxon_dense = torch.where(remaining, word, taxon_dense)
+        if any_raw:
+            taxon = torch.where(remaining, word, taxon)
+        else:
+            taxon_dense = torch.where(remaining, word, taxon_dense)
         found = found | (word != 0)
     hit = found
 
@@ -854,7 +883,8 @@ def classify_step_core(
         # stored values are device ids; original taxids for the hit-list
         # planes (taxid_table[0] == 0, so misses map to 0). A full-plane
         # gather: the span route leaves it out and maps rows on the host.
-        # bsearch returns the stored taxids as the search found them.
+        # bsearch returns the stored taxids as the search found them, a raw
+        # table its words
         out["taxa"] = taxid_table[taxon_dense.long()] if taxon is None else taxon
     if cfg.max_runs > 0 and cfg.dense_runs:
         if asked("packed") or asked("hll_dense") or asked("lut"):
@@ -888,14 +918,17 @@ def classify_step_core(
             out["hll_enc"] = enc
     elif cfg.max_runs > 0:
         # the wide rows: runs of dense ids, each run's value mapped to its
-        # taxid through taxid_table at [B, R]; the u64 feed carries dense ids
+        # taxid through taxid_table at [B, R]; the u64 feed carries dense
+        # ids. Under a raw (UID) database the runs and the feed carry the
+        # raw words as they are (no id table maps a taxon-set id)
+        ids = taxon if any_raw else taxon_dense
         if asked("packed"):
             out["packed"] = (pack_runs_plain if plain else pack_runs)(
-                taxon_dense, kmer_ambig, n_kmers[:, 0], call, total_hits, cfg.max_runs, "wide",
-                taxid_table,
+                ids, kmer_ambig, n_kmers[:, 0], call, total_hits, cfg.max_runs, "wide",
+                None if any_raw else taxid_table,
             )
         if asked("hll_pairs"):
-            out["hll_pairs"] = hll_pairs_feed(taxon_dense, enc, hll_lanes)
+            out["hll_pairs"] = hll_pairs_feed(ids, enc, hll_lanes)
     if cfg.outputs is not None:
         out = {key: out[key] for key in cfg.outputs}
     return out
@@ -929,10 +962,13 @@ def classify_and_count_core(
     cfg.outputs, `update_core` folds them into the state in place, and only
     cfg.outputs return, with the sparse-stats buffer (buf, n_pairs,
     n_events; () when not tracked). Nothing waits for the card. The update
-    keys on the global dense ids, under a span dictionary too."""
+    keys on the global dense ids, under a span dictionary too; under a raw
+    (UID) database on the raw words (the "taxa" plane: the reference counts
+    k-mers under the stored UID, classify.cpp:939)."""
     from .device_counters import update_core
 
-    counted = ("taxa_dense", "enc", "hll_lanes", "call_dense")
+    id_key = "taxa" if any(cfg.raw_dbs) else "taxa_dense"
+    counted = (id_key, "enc", "hll_lanes", "call_dense")
     outputs = None if cfg.outputs is None else (
         tuple(cfg.outputs) + tuple(k for k in counted if k not in cfg.outputs)
     )
@@ -943,7 +979,7 @@ def classify_and_count_core(
     b = out["call_dense"].shape[0]
     row_valid = torch.arange(b, device=out["call_dense"].device) < n_valid
     state = update_core(
-        reg, kmer_counts, read_counts, lut, out["taxa_dense"], out["enc"], out["hll_lanes"],
+        reg, kmer_counts, read_counts, lut, out[id_key], out["enc"], out["hll_lanes"],
         out["call_dense"], row_valid, p, unit_id, sparse_cap, counts_only, plain=plain,
     )
     if cfg.outputs is not None:

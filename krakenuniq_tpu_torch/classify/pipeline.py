@@ -49,8 +49,15 @@ sorted planes instead (lookup_mode "bsearch", in dense ids), as in the JAX
 package; the planes of the databases that did build a table go to the
 device once for it.
 
-UID databases and meshes of the JAX package are later slices (ROADMAP
-items 5 and 7).
+UID databases (`uid_database=True`, the reference's --uid-mapping) load
+`uid_database.kdb`, whose values are taxon-set ids: the table stores them
+raw in the two-level layout (the `rows_probe` kernel; `rows_probe_acc` out
+of core), the step returns them as the "taxa" plane and the span route runs
+on the wide rows (no dictionary), and each read's call is resolved on the
+host from its k-mers' sets (classify/uid.py, resolve_uids3). The k-mer
+counters key on the raw ids, the read counts on the resolved taxids.
+
+Meshes of the JAX package are a later slice (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from .accumulate import TaxonCounter
 from .device_step import StepConfig, classify_and_count_core, classify_step_core, pack_input, probe_chunk_core
 from .output import kraken_line
 from .sparse_exact import MAX_UNITS
+from .uid import UidMap, resolve_uids
 
 WORK_UNIT_SIZE = 500_000  # bp, classify.cpp:38
 # the span route: reads per span (whole work units up to this many; tail
@@ -101,6 +109,10 @@ _FETCH_GRID = 8192  # span rows are fetched in multiples of this
 # with exact, the taxa, counted lanes and canonical k-mers)
 _SPAN_FETCH = ("packed", "hll_enc", "hll_dense")
 _EXACT_FETCH = ("taxa", "hll_lanes", "canon")
+# under a UID database: the wide rows, their u64 HLL feed and the raw plane
+# the host resolves the calls from
+_UID_FETCH = ("packed", "hll_pairs", "taxa")
+_EMPTY = np.empty(0, np.uint32)
 
 
 @dataclasses.dataclass
@@ -230,13 +242,23 @@ def resolve_device(name: str) -> torch.device:
 
 class Classifier:
     def __init__(self, db_dirs: list[str], options: ClassifyOptions | None = None,
-                 _shared: "Classifier | None" = None):
+                 uid_database: bool = False, _shared: "Classifier | None" = None):
+        """`uid_database`: the databases' `uid_database.kdb` and
+        `uid_to_taxid.map` (the reference's --uid-mapping), one database
+        and no quick mode (JAX pipeline.py:196-216)."""
         self.opts = options or ClassifyOptions()
         self.device = resolve_device(self.opts.device)
         self.db_dirs = [os.fspath(d) for d in db_dirs]
+        self._uid_database = uid_database
+        if uid_database:
+            if self.opts.quick:
+                raise ValueError("Quick mode not available when mapping UIDs")
+            if len(self.db_dirs) > 1:
+                raise ValueError("Cannot use more than one database with UID mapping!")
         if _shared is not None:
             self._adopt_loaded(_shared)
         else:
+            self.uid_map = UidMap(os.path.join(self.db_dirs[0], "uid_to_taxid.map")) if uid_database else None
             self._load()
         self._configure()
 
@@ -255,12 +277,12 @@ class Classifier:
             raise ValueError("cannot share tables across value_pool settings")
         if opts.preload_size and other._ooc is None:
             raise ValueError("cannot share resident DB state into out-of-core mode")
-        return cls(other.db_dirs, opts, _shared=other)
+        return cls(other.db_dirs, opts, other._uid_database, _shared=other)
 
     def _adopt_loaded(self, other: "Classifier") -> None:
         # out of core: the host chunk tables and the device slots they
         # stream through
-        for name in ("taxonomy", "dbs", "k", "nt", "_pool", "_ooc", "_ooc_slots", "_ooc_budget"):
+        for name in ("taxonomy", "uid_map", "dbs", "k", "nt", "_pool", "_ooc", "_ooc_slots", "_ooc_budget"):
             setattr(self, name, getattr(other, name))
 
     def _estimate_table_bytes(self, pooled: bool = True) -> int:
@@ -273,11 +295,12 @@ class Classifier:
         from ..db.pool import POOL_CAP
         from ..formats.kdb import read_header
 
+        uid = self._uid_database
         max_val = self.taxonomy.size - 1
-        if pooled and self.opts.value_pool:
+        if pooled and self.opts.value_pool and not uid:
             max_val = min(max_val, POOL_CAP)
-        return sum(table_bytes(read_header(os.path.join(d, "database.kdb")).key_ct, max_val, False)
-                   for d in self.db_dirs)
+        kdb = "uid_database.kdb" if uid else "database.kdb"
+        return sum(table_bytes(read_header(os.path.join(d, kdb)).key_ct, max_val, uid) for d in self.db_dirs)
 
     def _load(self) -> None:
         self.taxonomy = Taxonomy.from_taxdb_file(os.path.join(self.db_dirs[0], "taxDB"))
@@ -298,13 +321,14 @@ class Classifier:
             return build_value_pool([pre_vd[d] for d in self.db_dirs], self.taxonomy)
 
         # value pool (db/pool.py): device ids index the databases'
-        # LCA-closed value set when it fits u16, else dense taxonomy ids
-        pool_arg = "auto" if self.opts.value_pool else None
+        # LCA-closed value set when it fits u16, else dense taxonomy ids (a
+        # UID database stores raw set ids: no pool)
+        pool_arg = "auto" if self.opts.value_pool and not self._uid_database else None
         if len(self.db_dirs) > 1 and self.opts.value_pool:
             pool_arg = joint_pool()
         use_ooc = False
         if ps and self._estimate_table_bytes(pooled=False) > ps:
-            if self._estimate_table_bytes(pooled=True) > ps or not self.opts.value_pool:
+            if self._estimate_table_bytes(pooled=True) > ps or pool_arg is None:
                 use_ooc = True
             else:
                 # between the estimates: resident only if the value pool
@@ -321,7 +345,7 @@ class Classifier:
         for d in self.db_dirs:
             db, _ = load_database_dir(
                 d, taxonomy=self.taxonomy, device=self.device, pool=pool_arg,
-                vals_dense=pre_vd.get(d),
+                vals_dense=pre_vd.get(d), uid_database=self._uid_database,
             )
             self.dbs.append(db)
         if any(db.pool is None for db in self.dbs) and any(db.pool is not None for db in self.dbs):
@@ -353,7 +377,8 @@ class Classifier:
         pin = self.device.type == "cuda"
 
         def build(budget):
-            return [load_chunked_db(d, budget, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d), pin=pin)
+            return [load_chunked_db(d, budget, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d), pin=pin,
+                                    uid_database=self._uid_database)
                     for d in self.db_dirs]
 
         if self.opts.ooc_double_buffer:
@@ -414,6 +439,7 @@ class Classifier:
                 self._ooc_slots = ChunkSlots(self._ooc, self.device)
             self._ooc_prefetch = self.opts.ooc_double_buffer and (
                 2 * max(c.chunk_bytes() for c in self._ooc) <= self._ooc_budget)
+        uid = self.uid_map is not None
         self._cfg = StepConfig(
             k=self.k,
             max_depth=step_depth,
@@ -424,6 +450,8 @@ class Classifier:
             nt=self.nt,
             n_iter=n_iter,
             with_kmers=exact,
+            # a UID database's words are raw set ids, in every lookup mode
+            raw_dbs=(True,) * len(self.db_dirs) if uid else (),
         )
         # device-counters sparse tracking: ids past the device packing's
         # 2^TAXON_BITS taxon field fall back to HOST-computed per-unit stats
@@ -434,8 +462,8 @@ class Classifier:
             self.opts.device_counters
             and not exact
             and self.opts.sparse_cap > 0
-            and pool is None
-            and tax.size >= (1 << sparse_exact.TAXON_BITS)
+            and (len(self.uid_map) + 1 >= (1 << sparse_exact.TAXON_BITS) if uid
+                 else pool is None and tax.size >= (1 << sparse_exact.TAXON_BITS))
         )
         if self._dc_host_stats:
             print(
@@ -449,13 +477,22 @@ class Classifier:
         # per-span taxon dictionary when the id space passes u16; a kraken
         # line that carries the sequence needs the Python route's records
         self.route = "span" if self.opts.use_native and not self.opts.print_sequence else "python"
-        local_dict = pool is None and tax.size > 0xFFFF
+        local_dict = pool is None and tax.size > 0xFFFF and not uid
         if local_dict and not 0 < self.opts.dict_capacity < 0xFFFF:
             raise ValueError(f"dict_capacity must be in (0, 0xFFFF), got {self.opts.dict_capacity}")
         if exact:
             # the distinct-k-mer sets fold on the host from the canon plane;
             # device counters (counts only) ride the same step
             span_outputs = ("packed", "taxa", "ambig", "hll_lanes", "canon")
+        elif uid:
+            # the wide rows of raw ids (JAX pipeline.py:594-598, 640-651):
+            # the host resolves the calls from the raw plane; the device
+            # counters key on it in the step's stream
+            span_outputs = ("packed", "taxa", "ambig")
+            if not self.opts.device_counters:
+                span_outputs += ("hll_pairs",)
+            elif self._dc_host_stats:
+                span_outputs += ("enc", "hll_lanes")
         elif self.opts.device_counters:
             # the counts and registers update on the card in the step's
             # stream; the host reads the rows and the overflow rows' planes
@@ -470,7 +507,7 @@ class Classifier:
             self._cfg,
             packed_input=True,
             max_runs=MAX_RUNS,
-            dense_runs=True,
+            dense_runs=not uid,
             local_dict=local_dict,
             dict_capacity=self.opts.dict_capacity,
             outputs=span_outputs,
@@ -486,10 +523,12 @@ class Classifier:
                 self._cfg_packed, dense_runs=False, local_dict=False, outputs=wide
             )
         # the sparse buffer's overflow program: the planes of the host stats
+        # (under UID the counters key on the raw plane)
+        self._fb_id_key = "taxa" if uid else "taxa_dense"
         self._cfg_sparse_fb = dataclasses.replace(
-            self._cfg_packed, outputs=("taxa_dense", "enc", "hll_lanes")
+            self._cfg_packed, outputs=(self._fb_id_key, "enc", "hll_lanes")
         )
-        self._span_fetch = _SPAN_FETCH + (_EXACT_FETCH if exact else ())
+        self._span_fetch = (_UID_FETCH if uid else _SPAN_FETCH) + (_EXACT_FETCH if exact else ())
         # D2H copies of the spans' rows and HLL feed run on their own stream
         self._fetch_stream = (
             torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
@@ -508,7 +547,8 @@ class Classifier:
         # accumulate, format). Span route: the host's seconds, by stage in
         # span_host_seconds (encode; step: the launches and the resolve's
         # waits on the card; probe: out of core, the launches of a group's
-        # chunk passes; counters: the sparse buffer's fetch and fold
+        # chunk passes; uid: the host's resolve of the UID calls, one read
+        # at a time; counters: the sparse buffer's fetch and fold
         # and its overflow fallback; fold: the host's HLL fold; format; not
         # the wait for the fetch), the card's (CUDA events around upload and
         # step; the step's wall on the CPU) and the fetch copies' (CUDA
@@ -516,8 +556,8 @@ class Classifier:
         self.device_seconds = 0.0
         self.host_seconds = 0.0
         self.fetch_seconds = 0.0
-        self.span_host_seconds = {"encode": 0.0, "step": 0.0, "probe": 0.0, "counters": 0.0, "fold": 0.0,
-                                  "format": 0.0}
+        self.span_host_seconds = {"encode": 0.0, "step": 0.0, "probe": 0.0, "uid": 0.0, "counters": 0.0,
+                                  "fold": 0.0, "format": 0.0}
         self.n_units = 0
         self.n_spans = 0
         self.n_long_reads = 0  # reads classified by the long-read route
@@ -545,6 +585,15 @@ class Classifier:
             # anyway (classify.cpp:44-56 counts exactly in every mode)
             n = pool.size if pool is not None else tax.size
             self.dev_counters = DeviceCounters(n, p, counts_only=True, device=self.device)
+        elif self.uid_map is not None:
+            # UID databases: the k-mer counters and registers key on the raw
+            # stored id (the reference counts under the uid value,
+            # classify.cpp:939, 953-959); the read counts key on the
+            # host-resolved taxid and fold through self.counter
+            self.dev_counters = DeviceCounters(
+                len(self.uid_map) + 1, p, pool_dense=self._uid_value_set(), sparse_cap=self.opts.sparse_cap,
+                host_stats=self._dc_host_stats, device=self.device,
+            )
         elif pool is not None:
             # pool mode: the device id space IS the value closure --
             # registers and counters are pool-width and rows are ids
@@ -560,6 +609,30 @@ class Classifier:
                 tax.size, p, pool_dense=reg_pool, sparse_cap=self.opts.sparse_cap,
                 host_stats=self._dc_host_stats, device=self.device,
             )
+
+    def _uid_value_set(self) -> np.ndarray:
+        """The distinct raw ids stored in the UID database: the register
+        rows of the device counters."""
+        if self.dbs and self.dbs[0].vals is not None:
+            return np.unique(self.dbs[0].vals)
+        _, _, vals = read_kdb(os.path.join(self.db_dirs[0], "uid_database.kdb"))
+        return np.unique(vals)
+
+    def _resolve_uid_calls(self, taxa, n_kmers, calls, n: int) -> np.ndarray:
+        """Each of the first n reads' call from its k-mers' raw ids (u32 [n,
+        W], the first n_kmers[i] of row i), by resolve_uids3 (JAX
+        pipeline.py:1860-1871), a Python loop over the reads; `calls` as
+        they are without a UID database."""
+        if self.uid_map is None:
+            return calls
+        out = np.empty(n, dtype=np.uint32)
+        for i in range(n):
+            row = taxa[i, : int(n_kmers[i])]
+            hits: dict[int, int] = {}
+            for u in row[row != 0].tolist():
+                hits[u] = hits.get(u, 0) + 1
+            out[i] = resolve_uids(hits, self.uid_map, self.taxonomy.lca_fold)
+        return out
 
     # ------------------------------------------------------------ unit input
 
@@ -670,8 +743,16 @@ class Classifier:
         else:
             processed = np.ones(len(taxa), bool)
             hits = int(hit.sum())
-            u, c = np.unique(taxa[hit], return_counts=True)
-            call = int(self.taxonomy.resolve_tree_host(dict(zip(u.tolist(), c.tolist()))))
+            if self.uid_map is not None:
+                # the raw ids in the order of their first hit, as the JAX
+                # package folds them
+                counts: dict[int, int] = {}
+                for u in taxa[hit].tolist():
+                    counts[u] = counts.get(u, 0) + 1
+                call = int(resolve_uids(counts, self.uid_map, self.taxonomy.lca_fold))
+            else:
+                u, c = np.unique(taxa[hit], return_counts=True)
+                call = int(self.taxonomy.resolve_tree_host(dict(zip(u.tolist(), c.tolist()))))
         return taxa, ambig, enc_l, call, hits, processed, canon
 
     def _process_unit(self, unit, fastq, kraken_fh, classified_fh, unclassified_fh) -> None:
@@ -689,19 +770,25 @@ class Classifier:
         # reads under sparse tracking folds entirely on the host (merged at
         # finalized_counts)
         use_dev = dc is not None and not (long_idx and dc.tracker is not None)
+        uid = self.uid_map is not None
         if use_dev:
             # per-taxon accumulation stays on the device; the long reads'
             # zero-length placeholder rows are not counted (their lanes fold
-            # on the host below)
+            # on the host below). Under UID the k-mers count under the raw
+            # ids and no read on the device (the calls resolve on the host)
             row_valid = torch.zeros(out["call_dense"].shape[0], dtype=torch.bool, device=self.device)
-            row_valid[:n] = True
-            row_valid[long_idx] = False
-            dc.update(out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"], row_valid)
+            if uid:
+                dc.update(out["taxa"], out["enc"], out["hll_lanes"], torch.zeros_like(out["call_dense"]), row_valid)
+            else:
+                row_valid[:n] = True
+                row_valid[long_idx] = False
+                dc.update(out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"], row_valid)
         taxa = out["taxa"].cpu().numpy().view(np.uint32)
         ambig = out["ambig"].cpu().numpy()
         calls = out["call"][:n].cpu().numpy().view(np.uint32).copy()
         hits = out["hits"][:n].cpu().numpy().astype(np.int64)
         n_kmers = out["n_kmers"][:n].cpu().numpy().astype(np.int64)
+        calls = self._resolve_uid_calls(taxa, n_kmers, calls, n)
         if not use_dev or opts.exact:
             hll_lanes = out["hll_lanes"].cpu().numpy()
             # the k-mer stream the host folds: canonical k-mers or encodings
@@ -719,13 +806,15 @@ class Classifier:
             return t_l[lanes], (c_l if opts.exact else e_l)[lanes]
 
         if use_dev:
+            if uid:  # the read counts key on the resolved taxids, long reads' too
+                self.counter.process_unit(_EMPTY, _EMPTY, calls)
             if opts.exact:
                 # the device holds the counters; the sets fold on the host
                 # (the placeholder rows hold no counted lane)
                 lanes = hll_lanes[:n]
                 self.counter.process_sets(taxa[:n][lanes], kmers[:n][lanes])
             for i in long_idx:
-                self.counter.process_unit(*long_lanes(i), np.asarray([calls[i]], dtype=np.uint32))
+                self.counter.process_unit(*long_lanes(i), _EMPTY if uid else np.asarray([calls[i]], dtype=np.uint32))
         else:
             # per-taxon accumulation in read order (work-unit HLL semantics:
             # a counter at the sparse threshold goes by stream order), the
@@ -941,7 +1030,9 @@ class Classifier:
             self._parent,
             self._root_dense,
             *self._span_feed(codes, ambig, lengths),
-            n_span,
+            # UID: no read count on the device (the calls are resolved on the
+            # host, JAX pipeline.py:1367)
+            0 if self.uid_map is not None else n_span,
             self._upload(self._unit_id_rows(unit_bounds, codes.shape[0])),
             self._cfg_packed,
             dc.p,
@@ -1220,23 +1311,31 @@ class Classifier:
                 calls = id_map[(packed[:, r] >> np.uint32(16)).astype(np.int64)]
                 n_runs = packed[:, r] & np.uint32(0xFFFF)
             n_kmers = np.maximum(seq_lens - (self.k - 1), 0).astype(np.int32)
+        uid = self.uid_map is not None
+        if uid:
+            calls = self._resolve_uid_calls(host["taxa"].numpy().view(np.uint32), n_kmers, calls, n_span)
+            t = self._lap("uid", t)
 
         dc = self.dev_counters
         if dc is not None:
             # the counts and registers were updated in the step's stream;
             # the sparse-regime stats fold here
+            fb_key = self._fb_id_key
             if st["sp"] is not None and not dc.finish_sp(st["sp"]):
                 fb = redispatch(self._cfg_sparse_fb)
-                dc.consume_host(fb["taxa_dense"][:n_span], fb["enc"][:n_span], fb["hll_lanes"][:n_span],
+                dc.consume_host(fb[fb_key][:n_span], fb["enc"][:n_span], fb["hll_lanes"][:n_span],
                                 unit_bounds=bounds)
             if dc.host_stats:
-                dc.consume_host(out["taxa_dense"][:n_span], out["enc"][:n_span],
+                dc.consume_host(out[fb_key][:n_span], out["enc"][:n_span],
                                 out["hll_lanes"][:n_span], unit_bounds=bounds)
             if opts.exact:
                 # the counters are on the device (counts only); the sets fold
                 # here from the canon plane, span-wide (a union needs no units)
                 taxa_x, lanes_x, canon_x = self._exact_planes(host, n_span)
                 self.counter.process_sets(taxa_x[lanes_x], canon_x[lanes_x])
+            if uid:
+                # the read counts key on the resolved taxids: the host counter
+                self.counter.process_unit(_EMPTY, _EMPTY, calls)
             t = self._lap("counters", t)
         elif opts.exact:
             # per-unit fold of each counted lane's taxon and canonical k-mer
@@ -1256,12 +1355,14 @@ class Classifier:
             t = self._lap("fold", t)
         else:
             # the wide rows' u64 feed: dense id<<32 | encoding, all ones on
-            # the lanes not counted
+            # the lanes not counted (under UID the raw id, counted as it is)
             pairs = host["hll_pairs"].numpy().view(np.uint64)
             for s_, e_ in zip(bounds[:-1], bounds[1:]):
                 flat = pairs[s_:e_].reshape(-1)
                 flat = flat[flat != np.uint64(0xFFFFFFFFFFFFFFFF)]
-                taxa = self._taxids_host[(flat >> np.uint64(32)).astype(np.int64)]
+                taxa = (flat >> np.uint64(32)).astype(np.uint32)
+                if not uid:
+                    taxa = self._taxids_host[taxa.astype(np.int64)]
                 self.counter.process_unit(taxa, (flat & np.uint64(0xFFFFFFFF)).astype(np.uint32),
                                           calls[s_:e_])
             t = self._lap("fold", t)
@@ -1294,6 +1395,9 @@ class Classifier:
                 ov_lines = sub.splitlines(keepends=True)
                 if len(ov_lines) != len(ov_rows):
                     raise RuntimeError("kraken_lines: one line per overflow row expected")
+            if uid:  # the rows' call word: the resolved calls
+                packed = packed.copy()
+                packed[:, r + r // 2] = calls
             lines = nat.kraken_lines_rle(
                 buf,
                 np.ascontiguousarray(offs_c[:, 0]),
@@ -1372,13 +1476,14 @@ class Classifier:
         for i, d in enumerate(self.db_dirs):
             path = os.path.join(d, "database.kdb") + ".counts"
             if not (os.path.exists(path) and os.path.getsize(path) > 0):
-                vd = self._vals_dense(i)
-                hist = np.bincount(vd, minlength=self.taxonomy.size)
+                vd = self._vals_dense(i)  # None: out-of-core UID tables
+                hist = np.bincount(vd if vd is not None else [0], minlength=self.taxonomy.size)
                 active = np.flatnonzero(hist)
                 counts = {int(self.taxonomy.taxids[a]): int(hist[a]) for a in active}
                 # values whose taxid was missing from the taxonomy land on
-                # dense 0 with vals != 0; fall back to the host histogram
-                if (vd == 0).any() and 0 in counts:
+                # dense 0 with vals != 0 (a UID database's dense values are
+                # all 0); fall back to the host histogram of database.kdb
+                if vd is None or (vd == 0).any() and 0 in counts:
                     _, _, vals = read_kdb(os.path.join(d, "database.kdb"))
                     counts = counts_from_vals(vals)
                 write_counts(path, counts)
@@ -1398,7 +1503,10 @@ class Classifier:
         counts = self.counter.counts
         if self.dev_counters is None:
             return {tid: rc.copy() for tid, rc in counts.items()}
-        dev_counts = self.dev_counters.finalize(self._taxids_host)
+        # UID counters key on the raw id itself (classify.cpp:939)
+        dev_counts = self.dev_counters.finalize(
+            np.arange(self.dev_counters.n_taxa, dtype=np.uint32) if self.uid_map is not None else self._taxids_host
+        )
         # whatever folded on the host merges in; ReadCounts.iadd handles the
         # sparse-into-dense HLL merge
         for tid, rc in counts.items():

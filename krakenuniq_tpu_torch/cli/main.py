@@ -72,6 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
         "path: the sparse-regime HLL tracking runs on the device, see "
         "classify/sparse_exact.py)",
     )
+    p.add_argument("--uid-mapping", action="store_true",
+                   help="use the UID database (uid_database.kdb, uid_to_taxid.map)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the tables live and the step runs (default: cuda)")
     p.add_argument("--version", action="version", version=f"KrakenUniq-TPU-torch version {__version__}")
@@ -174,7 +176,7 @@ def main(argv: list[str] | None = None) -> int:
 
     close_fhs = []
     try:
-        classifier = Classifier(db_dirs, options=opts)
+        classifier = Classifier(db_dirs, options=opts, uid_database=args.uid_mapping)
         kraken_fh = None
         if args.output != "off":
             if args.output in (None, "-"):

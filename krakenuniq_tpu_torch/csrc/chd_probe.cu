@@ -91,6 +91,35 @@
 // also match in b2 (the build stores each key once): max(v1, v2) = v1. Rows
 // use chd_probe's cache policy.
 
+// The raw two-level entries, kuniq_rows_probe (rows_probe_kernel) and
+// kuniq_rows_probe_acc (chd_probe_acc_kernel over a RawTable), probe the
+// tables of UID databases, whose raw 32-bit values leave no spare bits:
+//   ptags:   u32 [2^lb][2]        a tag per slot, bits [lb, lb+32) of hc
+//   confirm: u32 [2^(lb+1)][2]    per slot (low 32 bits of h, value)
+// Replaces: krakenuniq_tpu/lookup/hash_lookup.py, _probe_rows under the
+// `valid` mask of hash_lookup_kmers (and, out of core, inside
+// _probe_chunk_core), which the JAX package left to XLA as three gathers.
+// A query h has the buckets b1 = h >> (64-lb) and b2 = (h*GOLDEN) >> (64-lb)
+// and the tags p1, p2 of h and h*GOLDEN. The probe takes the FIRST screened
+// slot, in the order (b1, 0), (b1, 1), (b2, 0), (b2, 1), b2 only where
+// b2 != b1, and confirms only that slot: the value where its confirm word
+// holds h's low 32 bits, else 0. That is _probe_rows bit for bit, also for
+// a query whose tag is 0, which screens on an empty slot (ptag 0, confirm
+// (0, 0)) and then misses even when a later slot holds it. The slot index
+// is formed in 64 bits (the JAX package's int32 r * 2 + c wraps at lb = 30).
+// Bound on the H100: random 32-byte sectors, three a valid query: two
+// independent 8-byte tag rows and one dependent 8-byte confirm row (none
+// where neither bucket screens). At the phase-4 table's size (lb = 27)
+// ptags is 1.07 GB and confirm 2.15 GB, both past the 50 MB L2. Design:
+// chd_probe's. A thread takes Q = 4 consecutive queries (hashes as two
+// 16-byte vectors, flags as one 4-byte word, values out as one 16-byte
+// store), issues all 2Q tag loads, then the Q confirm loads, so 2Q and then
+// Q loads of a thread are in flight together; a confirm plane larger than
+// the L2 goes through ld.global.cs (evict-first), leaving the L2 to the tag
+// rows. The out-of-core pass is chd_probe_acc_kernel with the RawTable in
+// place of the ChdTable: the front, the bins, the routing, the lane list
+// and the merge are the same code, and only the probe round differs.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -104,6 +133,87 @@ constexpr int kQF = 8;  // queries per thread (fused_probe)
 constexpr int kNeed = 4;  // acc words a thread reads at once (chd_probe_acc)
 constexpr uint64_t kGolden = 0x9E3779B97F4A7C15ull;
 constexpr uint64_t kC2 = 0xC2B2AE3D27D4EB4Full;
+
+// A probe round over kQ queries (h, and v: valid) gives each valid query's
+// stored value, 0 on a miss; kStream marks the plane read last as
+// evict-first. The CHD table: a displacement word, then a 16-byte row.
+struct ChdTable {
+  const uint32_t* disp;
+  const uint4* rows;
+  int lr, lg;
+
+  template <bool kStream>
+  __device__ __forceinline__ void probe(const uint64_t (&h)[kQ], const bool (&v)[kQ],
+                                        uint32_t (&word)[kQ]) const {
+    const uint64_t r_mask = (1ull << (64 - lr)) - 1;
+    const uint32_t v_mask = (1u << lr) - 1;
+    uint32_t d[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint32_t gi = (uint32_t)(((h[j] & r_mask) * kGolden) >> (64 - lg));
+      d[j] = v[j] ? __ldg(disp + gi) : 0u;
+    }
+    uint4 rw[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint32_t p = (uint32_t)(h[j] >> (64 - lr));
+      const uint32_t q = (uint32_t)(((h[j] & r_mask) * kC2) >> (64 - lr));
+      const uint32_t row = (p + (d[j] & 0xFFFFu) + (d[j] >> 16) * q) & v_mask;
+      const uint4* a = rows + row;
+      rw[j] = !v[j] ? make_uint4(0u, 0u, 0u, 0u) : kStream ? __ldcs(a) : __ldg(a);
+    }
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint64_t r = h[j] & r_mask;
+      const uint32_t e_hi = (uint32_t)(r >> (32 - lr));
+      const uint32_t e_lo = (uint32_t)((r & ((1ull << (32 - lr)) - 1)) << lr);
+      const uint32_t v0 = (rw[j].x == e_hi && (rw[j].y & ~v_mask) == e_lo) ? (rw[j].y & v_mask) : 0u;
+      const uint32_t v1 = (rw[j].z == e_hi && (rw[j].w & ~v_mask) == e_lo) ? (rw[j].w & v_mask) : 0u;
+      word[j] = v0 > v1 ? v0 : v1;
+    }
+  }
+};
+
+// The raw two-level table: both buckets' 8-byte tag rows, then the confirm
+// row of the first screened slot (the note above).
+struct RawTable {
+  const uint2* ptags;
+  const uint2* confirm;
+  int lb;
+
+  template <bool kStream>
+  __device__ __forceinline__ void probe(const uint64_t (&h)[kQ], const bool (&v)[kQ],
+                                        uint32_t (&word)[kQ]) const {
+    const uint2 zero = make_uint2(0u, 0u);
+    uint2 t1[kQ], t2[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint64_t b1 = h[j] >> (64 - lb), b2 = (h[j] * kGolden) >> (64 - lb);
+      t1[j] = v[j] ? __ldg(ptags + b1) : zero;
+      t2[j] = v[j] && b2 != b1 ? __ldg(ptags + b2) : zero;
+    }
+    long long slot[kQ];  // the first screened slot, -1: none
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint64_t hg = h[j] * kGolden;
+      const long long b1 = (long long)(h[j] >> (64 - lb)), b2 = (long long)(hg >> (64 - lb));
+      const uint32_t p1 = (uint32_t)((h[j] << lb) >> 32), p2 = (uint32_t)((hg << lb) >> 32);
+      slot[j] = !v[j] ? -1
+                : t1[j].x == p1 ? 2 * b1
+                : t1[j].y == p1 ? 2 * b1 + 1
+                : b2 == b1 ? -1
+                : t2[j].x == p2 ? 2 * b2
+                : t2[j].y == p2 ? 2 * b2 + 1
+                : -1;
+    }
+    uint2 c[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      c[j] = slot[j] < 0 ? zero : kStream ? __ldcs(confirm + slot[j]) : __ldg(confirm + slot[j]);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) word[j] = slot[j] >= 0 && c[j].x == (uint32_t)h[j] ? c[j].y : 0u;
+  }
+};
 
 template <bool kStreamRows>
 __global__ void __launch_bounds__(kThreads)
@@ -169,13 +279,11 @@ chd_probe_kernel(const uint32_t* __restrict__ disp, const uint4* __restrict__ ro
   }
 }
 
-template <typename V, bool kStreamRows>
+template <typename V, typename Table, bool kStreamRows>
 __global__ void __launch_bounds__(kThreads)
 chd_probe_acc_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restrict__ ambig,
-                     const int* __restrict__ lengths, const uint32_t* __restrict__ disp,
-                     const uint4* __restrict__ rows, uint32_t* __restrict__ acc, int B, int k,
-                     int nt, uint64_t bin_lo, uint64_t bin_hi, int lr, int lg,
-                     kmer_window::Tiles g) {
+                     const int* __restrict__ lengths, const Table tab, uint32_t* __restrict__ acc,
+                     int B, int k, int nt, uint64_t bin_lo, uint64_t bin_hi, kmer_window::Tiles g) {
   extern __shared__ uint64_t smem[];
   const kmer_window::Tile t = kmer_window::tile_of(g, B);
   const int n_lanes = t.rows * t.nl;
@@ -265,8 +373,6 @@ chd_probe_acc_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restr
   __syncthreads();
   const int n_probe = s_count;
 
-  const uint64_t r_mask = (1ull << (64 - lr)) - 1;
-  const uint32_t v_mask = (1u << lr) - 1;
   for (int base = 0; base < n_probe; base += kQ * kThreads) {
     uint64_t h[kQ];
     bool v[kQ];
@@ -287,31 +393,50 @@ chd_probe_acc_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restr
       }
     }
     if (!(v[0] || v[1] || v[2] || v[3])) continue;
-    uint32_t d[kQ];
+    uint32_t word[kQ];
+    tab.template probe<kStreamRows>(h, v, word);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (v[j] && word[j] != 0u) acc[at[j]] = word[j];
+  }
+}
+
+template <bool kStreamConfirm>
+__global__ void __launch_bounds__(kThreads)
+rows_probe_kernel(const uint2* __restrict__ ptags, const uint2* __restrict__ confirm,
+                  const uint64_t* __restrict__ hashes, const uint8_t* __restrict__ valid,
+                  uint32_t* __restrict__ out, long long n, int lb) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+  if (i0 >= n) return;
+  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
+                   !((uintptr_t)valid & 3);
+  uint64_t h[kQ];
+  bool v[kQ];
+  if (vec) {
+    const ulonglong2 h01 = reinterpret_cast<const ulonglong2*>(hashes + i0)[0];
+    const ulonglong2 h23 = reinterpret_cast<const ulonglong2*>(hashes + i0)[1];
+    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
+    h[0] = h01.x;
+    h[1] = h01.y;
+    h[2] = h23.x;
+    h[3] = h23.y;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) v[j] = (flags >> (8 * j)) & 0xFFu;
+  } else {
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
-      const uint32_t gi = (uint32_t)(((h[j] & r_mask) * kGolden) >> (64 - lg));
-      d[j] = v[j] ? __ldg(disp + gi) : 0u;
+      v[j] = i0 + j < n && valid[i0 + j];
+      h[j] = v[j] ? hashes[i0 + j] : 0;
     }
-    uint4 rw[kQ];
+  }
+  uint32_t res[kQ];
+  RawTable{ptags, confirm, lb}.probe<kStreamConfirm>(h, v, res);
+  if (vec) {
+    *reinterpret_cast<uint4*>(out + i0) = make_uint4(res[0], res[1], res[2], res[3]);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      const uint32_t p = (uint32_t)(h[j] >> (64 - lr));
-      const uint32_t q = (uint32_t)(((h[j] & r_mask) * kC2) >> (64 - lr));
-      const uint32_t row = (p + (d[j] & 0xFFFFu) + (d[j] >> 16) * q) & v_mask;
-      const uint4* a = rows + row;
-      rw[j] = !v[j] ? make_uint4(0u, 0u, 0u, 0u) : kStreamRows ? __ldcs(a) : __ldg(a);
-    }
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      const uint64_t r = h[j] & r_mask;
-      const uint32_t e_hi = (uint32_t)(r >> (32 - lr));
-      const uint32_t e_lo = (uint32_t)((r & ((1ull << (32 - lr)) - 1)) << lr);
-      const uint32_t v0 = (rw[j].x == e_hi && (rw[j].y & ~v_mask) == e_lo) ? (rw[j].y & v_mask) : 0u;
-      const uint32_t v1 = (rw[j].z == e_hi && (rw[j].w & ~v_mask) == e_lo) ? (rw[j].w & v_mask) : 0u;
-      const uint32_t word = v0 > v1 ? v0 : v1;
-      if (v[j] && word != 0u) acc[at[j]] = word;
-    }
+    for (int j = 0; j < kQ; ++j)
+      if (i0 + j < n) out[i0 + j] = res[j];
   }
 }
 
@@ -401,22 +526,22 @@ int stream_rows(int lr, bool* out) {
   return (int)err;
 }
 
-}  // namespace
-
 // codes: int32 [B, LB/16] and ambig: int32 [B, LB/32] words of
 // encode_unit_packed (LB a multiple of 32); lengths: int32 [B]; disp, rows:
 // the chunk's CHD planes; acc: int32 [B, W], W <= LB - k + 1, updated in
 // place; a lane is probed iff it is in its read, free of ambiguous bases,
 // still 0 in acc and its minimizer bin (nt-mers, 1 <= nt <= k <= 31) lies in
 // [bin_lo, bin_hi).
-extern "C" int kuniq_chd_probe_acc(const void* codes, const void* ambig, const void* lengths,
-                                   const void* disp, const void* rows, void* acc, int B, int LB,
-                                   int W, int k, int nt, unsigned long long bin_lo,
-                                   unsigned long long bin_hi, int lr, int lg, void* stream) {
+// the out-of-core pass over one chunk table: `width` is the width of the
+// plane the round reads last (lr, or a raw table's lb: 16 B << width each)
+template <typename Table>
+int probe_acc(const void* codes, const void* ambig, const void* lengths, const Table& tab,
+              void* acc, int B, int LB, int W, int k, int nt, unsigned long long bin_lo,
+              unsigned long long bin_hi, int width, void* stream) {
   if (B <= 0 || W <= 0) return (int)cudaGetLastError();
   if (nt < 1 || nt > k || k > 31 || LB % 32 != 0 || W > LB - k + 1) return (int)cudaErrorInvalidValue;
   bool streamed = false;
-  const int err = stream_rows(lr, &streamed);
+  const int err = stream_rows(width, &streamed);
   if (err != 0) return err;
   const bool wide = nt > 16;
   const kmer_window::Tiles g = kmer_window::plan_tiles(
@@ -424,11 +549,51 @@ extern "C" int kuniq_chd_probe_acc(const void* codes, const void* ambig, const v
       wide ? 8 : 4, true, true);
   const size_t smem = kmer_window::smem_bytes(g);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const auto kernel = wide ? (streamed ? chd_probe_acc_kernel<uint64_t, true> : chd_probe_acc_kernel<uint64_t, false>)
-                           : (streamed ? chd_probe_acc_kernel<uint32_t, true> : chd_probe_acc_kernel<uint32_t, false>);
+  const auto kernel = wide ? (streamed ? chd_probe_acc_kernel<uint64_t, Table, true>
+                                       : chd_probe_acc_kernel<uint64_t, Table, false>)
+                           : (streamed ? chd_probe_acc_kernel<uint32_t, Table, true>
+                                       : chd_probe_acc_kernel<uint32_t, Table, false>);
   kernel<<<(unsigned)g.grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)codes, (const uint32_t*)ambig, (const int*)lengths, (const uint32_t*)disp,
-      (const uint4*)rows, (uint32_t*)acc, B, k, nt, bin_lo, bin_hi, lr, lg, g);
+      (const uint32_t*)codes, (const uint32_t*)ambig, (const int*)lengths, tab, (uint32_t*)acc, B, k,
+      nt, bin_lo, bin_hi, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int kuniq_chd_probe_acc(const void* codes, const void* ambig, const void* lengths,
+                                   const void* disp, const void* rows, void* acc, int B, int LB,
+                                   int W, int k, int nt, unsigned long long bin_lo,
+                                   unsigned long long bin_hi, int lr, int lg, void* stream) {
+  const ChdTable tab{(const uint32_t*)disp, (const uint4*)rows, lr, lg};
+  return probe_acc(codes, ambig, lengths, tab, acc, B, LB, W, k, nt, bin_lo, bin_hi, lr, stream);
+}
+
+// ptags: u32 [2^lb][2], confirm: u32 [2^(lb+1)][2] (a raw chunk table);
+// the rest as kuniq_chd_probe_acc's
+extern "C" int kuniq_rows_probe_acc(const void* codes, const void* ambig, const void* lengths,
+                                    const void* ptags, const void* confirm, void* acc, int B, int LB,
+                                    int W, int k, int nt, unsigned long long bin_lo,
+                                    unsigned long long bin_hi, int lb, void* stream) {
+  if (lb < 4 || lb > 30) return (int)cudaErrorInvalidValue;
+  const RawTable tab{(const uint2*)ptags, (const uint2*)confirm, lb};
+  return probe_acc(codes, ambig, lengths, tab, acc, B, LB, W, k, nt, bin_lo, bin_hi, lb, stream);
+}
+
+// ptags, confirm as kuniq_rows_probe_acc's; hashes, valid, out as
+// kuniq_chd_probe's
+extern "C" int kuniq_rows_probe(const void* ptags, const void* confirm, const void* hashes,
+                                const void* valid, void* out, long long n, int lb, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (lb < 4 || lb > 30) return (int)cudaErrorInvalidValue;
+  bool streamed = false;
+  const int err = stream_rows(lb, &streamed);
+  if (err != 0) return err;
+  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
+  const auto kernel = streamed ? rows_probe_kernel<true> : rows_probe_kernel<false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint2*)ptags, (const uint2*)confirm, (const uint64_t*)hashes, (const uint8_t*)valid,
+      (uint32_t*)out, n, lb);
   return (int)cudaGetLastError();
 }
 

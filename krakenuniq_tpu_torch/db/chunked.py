@@ -4,11 +4,13 @@ Counterpart of krakenuniq_tpu/db/chunked.py. The reference classifies
 databases larger than its memory by splitting the sorted pair array into
 minimizer-range chunks that fit a byte budget and streaming them through
 memory one at a time (krakendb.cpp:407-526, classify.cpp:566-791). Here the
-CHD table (db/hash_table.py) is built per minimizer-range chunk on the host,
+CHD table (db/hash_table.py; a UID database's raw two-level table) is built
+per minimizer-range chunk on the host,
 each chunk sized so that its table fits the `--preload-size` device budget;
 the classify pipeline streams the chunk tables through the card and folds
 each k-mer's hit into a per-span accumulator (classify/device_step.
-probe_chunk_core, the `chd_probe_acc` kernel), probing in each chunk only
+probe_chunk_core, the `chd_probe_acc` kernel, `rows_probe_acc` on raw
+chunk tables), probing in each chunk only
 the lanes whose minimizer bin lies in the chunk's range (`bounds`).
 
 Correctness rests on the invariant the reference's chunk merge asserts
@@ -54,8 +56,8 @@ from .hash_table import (
 from .ht_cache import CHUNK_SOURCES, load_ht_cache, save_ht_cache
 
 CACHE_SUFFIX = ".htc_torch"  # the port's chunk cache beside `database.kdb`
-# raw (UID) two-level tables are 24 B a bucket, loaded to 0.6 (the JAX
-# package's pricing; the port builds no such table yet)
+# raw (UID) two-level tables are 24 B a bucket (two tags, two confirm
+# slots), loaded to 0.6, as the JAX package prices them
 _RAW_BYTES_PER_BUCKET = 4 * 2 + 8 * 2
 _CHUNK_LOAD_FACTOR = 0.6
 
@@ -140,9 +142,10 @@ class ChunkedHashDB:
     """One database's chunk tables on the host, streamed through the card.
 
     chunk_planes[i] is chunk i's (disp4 int32 [2^(lb-4), 4], rows int32
-    [2^lb, 4]) CHD planes (uint32 bit patterns), all at the common width
-    `lb`: pinned host tensors when bound for a card, plain ones for the
-    CPU."""
+    [2^lb, 4]) CHD planes, or with `store_raw` its (ptags int32 [2^lb, 2],
+    confirm int32 [2^(lb+1), 2]) raw two-level planes (uint32 bit
+    patterns), all at the common width `lb`: pinned host tensors when bound
+    for a card, plain ones for the CPU."""
 
     chunk_planes: list[tuple[torch.Tensor, torch.Tensor]]
     lb: int
@@ -152,6 +155,7 @@ class ChunkedHashDB:
     key_ct: int
     vals_dense: np.ndarray | None  # host dense values (counts-file generation)
     pool: object | None = None  # ValuePool when the table values are pool ids
+    store_raw: bool = False  # raw (UID) values in two-level tables
     # set-up wall seconds: "read" (kdb, dense values, pool), "cache_read" (a
     # hit) or "build" (plan, placement, planes, self-check) and
     # "cache_write", "pin" (copies into pinned memory); "cache" is "hit",
@@ -177,16 +181,17 @@ def chunked_db_from_planes(planes, lb: int, k: int, nt: int, bounds=None, key_ct
                            vals_dense: np.ndarray | None = None, pool=None,
                            pin: bool = False) -> ChunkedHashDB:
     """A ChunkedHashDB over already-built chunk tables: `planes` a list of
-    (disp4, rows) uint32 numpy planes at width `lb`, such as the JAX
-    package's build_chunked_db returns in its chunk_planes, and `bounds`
-    each chunk's minimizer-bin range [lo, hi), which the chunk passes route
-    lanes by (required)."""
-    for disp4, rows in planes:
-        if disp4.ndim != 2 or disp4.shape[1] != 4 or rows.shape != (1 << lb, 4):
-            raise NotImplementedError(
-                "only CHD (disp4, rows) chunk tables are ported; the raw (UID) "
-                "chunk tables belong to ROADMAP item 8"
-            )
+    (disp4, rows) or (ptags, confirm) uint32 numpy planes at width `lb`,
+    such as the JAX package's build_chunked_db returns in its chunk_planes,
+    and `bounds` each chunk's minimizer-bin range [lo, hi), which the chunk
+    passes route lanes by (required)."""
+    raw = bool(planes) and planes[0][0].shape[1:] == (2,)
+    for p0, p1 in planes:
+        s0, s1 = tuple(p0.shape), tuple(p1.shape)
+        chd = len(s0) == 2 and s0[1] == 4 and s1 == (1 << lb, 4)
+        if not ((s0, s1) == ((1 << lb, 2), (2 << lb, 2)) if raw else chd):
+            raise ValueError(f"chunk planes {s0}, {s1} are neither CHD nor raw two-level tables of width "
+                             f"2^{lb} (all alike)")
     if bounds is None or len(bounds) != len(planes):
         raise ValueError(
             f"chunk tables need one minimizer-bin range each: {len(planes)} tables, bounds {bounds!r}"
@@ -201,6 +206,7 @@ def chunked_db_from_planes(planes, lb: int, k: int, nt: int, bounds=None, key_ct
         key_ct=key_ct,
         vals_dense=vals_dense,
         pool=pool,
+        store_raw=raw,
     )
 
 
@@ -212,10 +218,13 @@ def build_chunked_db(
     k: int,
     nt: int,
     pin: bool = False,
+    store_raw: bool = False,
 ) -> ChunkedHashDB:
     """Build per-chunk CHD tables on the host over `keys` (the bin-sorted
     pair array, so each chunk's keys are a contiguous slice) -> `values`
-    (pool or dense ids).
+    (pool or dense ids), or with `store_raw` raw two-level tables of the
+    raw values (a UID database; JAX chunked.py:162-222), planned and
+    widened by their 24 B a bucket.
 
     A chunk whose placement stalls at the planned width restarts the whole
     set: one bit wider if the budget allows (halves the load), else cut
@@ -228,9 +237,13 @@ def build_chunked_db(
     pin_s = 0.0
     min_chunks = 1
     lb_bump = 0
+
+    def width_bytes(w: int) -> int:
+        return (1 << w) * _RAW_BYTES_PER_BUCKET if store_raw else chd_table_bytes(w)
+
     while True:
-        bounds, lb = plan_chunks(offsets, budget_bytes, vmax, False, min_chunks)
-        if chd_table_bytes(lb + lb_bump) <= budget_bytes:
+        bounds, lb = plan_chunks(offsets, budget_bytes, vmax, store_raw, min_chunks)
+        if width_bytes(lb + lb_bump) <= budget_bytes:
             lb = min(lb + lb_bump, 30)
         else:
             lb_bump = 0  # the replanned cut changed the base width; restart bumps
@@ -239,10 +252,11 @@ def build_chunked_db(
         for lo, hi in bounds:
             klo, khi = int(offsets[lo]), int(offsets[hi])
             try:
-                host, _ = build_hash_table(keys[klo:khi], values[klo:khi], force_lr=lb, layout="chd")
+                host, _ = build_hash_table(keys[klo:khi], values[klo:khi], force_lr=lb, layout="chd",
+                                           store_raw=store_raw)
             except HashBuildError:
                 ok = False
-                if chd_table_bytes(lb + 1) <= budget_bytes:
+                if width_bytes(lb + 1) <= budget_bytes:
                     lb_bump += 1
                 else:
                     min_chunks = len(bounds) + 1
@@ -261,6 +275,7 @@ def build_chunked_db(
         nt=nt,
         key_ct=len(keys),
         vals_dense=None,
+        store_raw=store_raw,
     )
     cdb.timings["pin"] = pin_s
     return cdb
@@ -280,34 +295,35 @@ def load_chunked_db(
     (db/pool.py), a ValuePool shares a joint id space (hierarchical
     databases), None stores dense ids. `vals_dense` skips recomputing the
     dense values when the caller has them. `pin` pins each chunk's planes
-    for the card's copy engines. The chunk tables come from the port's
-    cache `<kdb>.htc_torch` when it holds them for this kdb, taxDB, pool,
-    budget and code; else they are built and the cache written
+    for the card's copy engines. `uid_database` loads `uid_database.kdb`
+    as raw two-level chunk tables (JAX chunked.py:230-316): no pool, no
+    dense values. The chunk tables come from the port's cache
+    `<kdb>.htc_torch` when it holds them for this kdb, taxDB, value kind,
+    pool, budget and code; else they are built and the cache written
     (a failed write is not fatal). ChunkedHashDB.timings["cache"] says
     which."""
     from ..formats import read_index, read_kdb
     from .device_db import compute_vals_dense
     from .pool import build_value_pool
 
-    if uid_database:
-        raise NotImplementedError(
-            "out-of-core UID databases (raw chunk tables) belong to ROADMAP item 8"
-        )
     t0 = time.perf_counter()
     db_dir = os.fspath(db_dir)
-    kdb_path = os.path.join(db_dir, "database.kdb")
+    kdb_path = os.path.join(db_dir, "uid_database.kdb" if uid_database else "database.kdb")
     taxdb_path = os.path.join(db_dir, "taxDB")
     hdr, keys, vals = read_kdb(kdb_path)
     _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
-    if vals_dense is None:
-        vals_dense = compute_vals_dense(vals, taxonomy)
-    vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
+    if uid_database:  # set ids, not taxids: no dense values and no pool
+        vals_dense, pool = None, None
+    else:
+        if vals_dense is None:
+            vals_dense = compute_vals_dense(vals, taxonomy)
+        vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
     if pool == "auto":
         pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     t1 = time.perf_counter()
     htc_path = kdb_path + CACHE_SUFFIX
     cdb = None
-    cached = load_ht_cache(htc_path, kdb_path, taxdb_path, CHUNK_SOURCES)
+    cached = load_ht_cache(htc_path, kdb_path, taxdb_path, CHUNK_SOURCES, store_raw=uid_database)
     if cached is not None:
         planes, lb, extra = cached
         extra = extra or {}
@@ -326,8 +342,9 @@ def load_chunked_db(
             pin_s = time.perf_counter() - t
             cdb.timings.update(cache="hit", cache_read=t - t1, pin=pin_s)
     if cdb is None:
-        table_vals = pool.pool_index(vals_dense) if pool is not None else vals_dense
-        cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin)
+        table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
+        cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin,
+                               store_raw=uid_database)
         del table_vals
         cdb.timings["build"] = time.perf_counter() - t1 - cdb.timings["pin"]
         t = time.perf_counter()
@@ -336,7 +353,8 @@ def load_chunked_db(
         if pool is not None:
             extra["pool_rows"] = pool.rows
         flat = [p.numpy().view(np.uint32) for planes in cdb.chunk_planes for p in planes]
-        ok = save_ht_cache(htc_path, flat, cdb.lb, kdb_path, taxdb_path, extra=extra, sources=CHUNK_SOURCES)
+        ok = save_ht_cache(htc_path, flat, cdb.lb, kdb_path, taxdb_path, extra=extra, sources=CHUNK_SOURCES,
+                           store_raw=uid_database)
         cdb.timings.update(cache="miss" if ok else "write_failed", cache_write=time.perf_counter() - t)
     del keys, vals
     cdb.vals_dense = vals_dense

@@ -17,8 +17,9 @@ slots are all-zero and "match" only r == 0 queries, yielding value 0 = miss.
 Placement runs on the host in the port's native module (`_chd_place`,
 kuniq_native_torch.chd_place: a sequential largest-bucket-first search);
 `_chd_place_numpy` is its plain numpy version, which places differently but
-as exactly. Plane construction and the self-check probe run in numpy; the
-planes go to the device once validated (db/device_db.py).
+as exactly. Plane construction runs in numpy, and so does the self-check
+probe, unless the caller checks on a card through the table's own kernel
+(db/device_db.py); the planes go to the device once validated.
 
 The two-choice FUSED layout is the build's fallback when CHD placement
 fails at every width: one u32 [2^lb, 4] plane of [tag0, val0, tag1, val1]
@@ -32,8 +33,18 @@ so an accepted slot pins all 64 bits of hc, hence h: exact as well.
 Placement is a vectorized two-choice cuckoo walk in numpy (`_host_place`);
 keys whose first-choice tag is 0 are pinned to b1, where occupants sit
 ahead of the all-zero empty slots that could otherwise shadow them. The
-value must fit lb - 1 bits (`min_lb_for`). The raw-valued (UID) two-level
-layout is not ported (ROADMAP item 5).
+value must fit lb - 1 bits (`min_lb_for`).
+
+Raw-valued (UID) tables (`store_raw`) store the raw 32-bit database value,
+which leaves no spare bits in the value word, in the TWO-LEVEL layout over
+the same cuckoo placement:
+  ptags:   uint32 [2^lb, 2]         a tag per slot: bits [lb, lb+32) of hc
+  confirm: uint32 [2^(lb+1), 2]     per slot (low 32 bits of h, value)
+24 B a bucket. The probe screens both buckets' tags, takes the first
+screened slot (slot 0 before slot 1, b1 before b2; b2 only where b2 != b1)
+and accepts it when its confirm word holds h's low 32 bits: tag and confirm
+pin 64 bits of hc and h together, so a false accept needs a 2^-(64+lb)
+coincidence (krakenuniq_tpu/db/hash_table.py).
 """
 
 from __future__ import annotations
@@ -295,32 +306,29 @@ def _host_place(hashes: np.ndarray, lb: int, max_rounds: int = 400, seed: int = 
 
 
 def _slot_layout(assign, hashes, lb: int):
-    """Per-key flat slot index (occupants packed ahead of empty slots within
-    each bucket), sorted-order views, and the probe value hc of the choice
-    that placed each key."""
-    order = np.argsort(assign, kind="stable")
-    sa = assign[order]
-    # rank within each equal-assign group
-    first = np.concatenate([[True], sa[1:] != sa[:-1]])
-    start = np.maximum.accumulate(np.where(first, np.arange(len(sa)), -1))
-    rank = np.arange(len(sa)) - start
-    rows = sa.astype(np.int64)
-    cols = np.minimum(rank, BUCKET_SLOTS - 1).astype(np.int64)
-    flat_idx = rows * BUCKET_SLOTS + cols
-
-    h_s = hashes[order]
-    b1_s = (h_s >> np.uint64(64 - lb)).astype(np.int64)
-    second = rows != b1_s
-    hc = np.where(second, h_s * GOLDEN, h_s)
-    return flat_idx, h_s, hc, second, order
+    """Each key's flat slot index and the probe value hc of the choice that
+    placed it (h in its first bucket, h * GOLDEN in its second), in key
+    order. A bucket's keys take its slots in key order (the lowest index
+    slot 0; _host_place leaves at most two keys a bucket), as the JAX
+    package's stable argsort by bucket lays them out; the lowest index per
+    bucket comes from one minimum scatter instead of the sort."""
+    n = len(assign)
+    idx = np.arange(n, dtype=np.int64 if n >= (1 << 31) - 1 else np.int32)
+    first = np.full(1 << lb, n, dtype=idx.dtype)
+    np.minimum.at(first, assign, idx)
+    rows = assign.astype(np.int64)
+    flat_idx = rows * BUCKET_SLOTS + (first[assign] != idx)
+    second = rows != (hashes >> np.uint64(64 - lb)).astype(np.int64)
+    hc = np.where(second, hashes * GOLDEN, hashes)
+    return flat_idx, hc, second
 
 
 def _host_planes_fused(assign, hashes, values, lb: int):
     """Host numpy construction of the fused plane (see module docstring)."""
     nb = 1 << lb
     v_bits = lb - 1
-    flat_idx, _h_s, hc, second, order = _slot_layout(assign, hashes, lb)
-    v_s = values[order].astype(np.uint32)
+    flat_idx, hc, second = _slot_layout(assign, hashes, lb)
+    v_s = values.astype(np.uint32)
     if len(v_s) and int(v_s.max()) >> v_bits:
         raise ValueError(
             f"value {int(v_s.max())} does not fit the {v_bits}-bit taxon field"
@@ -338,16 +346,29 @@ def _host_planes_fused(assign, hashes, values, lb: int):
     return fused.reshape(nb, BUCKET_SLOTS * 2)
 
 
+def _host_planes_two(assign, hashes, values, lb: int):
+    """Host numpy construction of the two-level (ptags, confirm) planes of
+    raw-valued (UID) tables (module docstring)."""
+    nb = 1 << lb
+    flat_idx, hc, _second = _slot_layout(assign, hashes, lb)
+    ptags = np.zeros(nb * BUCKET_SLOTS, np.uint32)
+    ptags[flat_idx] = ((hc << np.uint64(lb)) >> np.uint64(32)).astype(np.uint32)
+    confirm = np.zeros((nb * BUCKET_SLOTS, 2), np.uint32)
+    confirm[flat_idx, 0] = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    confirm[flat_idx, 1] = values
+    return ptags.reshape(nb, BUCKET_SLOTS), confirm
+
+
 def _self_check(host_planes, hashes, values, lb: int) -> int:
     """Probe every key through a numpy mirror of the device probe; returns
     the number of mismatching keys. `host_planes` = (disp4, rows) of the CHD
-    layout (lb is its row bits lr) or (fused,)."""
+    layout (lb is its row bits lr), (fused,) or (ptags, confirm)."""
     n_bad = 0
     shift = np.uint64(64 - lb)
     for s in range(0, len(hashes), _SELF_CHECK_CHUNK):
         h = hashes[s : s + _SELF_CHECK_CHUNK]
         want = values[s : s + _SELF_CHECK_CHUNK]
-        if len(host_planes) == 2:
+        if len(host_planes) == 2 and host_planes[0].shape[1] == 4:
             disp4, rows_plane = host_planes
             lr = lb
             lg = int(np.log2(disp4.shape[0] * 4))
@@ -368,7 +389,7 @@ def _self_check(host_planes, hashes, values, lb: int) -> int:
                 np.where(m0, rw[:, 1] & v_mask, 0),
                 np.where(m1, rw[:, 3] & v_mask, 0),
             )
-        else:
+        elif len(host_planes) == 1:
             fused = host_planes[0]
             v_bits = lb - 1
             tax_mask = np.uint32((1 << v_bits) - 1)
@@ -389,6 +410,20 @@ def _self_check(host_planes, hashes, values, lb: int) -> int:
                     )
                     got = np.where(m & ~found, rows[:, 2 * slot + 1] & tax_mask, got)
                     found |= m
+        else:
+            # two-level: the first screened slot, then its confirm word
+            ptags, confirm = host_planes
+            hg = h * GOLDEN
+            r1 = (h >> shift).astype(np.int64)
+            r2 = (hg >> shift).astype(np.int64)
+            eq1 = ptags[r1] == partial_tags(h, lb)[:, None]
+            eq2 = (ptags[r2] == partial_tags(hg, lb)[:, None]) & (r1 != r2)[:, None]
+            has1 = eq1.any(axis=1)
+            flat = np.where(has1, r1 * BUCKET_SLOTS + np.argmax(eq1, axis=1),
+                            r2 * BUCKET_SLOTS + np.argmax(eq2, axis=1))
+            crow = confirm[flat]
+            ok = (has1 | eq2.any(axis=1)) & (crow[:, 0] == (h & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+            got = np.where(ok, crow[:, 1], np.uint32(0))
         n_bad += int(np.count_nonzero(got != want))
     return n_bad
 
@@ -402,20 +437,27 @@ def min_lb_for(n_keys: int, max_value: int, load_factor: float = 0.6) -> int:
 
 def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = True,
                      timings: dict | None = None, force_lr: int | None = None,
-                     layout: str = "auto"):
+                     layout: str = "auto", store_raw: bool = False, check=None):
     """Build the table planes for `keys` (uint64 k-mers) -> `values` (pool
     or dense ids), after the JAX package's build_hash_table. Returns
     (host_planes, lb): ((disp4 uint32 [2^(lr-2), 4], rows uint32 [2^lr, 4]),
     lr) for the CHD layout, ((fused uint32 [2^lb, 4],), lb) for the fused
-    one.
+    one, ((ptags uint32 [2^lb, 2], confirm uint32 [2^(lb+1), 2]), lb) for
+    the two-level one of `store_raw`.
 
+    `store_raw` (UID databases): `values` are raw 32-bit database values,
+    which only the two-level layout holds; CHD is skipped whatever
+    `layout` says, and the width is the load factor's alone (0.6).
     `layout`: "auto" tries CHD and falls back to the fused layout when CHD
     placement fails at every width; "chd" and "fused" pin the layout (the
     out-of-core chunk tables pin "chd"). CHD placement is retried with
     three seeds per width, then the table grows, up to 2^30 rows; fused
     placement likewise from `min_lb_for` (load 0.6) up to 2^30 buckets.
     `force_lr` pins the width of either layout: only the seed retries apply.
-    Every success is self-checked key by key; every failure raises
+    Every success is self-checked key by key (`check(host_planes, hashes,
+    values, width)` -> the keys that do not probe back to their value; the
+    numpy mirror `_self_check` by default, the table's kernel on the card
+    for a card's load: db/device_db.py); every failure raises
     HashBuildError. `timings`, if given, receives the seconds of each step
     ("hash", "place", "planes", "check"), summed over retries and layouts."""
     if layout not in ("auto", "chd", "fused"):
@@ -438,11 +480,11 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
 
     def checked(host, width):
         lap("planes")
-        ok = not self_check or n == 0 or _self_check(host, hashes, values, width) == 0
+        ok = not self_check or n == 0 or (check or _self_check)(host, hashes, values, width) == 0
         lap("check")
         return ok
 
-    if layout in ("auto", "chd"):
+    if layout in ("auto", "chd") and not store_raw:
         lr = chd_min_lr(n, vmax) if force_lr is None else force_lr
         if force_lr is not None and vmax >> lr:
             raise ValueError(f"force_lr={lr} cannot hold value {vmax} in {lr} bits (CHD)")
@@ -466,8 +508,10 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
         # layout == "auto": fall through to the fused two-choice build
     if force_lr is not None:
         lb = lb_max = force_lr
-        if vmax >> (lb - 1):
+        if not store_raw and vmax >> (lb - 1):
             raise ValueError(f"force_lr={lb} cannot hold value {vmax} in {lb - 1} bits")
+    elif store_raw:
+        lb, lb_max = max(4, int(np.ceil(np.log2(max(n, 2) / (BUCKET_SLOTS * 0.6))))), 30
     else:
         lb, lb_max = min_lb_for(n, vmax), 30
     if lb > 30:
@@ -478,7 +522,8 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
             lap("place")
             if assign is None:
                 continue
-            host = (_host_planes_fused(assign, hashes, values, lb),)
+            host = (_host_planes_two(assign, hashes, values, lb) if store_raw
+                    else (_host_planes_fused(assign, hashes, values, lb),))
             if checked(host, lb):
                 return host, lb
         lb += 1

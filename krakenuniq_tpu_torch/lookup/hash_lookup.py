@@ -14,17 +14,25 @@ val0, tag1, val1] rows; the probe reads the rows of both candidate buckets
 and accepts a slot whose tag and value-word high bits (choice flag and
 spare hash bits) both match -- also exact.
 
-The layout is told by the plane structure, as the JAX package's `_probe`
-tells it: one plane = fused, two planes with `shape[1] == 4` = CHD. The
-raw two-level (UID) layout is ROADMAP item 5 and raises.
+Raw two-level (UID databases, whose 32-bit values leave no spare bits):
+`ptags` int32 [2^lb, 2], a tag per slot, and `confirm` int32 [2^(lb+1), 2],
+per slot (low 32 bits of h, value). The probe reads both candidate buckets'
+tag rows, takes the FIRST screened slot (slot 0 before slot 1, the first
+choice before the second, the second only where its bucket differs) and
+then that slot's confirm row: the value where it holds h's low 32 bits,
+else 0 (krakenuniq_tpu/lookup/hash_lookup.py, _probe_rows).
 
-`hash_lookup_kmers` launches the `chd_probe` or `fused_probe` CUDA kernel
-on CUDA tensors and runs `probe_chd_plain` or `probe_fused_plain`, the plain
-PyTorch versions, on CPU tensors. `hash_lookup_acc_plain` is the plain
-fold of one CHD chunk table's hits into an accumulated word plane, the last
-step of the out-of-core pass's plain version (classify/device_step.
-probe_chunk_core, whose kernel is the `chd_probe_acc` entry of the same
-library).
+The layout is told by the plane structure, as the JAX package's `_probe`
+tells it: one plane = fused, two planes with `shape[1] == 4` = CHD, two
+planes with `shape[1] == 2` = raw.
+
+`hash_lookup_kmers` launches the `chd_probe`, `fused_probe` or `rows_probe`
+CUDA kernel on CUDA tensors and runs `probe_chd_plain`, `probe_fused_plain`
+or `probe_rows_plain`, the plain PyTorch versions, on CPU tensors.
+`hash_lookup_acc_plain` is the plain fold of one chunk table's hits into an
+accumulated word plane, the last step of the out-of-core pass's plain
+version (classify/device_step.probe_chunk_core, whose kernels are the
+`chd_probe_acc` and `rows_probe_acc` entries of the same library).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from .. import _kernels
 from ..db.hash_table import C2, GOLDEN
-from ..ints import i32_to_u32, lsr, s64
+from ..ints import i32_to_u32, lsr, s64, u32_to_i32
 
 _GOLDEN = s64(int(GOLDEN))
 _C2 = s64(int(C2))
@@ -59,16 +67,39 @@ def _fused_width(fused: torch.Tensor) -> int:
     return nb.bit_length() - 1
 
 
+def _raw_width(ptags: torch.Tensor, confirm: torch.Tensor) -> int:
+    """lb (bucket bits) of a raw two-level table from its plane shapes."""
+    nb = int(ptags.shape[0]) if ptags.dim() == 2 else 0
+    if (ptags.dim() != 2 or ptags.shape[1] != 2 or nb & (nb - 1) or not 16 <= nb <= 1 << 30
+            or tuple(confirm.shape) != (2 * nb, 2)):
+        raise ValueError("rows_probe: need ptags [2^lb, 2] and confirm [2^(lb+1), 2] planes, 4 <= lb <= 30")
+    return nb.bit_length() - 1
+
+
 def table_layout(planes) -> str:
-    """"fused" for one plane, "chd" for (disp4, rows); the raw two-level
-    (ptags, confirm) layout of UID databases raises."""
+    """"fused" for one plane, "chd" for (disp4, rows), "raw" for the
+    two-level (ptags, confirm) planes of UID databases."""
     if len(planes) == 1:
         return "fused"
-    if len(planes) == 2 and planes[0].dim() == 2 and planes[0].shape[1] == 4:
-        return "chd"
-    raise NotImplementedError(
-        "the raw two-level (UID) table layout is a later slice of the port (ROADMAP item 5)"
-    )
+    if len(planes) == 2 and planes[0].dim() == 2 and planes[0].shape[1] in (2, 4):
+        return "chd" if planes[0].shape[1] == 4 else "raw"
+    raise ValueError(f"no table layout has planes of shapes {[tuple(p.shape) for p in planes]}")
+
+
+def probe_rows_plain(ptags, confirm, h, lb: int):
+    """Plain PyTorch two-level probe (krakenuniq_tpu.lookup.hash_lookup.
+    _probe_rows): returns (found bool [n], value int64 [n]) for int64 query
+    hashes `h`. Only the first screened slot is confirmed."""
+    hg = h * _GOLDEN
+    r1, r2 = lsr(h, 64 - lb), lsr(hg, 64 - lb)
+    eq1 = i32_to_u32(ptags[r1]) == lsr(h << lb, 32)[:, None]
+    # when both choices land on one bucket, its keys carry first-choice tags
+    eq2 = (i32_to_u32(ptags[r2]) == lsr(hg << lb, 32)[:, None]) & (r1 != r2)[:, None]
+    has1 = eq1.any(dim=1)
+    flat = torch.where(has1, 2 * r1 + (~eq1[:, 0]).long(), 2 * r2 + (~eq2[:, 0]).long())
+    crow = i32_to_u32(confirm[flat])
+    ok = (has1 | eq2.any(dim=1)) & (crow[:, 0] == (h & 0xFFFFFFFF))
+    return ok, crow[:, 1]
 
 
 def probe_fused_plain(fused, h, lb: int):
@@ -147,21 +178,27 @@ def probe_chd_plain(disp4, rows, h, lr: int):
 def hash_lookup_plain(planes, hashes, valid):
     """Plain version of `hash_lookup_kmers`: value word per lane (int32), 0
     where missing or invalid."""
-    if table_layout(planes) == "fused":
-        ok, val = probe_fused_plain(planes[0], hashes.reshape(-1), _fused_width(planes[0]))
+    layout, h = table_layout(planes), hashes.reshape(-1)
+    if layout == "fused":
+        ok, val = probe_fused_plain(planes[0], h, _fused_width(planes[0]))
+    elif layout == "raw":
+        ok, val = probe_rows_plain(*planes, h, _raw_width(*planes))
     else:
-        disp4, rows = planes
-        ok, val = probe_chd_plain(disp4, rows, hashes.reshape(-1), _chd_widths(disp4, rows)[0])
+        ok, val = probe_chd_plain(*planes, h, _chd_widths(*planes)[0])
     ok = ok & valid.reshape(-1)
-    return torch.where(ok, val, torch.zeros_like(val)).to(torch.int32).reshape(hashes.shape)
+    return u32_to_i32(torch.where(ok, val, torch.zeros_like(val))).reshape(hashes.shape)
 
 
 def _probe_args(name: str, planes, hashes: torch.Tensor, valid: torch.Tensor, **more):
     """Check a probe's operands for the kernel; returns (device, width):
-    lb of a fused table, (lr, lg) of a CHD one."""
-    if table_layout(planes) == "fused":
+    lb of a fused or raw table, (lr, lg) of a CHD one."""
+    layout = table_layout(planes)
+    if layout == "fused":
         width = _fused_width(planes[0])
         dev = _kernels.check_cuda(name, fused=planes[0], hashes=hashes, valid=valid, **more)
+    elif layout == "raw":
+        width = _raw_width(*planes)
+        dev = _kernels.check_cuda(name, ptags=planes[0], confirm=planes[1], hashes=hashes, valid=valid, **more)
     else:
         width = _chd_widths(*planes)
         dev = _kernels.check_cuda(name, disp4=planes[0], rows=planes[1], hashes=hashes, valid=valid, **more)
@@ -173,22 +210,28 @@ def _probe_args(name: str, planes, hashes: torch.Tensor, valid: torch.Tensor, **
         raise TypeError(f"{name}: table planes must be int32")
     if hashes.shape != valid.shape:
         raise ValueError(f"{name}: shapes {tuple(hashes.shape)} != {tuple(valid.shape)}")
-    if planes[-1].data_ptr() % 16:
-        raise ValueError(f"{name}: the row plane must be 16-byte aligned")
+    # the kernels load 16-byte rows, or a raw table's 8-byte tag and confirm rows
+    if (any(p.data_ptr() % 8 for p in planes) if layout == "raw" else planes[-1].data_ptr() % 16):
+        raise ValueError(f"{name}: the row planes must be aligned to their rows")
     return dev, width
 
 
 def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """The stored value per lane (int32; pool ids fit 30 bits), 0 where
-    missing or invalid. `planes` = (disp4, rows) or (fused,); `hashes`
-    int64 and `valid` bool of one shape. CUDA tensors launch the
-    `chd_probe` or the `fused_probe` kernel."""
+    """The stored value per lane (int32: pool ids fit 30 bits, a raw
+    table's values are uint32 bit patterns), 0 where missing or invalid.
+    `planes` = (disp4, rows), (fused,) or (ptags, confirm); `hashes` int64
+    and `valid` bool of one shape. CUDA tensors launch the `chd_probe`,
+    `fused_probe` or `rows_probe` kernel."""
     if hashes.device.type == "cpu":
         return hash_lookup_plain(planes, hashes, valid)
     out = torch.empty(hashes.shape, dtype=torch.int32, device=hashes.device)
-    if table_layout(planes) == "fused":
+    layout = table_layout(planes)
+    if layout == "fused":
         dev, lb = _probe_args("fused_probe", planes, hashes, valid)
         _kernels.launch("fused_probe", dev, planes[0], hashes, valid, out, hashes.numel(), lb)
+    elif layout == "raw":
+        dev, lb = _probe_args("rows_probe", planes, hashes, valid)
+        _kernels.launch("rows_probe", dev, *planes, hashes, valid, out, hashes.numel(), lb)
     else:
         dev, (lr, lg) = _probe_args("chd_probe", planes, hashes, valid)
         _kernels.launch("chd_probe", dev, *planes, hashes, valid, out, hashes.numel(), lr, lg)
@@ -197,7 +240,7 @@ def hash_lookup_kmers(planes, hashes: torch.Tensor, valid: torch.Tensor) -> torc
 
 def probe_values(planes, hashes: torch.Tensor) -> torch.Tensor:
     """The stored value word per hash (int32), 0 on a miss: the raw probe of
-    either layout, every lane valid (the JAX package's probe_values)."""
+    any layout, every lane valid (the JAX package's probe_values)."""
     return hash_lookup_kmers(planes, hashes, torch.ones(hashes.shape, dtype=torch.bool, device=hashes.device))
 
 

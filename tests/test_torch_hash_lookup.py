@@ -79,9 +79,14 @@ def test_probe_matches_jax_on_jax_planes(rng, n):
 
 
 def test_lookup_refuses_other_layouts():
-    fused = torch.zeros((16, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        hash_lookup_kmers((fused, fused), torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool))
+    """Planes of no layout, and two-level planes whose confirm plane is not
+    twice the tag plane, are refused."""
+    h, valid = torch.zeros(3, dtype=torch.int64), torch.ones(3, dtype=torch.bool)
+    plane = torch.zeros((16, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="confirm"):
+        hash_lookup_kmers((plane, plane), h, valid)
+    with pytest.raises(ValueError, match="no table layout"):
+        hash_lookup_kmers((torch.zeros((16, 3), dtype=torch.int32), plane), h, valid)
 
 
 def test_demo_db_matches_jax_and_probes():

@@ -99,16 +99,18 @@ def test_kernel_wrappers_refuse_cpu_launch():
     assert set(_kernels.LAUNCHES) == {
         "scores", "kmer_front", "chd_probe", "taxon_counts", "hll_regmax", "row_gather",
         "pack_runs", "sparse_stats", "span_dict", "sparse_keys", "chd_probe_acc",
-        "fused_probe", "kmer_bins", "bsearch_lookup", "bsearch_words",
+        "fused_probe", "kmer_bins", "bsearch_lookup", "bsearch_words", "rows_probe", "rows_probe_acc",
     }
     # one library per source; sparse_keys is an entry of sparse_stats'
-    # library, chd_probe_acc and fused_probe of chd_probe's, kmer_bins (both
-    # feeds) of kmer_front's, bsearch_words of bsearch_lookup's
+    # library, chd_probe_acc, fused_probe, rows_probe and rows_probe_acc of
+    # chd_probe's, kmer_bins (both feeds) of kmer_front's, bsearch_words of
+    # bsearch_lookup's
     assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "csrc")) if f.endswith(".cu")) == sorted(
         _kernels.SIGNATURES)
     assert set(_kernels.LAUNCHES) == {*_kernels.SIGNATURES, "sparse_keys", "chd_probe_acc", "fused_probe",
-                                      "kmer_bins", "bsearch_words"}
+                                      "kmer_bins", "bsearch_words", "rows_probe", "rows_probe_acc"}
     assert _kernels.ENTRIES["chd_probe_acc"][0] == _kernels.ENTRIES["fused_probe"][0] == "chd_probe"
+    assert _kernels.ENTRIES["rows_probe"][0] == _kernels.ENTRIES["rows_probe_acc"][0] == "chd_probe"
     assert _kernels.ENTRIES["kmer_bins"][0] == _kernels.ENTRIES["kmer_bins_packed"][0] == "kmer_front"
     assert _kernels.ENTRIES["bsearch_words"][0] == "bsearch_lookup"
 

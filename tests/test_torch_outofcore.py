@@ -168,15 +168,6 @@ def test_chunk_tables_need_bounds():
         chunked.chunked_db_from_planes(planes, 4, 31, 9, [(0, 7)])
 
 
-def test_refuses_uid_and_raw_planes():
-    tax = Taxonomy.from_taxdb_file(os.path.join(DATA, "taxDB"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        chunked.load_chunked_db(DATA, 4096, tax, uid_database=True)
-    raw = (np.zeros((16, 2), np.uint32), np.zeros((16, 2), np.uint64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        chunked.chunked_db_from_planes([raw], 4, 31, 9)
-
-
 # ----------------------------------------------------------- chunk tables
 
 
