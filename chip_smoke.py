@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only DIR    # phases 1-2 on DIR's package
     python3 chip_smoke.py --ooc-only DIR        # phase 8's chunk passes, DIR's package
     python3 chip_smoke.py --fallback-only DIR   # phases 9's and 10's spans, DIR's package
+    python3 chip_smoke.py --uid-ooc-only DIR    # phase 13's span and raw chunk passes, DIR's package
 
 `--kernels-only` imports krakenuniq_tpu_torch from DIR (a checkout, or an
 unpacked `git archive` of one), builds its kernels there and runs phases 1
@@ -17,7 +18,13 @@ its passes measured as phase 8 measures them (one JSON line).
 `--fallback-only` does the same for the fallback lookups: phase 1, then
 phase 4's database loaded by DIR's package under each forced fallback, the
 binary search's bins and search and the fused probe timed on the first span
-(one JSON line).
+(one JSON line). `--uid-ooc-only` does the same for the UID probes: phase
+1, then phase 4's database with phase 13's UID values (built on the first
+run of a call, reused by the next) loaded by DIR's package, rows_probe on
+the first span of phase 13's reads, then those reads' spans through the
+raw chunk tables out of core at PRELOAD_SIZE, each chunk pass measured
+(one JSON line; on a package with them, the raw probe's designs of
+tools/kernel_variants on the same span and chunk).
 
 Phases, each raising on failure:
   1. card and build: the card's name and power limit; build every kernel of
@@ -75,7 +82,10 @@ Phases, each raising on failure:
      bucket), on random planes of phase 13's size (lb = 27, 3.2 GB: 8.5M
      queries, half planted) and at the long-read rows, and rows_probe_acc
      on a random raw chunk of phase 8's width (lb = 23) with half the words
-     set, each with its floor_ms on the confirm plane;
+     set, at [4096, 160] and the span shape [65536, 160], each with its
+     floor_ms on the confirm plane, the split of its lanes (screened in
+     the first bucket, the second, neither) and, for rows_probe, floor_mix_ms
+     (the random-sector floor of the sectors that split needs);
   3. the golden fixture on the card: Classifier(device="cuda") reproduces the
      reference binaries' kraken output and report byte for byte, for the
      single database and for the hierarchical db_bact + db_viral pair,
@@ -624,30 +634,52 @@ def probe_acc_bound(codes, k: int, nt: int, in_read, unset, probed, hits, planes
     return bound(moved, ops)
 
 
-def rows_screened(ptags, h, valid):
-    """The valid queries of the two-level probe whose tag matches in one of
-    their buckets (the second only where it differs from the first): those
-    whose confirm row the probe reads."""
+def rows_split(planes, h, valid) -> dict:
+    """Where the raw probe's valid queries screen, by the kernel's rounds
+    (probe_rows_rounds of the package under test; on a package without it,
+    the same tag compares here): "b1" (a slot of the first bucket), "b2" (no
+    slot of the first, one of the second, the buckets differ), "none"; and
+    "b2_reads", the valid queries that read the second bucket's tag row (no
+    slot of the first screened and the buckets differ)."""
+    import torch
+
     from krakenuniq_tpu_torch.db.hash_table import GOLDEN
     from krakenuniq_tpu_torch.ints import i32_to_u32, lsr, s64
+    from krakenuniq_tpu_torch.lookup import hash_lookup
 
+    ptags = planes[0]
     lb = ptags.shape[0].bit_length() - 1
-    hg = h * s64(int(GOLDEN))
-    r1, r2 = lsr(h, 64 - lb), lsr(hg, 64 - lb)
-    eq1 = (i32_to_u32(ptags[r1]) == lsr(h << lb, 32)[:, None]).any(dim=1)
-    eq2 = (i32_to_u32(ptags[r2]) == lsr(hg << lb, 32)[:, None]).any(dim=1) & (r1 != r2)
-    return valid & (eq1 | eq2)
+    hf, vf = h.reshape(-1), valid.reshape(-1)
+    hg = hf * s64(int(GOLDEN))
+    b1, b2 = lsr(hf, 64 - lb), lsr(hg, 64 - lb)
+    rounds = getattr(hash_lookup, "probe_rows_rounds", None)
+    if rounds is not None:
+        where = rounds(*planes, hf, lb)[1]
+    else:
+        s1 = (i32_to_u32(ptags[b1]) == lsr(hf << lb, 32)[:, None]).any(dim=1)
+        s2 = (i32_to_u32(ptags[b2]) == lsr(hg << lb, 32)[:, None]).any(dim=1) & ~s1 & (b1 != b2)
+        where = torch.where(s1, 1, torch.where(s2, 2, 0))
+    w = where[vf]
+    return {"b1": int((w == 1).sum()), "b2": int((w == 2).sum()), "none": int((w == 0).sum()),
+            "b2_reads": int((vf & (where != 1) & (b1 != b2)).sum())}
 
 
-def rows_bound(valid, screened, planes) -> dict:
+def rows_sectors(split: dict) -> list:
+    """The random sectors the raw probe needs of each plane, as
+    probe_acc_bound takes them: a tag row a valid query and the second
+    bucket's where the first does not screen; a confirm row a screened one."""
+    return [split["b1"] + split["b2"] + split["none"] + split["b2_reads"], split["b1"] + split["b2"]]
+
+
+def rows_bound(valid, split: dict, planes) -> dict:
     """`rows_probe`: hash (8 B) and valid (1 B) in, value (4 B) out per
-    query; per valid query a random 32 B sector of each of its two tag rows
-    and, where a tag screens (`screened`), of its confirm row, the sectors
-    no more than each plane; ~30 operations (two buckets and tags, four tag
-    compares, the slot index, the confirm compare)."""
-    n, nv, ns = valid.numel(), float(valid.sum()), float(screened.sum())
-    ptags, confirm = planes
-    return bound(13 * n + min(64 * nv, ptags.numel() * 4) + min(32 * ns, confirm.numel() * 4), 30 * nv)
+    query; a random 32 B sector of each tag row and confirm row the valid
+    queries need (`split`: rows_split; rows_sectors), no more than each
+    plane; ~30 operations (two buckets and tags, four tag compares, the slot
+    index, the confirm compare)."""
+    n, nv = valid.numel(), float(valid.sum())
+    tags, conf = rows_sectors(split)
+    return bound(13 * n + sum(min(32 * k, p.numel() * 4) for k, p in zip((tags, conf), planes)), 30 * nv)
 
 
 def fused_rows(fused, h, valid, lb: int) -> dict:
@@ -1315,21 +1347,27 @@ def raw_planes(lb: int, gen):
 
 def rows_case(name, planes, h, valid, reps, seed):
     """rows_probe against its plain version (check_kernel) with its bound
-    (rows_bound) and floor_ms (row_gather over the confirm plane's 16-byte
-    rows, one random row a valid query); returns the kernel's output and
-    the record."""
+    (rows_bound), the split of its valid queries (rows_split), floor_ms
+    (row_gather over the confirm plane's 16-byte rows, one random row a
+    valid query) and floor_mix_ms (as many random rows as the sectors the
+    function needs, rows_sectors); returns the kernel's output and the
+    record."""
     from krakenuniq_tpu_torch.lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
 
     hf, vf = h.reshape(-1), valid.reshape(-1)
-    screened = rows_screened(planes[0], hf, vf)
+    split = rows_split(planes, hf, vf)
+    nv = int(vf.sum())
+    mix = probe_floor(planes[1].view(-1, 4), sum(rows_sectors(split)), seed + 1)
     rec = check_kernel(
         name, tuple(h.shape),
         lambda: (hash_lookup_kmers(planes, h, valid),),
         lambda: (hash_lookup_plain(planes, h, valid),),
-        reps=reps, bound=rows_bound(vf, screened, planes),
+        reps=reps, bound=rows_bound(vf, split, planes),
         extra={"lb": planes[0].shape[0].bit_length() - 1, "table_gb": sum(p.numel() * 4 for p in planes) / 1e9,
-               "queries_screened": int(screened.sum()),
-               **probe_floor(planes[1].view(-1, 4), int(vf.sum()), seed)},
+               "queries_valid": nv, "split": split, "b1_share": split["b1"] / nv if nv else None,
+               "queries_screened": split["b1"] + split["b2"],
+               **probe_floor(planes[1].view(-1, 4), nv, seed),
+               "floor_mix_ms": mix["floor_ms"], "floor_mix_ms_by": mix["floor_ms_by"]},
     )
     return hash_lookup_kmers(planes, hf, vf), rec
 
@@ -1337,12 +1375,14 @@ def rows_case(name, planes, h, valid, reps, seed):
 def raw_edge_case(gen, lb: int = 18):
     """rows_probe's edge cases on random planes of width 2^lb (small, so
     that coinciding buckets are common), each planted and probed by the
-    kernel and its plain version: keys whose two buckets coincide (stored
-    in slot 0 of it), keys stored in their second bucket behind a first
+    kernel and its plain version: keys whose two buckets coincide (half
+    stored in slot 0 of it under their first-choice tag, half in slot 1
+    under their second-choice tag, which the probe never compares there, so
+    those miss), keys stored in their second bucket behind a first
     bucket that screens them falsely (a tag equal to theirs, a confirm row
     that is not), and zero-tag keys stored in slot 1 behind an empty slot 0
     (tag 0, confirm (0, 0)). The probe confirms only the first screened
-    slot, so the last two kinds miss; the kernel must agree with the plain
+    slot, so these two kinds miss too; the kernel must agree with the plain
     version on all of them."""
     import torch
 
@@ -1352,8 +1392,10 @@ def raw_edge_case(gen, lb: int = 18):
     planes = raw_planes(lb, gen)
     ptags, confirm = planes
     h = random_hashes(1 << 26, gen)
-    same = h[lsr(h, 64 - lb) == lsr(h * s64(int(GOLDEN)), 64 - lb)]
+    coincide = h[lsr(h, 64 - lb) == lsr(h * s64(int(GOLDEN)), 64 - lb)]
+    same, same2 = coincide[0::2], coincide[1::2]
     vals_same = plant_raw(planes, same, 83, split=same.numel())  # first-choice tags, as the build stores them
+    plant_raw(planes, same2, 84, split=0)  # second-choice tags in slot 1: never compared in one bucket
     false_screen = random_hashes(1024, gen)
     b1 = lsr(false_screen, 64 - lb)
     hg = false_screen * s64(int(GOLDEN))
@@ -1370,16 +1412,17 @@ def raw_edge_case(gen, lb: int = 18):
     confirm[2 * zb] = 0
     confirm[2 * zb + 1, 0] = u32_to_i32(zero_tag & 0xFFFFFFFF)
     confirm[2 * zb + 1, 1] = 9
-    h = torch.cat([same, false_screen, zero_tag, random_hashes(4096, gen)])
+    h = torch.cat([same, same2, false_screen, zero_tag, random_hashes(4096, gen)])
     valid = torch.ones(h.shape, dtype=torch.bool, device="cuda")
     got = rows_case(f"rows_probe edge cases lb={lb}", planes, h, valid, 10, 87)[0]
-    n1, n2 = same.numel(), same.numel() + false_screen.numel()
+    n1, n2 = same.numel(), same.numel() + same2.numel() + false_screen.numel() + zero_tag.numel()
     found_same = float((got[:n1] == vals_same).float().mean()) if n1 else 1.0
-    missed = float((got[n1:n2 + zero_tag.numel()] == 0).float().mean())
+    missed = float((got[n1:n2] == 0).float().mean())
     if n1 < 16 or found_same < 0.9 or missed < 0.9:
         raise AssertionError(f"rows_probe edge cases: {n1} coinciding-bucket keys ({found_same:.3f} found), "
-                             f"{missed:.3f} of the first-slot-only misses missed")
-    return {"coinciding_bucket_keys": n1, "false_screen_keys": false_screen.numel(), "zero_tag_keys": zero_tag.numel()}
+                             f"{missed:.3f} of the misses the probe's rules make missed")
+    return {"coinciding_bucket_keys": n1, "coinciding_second_tag_keys": same2.numel(),
+            "false_screen_keys": false_screen.numel(), "zero_tag_keys": zero_tag.numel()}
 
 
 def phase_rows_kernels(n: int = 8_500_000):
@@ -1389,10 +1432,9 @@ def phase_rows_kernels(n: int = 8_500_000):
     invalid, half of them planted, and on the long-read step's rows [8,
     LONG_READ_LB] over the same planes, half the searched lanes planted; and
     rows_probe_acc (probe_chunk_core on a raw chunk table) on a random raw
-    chunk of phase 8's chunk width (lb = UID_CHUNK_LB) at the span shape
-    [4096, 160] (k = 31, nt = 12), half the words already set, half the
-    searched lanes planted, the bin range the middle half of the searched
-    lanes' bins. Returns rows_probe_acc's record."""
+    chunk of phase 8's chunk width (lb = UID_CHUNK_LB) at [4096, 160] and
+    at the span shape [65536, 160] (raw_acc_case). Returns rows_probe_acc's
+    record at [4096, 160]."""
     import torch
 
     from krakenuniq_tpu_torch.classify import device_step as ds
@@ -1420,13 +1462,30 @@ def phase_rows_kernels(n: int = 8_500_000):
     torch.cuda.empty_cache()
 
     planes = raw_planes(UID_CHUNK_LB, gen)
-    b, lb, nt = 4096, 160, 12
+    recs = [raw_acc_case(planes, gen, b, seed) for b, seed in ((4096, 97), (65536, 98))]
+    del planes
+    torch.cuda.empty_cache()
+    return recs[0]
+
+
+def raw_acc_case(planes, gen, b: int, seed: int, k: int = 31, nt: int = 12) -> dict:
+    """rows_probe_acc (probe_chunk_core) against its plain version on the
+    random raw chunk `planes` at [b, 160] (k = 31, nt = 12): half the words
+    already set, half the searched lanes planted, the bin range the middle
+    half of the searched lanes' bins; with its bound (the split of the
+    probed lanes, rows_split) and floor_ms over the probed lanes. Returns
+    the record ("rows_probe_acc lb=23", with " span" at b = 65536)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify import device_step as ds
+
+    lb = 160
     lengths = (150, 160, 0, k - 1, k, 100)
-    codes, ambig = front_inputs(b, lb, 97, lengths)
+    codes, ambig = front_inputs(b, lb, seed, lengths)
     feed = (*ds.pack_input(codes, ambig), torch.from_numpy(np.resize(np.asarray(lengths, np.int32), b)).cuda())
     in_read, searched, bins = span_lanes(feed, k, nt)
     hashes = ds.kmer_front_words(feed[0], feed[1], k, 12)[0]
-    plant_raw(planes, hashes[searched & (torch.rand(searched.shape, device="cuda", generator=gen) < 0.5)], 99)
+    plant_raw(planes, hashes[searched & (torch.rand(searched.shape, device="cuda", generator=gen) < 0.5)], seed + 2)
     sb = bins[searched].sort().values
     lo, hi = int(sb[sb.numel() // 4]), int(sb[3 * sb.numel() // 4])
     acc0 = torch.where(torch.rand(bins.shape, device="cuda", generator=gen) < 0.5,
@@ -1435,23 +1494,20 @@ def phase_rows_kernels(n: int = 8_500_000):
     acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
     hits = run(acc_p.copy_(acc0), plain=True) != acc0
     probed = searched & (acc0 == 0) & (bins >= lo) & (bins < hi)
-    n_screened = int(rows_screened(planes[0], hashes[probed], torch.ones(int(probed.sum()), dtype=torch.bool,
-                                                                         device="cuda")).sum())
+    split = rows_split(planes, hashes[probed], torch.ones(int(probed.sum()), dtype=torch.bool, device="cuda"))
     if not hits.any():
         raise AssertionError("rows_probe_acc: the pass set no lane")
-    acc_rec = check_kernel(
-        f"rows_probe_acc lb={UID_CHUNK_LB}", (b, lb - k + 1),
+    return check_kernel(
+        f"rows_probe_acc lb={UID_CHUNK_LB}{' span' if b == 65536 else ''}", (b, lb - k + 1),
         lambda: (run(acc_k.copy_(acc0)),),
         lambda: (run(acc_p.copy_(acc0), plain=True),),
         reps=10, bound=probe_acc_bound(feed[0], k, nt, in_read, in_read & (acc0 == 0), probed, hits, planes,
-                                       sectors=[2 * float(probed.sum()), n_screened]),
+                                       sectors=rows_sectors(split)),
         extra={"k": k, "nt": nt, "lb": UID_CHUNK_LB, "chunk_gb": sum(p.numel() * 4 for p in planes) / 1e9,
-               "bins": [lo, hi], "lanes_probed": int(probed.sum()), "lanes_screened": n_screened,
-               "lanes_set": int(hits.sum()), **probe_floor(planes[1].view(-1, 4), int(probed.sum()), 101)},
+               "bins": [lo, hi], "lanes_probed": int(probed.sum()), "split": split,
+               "lanes_screened": split["b1"] + split["b2"], "lanes_set": int(hits.sum()),
+               **probe_floor(planes[1].view(-1, 4), int(probed.sum()), seed + 4)},
     )
-    del planes
-    torch.cuda.empty_cache()
-    return acc_rec
 
 
 def fused_floors(fused, valid, rows: dict, seed: int) -> dict:
@@ -3349,8 +3405,8 @@ def ooc_group_pass(c, feeds, prefetch: bool) -> dict:
     c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds])
     new = {kind: ms[before[kind]:] for kind, ms in c.ooc_timings().items()}
     up, probe, group = sum(new["upload"]), sum(new["probe"]), new["group"][0]
-    return {"double_buffered": prefetch, "copies": len(new["upload"]), "upload_ms": up, "probe_ms": probe,
-            "probe_ms_by_pass": new["probe"], "group_ms": group,
+    return {"double_buffered": prefetch, "copies": len(new["upload"]), "upload_ms": up,
+            "upload_ms_by_copy": new["upload"], "probe_ms": probe, "probe_ms_by_pass": new["probe"], "group_ms": group,
             "hidden_share": 1 - max(group - probe, 0.0) / up if up else None}
 
 
@@ -3442,6 +3498,59 @@ def group_acc_bound(c, cdb, feeds) -> dict:
             "lanes_routed_by_chunk": routed, "hits": hits}
 
 
+def record_chunk_check(c, cdb, first, reps: int) -> tuple[dict, dict]:
+    """The out-of-core pass (chd_probe_acc, or rows_probe_acc over raw
+    chunk tables) against its plain version on the chunk table of cdb that
+    holds most of the span feed `first`'s hits, with a seeded half of the
+    span's merged words set, beside floor_ms (row_gather over as many random
+    16 B rows of its last plane as it probes lanes; over raw chunks the
+    split of the probed lanes, rows_split, sets the bound's sectors); then
+    its routing on the card (check_routing). Hits do not spread evenly over
+    the chunks: a k-mer's bin is its least scrambled nt-mer, so the genomes'
+    k-mers crowd into low bins, while the ballast keys that fill the chunks
+    are spread uniformly over the bins. Returns (the check's record, {the
+    chunk, its planes on the card, the words before the pass, the span's
+    hits by chunk, its searched lanes})."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+    from krakenuniq_tpu_torch.lookup.hash_lookup import table_layout
+
+    in_read, searched, bins = span_lanes(first, c.k, cdb.nt)
+    merged = torch.zeros(bins.shape, dtype=torch.int32, device="cuda")
+    hits_by_chunk = []
+    for ci in range(cdb.n_chunks):
+        before = int((merged != 0).sum())
+        acc_pass(first, tuple(p.cuda() for p in cdb.chunk_planes[ci]), cdb.bounds[ci], c.k, cdb.nt)(merged)
+        hits_by_chunk.append(int((merged != 0).sum()) - before)
+    best = max(range(cdb.n_chunks), key=hits_by_chunk.__getitem__)
+    keep = torch.rand(bins.shape, generator=torch.Generator(device="cuda").manual_seed(11), device="cuda") < 0.5
+    acc0 = torch.where(keep, merged, 0)
+    planes = tuple(p.cuda() for p in cdb.chunk_planes[best])
+    lo, hi = cdb.bounds[best]
+    probed = searched & (acc0 == 0) & (bins >= lo) & (bins < hi)
+    raw = table_layout(planes) == "raw"
+    split = rows_split(planes, kmer_front_words(first[0], first[1], c.k, 12)[0][probed],
+                       torch.ones(int(probed.sum()), dtype=torch.bool, device="cuda")) if raw else None
+    run = acc_pass(first, planes, cdb.bounds[best], c.k, cdb.nt)
+    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
+    hits = run(acc_p.copy_(acc0), plain=True) != acc0
+    rec = check_kernel(
+        "rows_probe_acc" if raw else "chd_probe_acc", tuple(acc0.shape),
+        lambda: (run(acc_k.copy_(acc0)),),
+        lambda: (run(acc_p.copy_(acc0), plain=True),),
+        reps=reps, bound=probe_acc_bound(first[0], c.k, cdb.nt, in_read, in_read & (acc0 == 0), probed, hits,
+                                         planes, sectors=rows_sectors(split) if raw else None),
+        extra={"restore_ms": time_ms(lambda: acc_k.copy_(acc0), reps), "lanes_set": int((acc0 != 0).sum()),
+               "lanes_probed": int(probed.sum()), "lanes_unset_searched": int((searched & (acc0 == 0)).sum()),
+               "chunk": best, **({"split": split} if raw else {}),
+               **probe_floor(planes[1].view(-1, 4), int(probed.sum()), 59)},
+    )
+    check_routing(first, planes, cdb.bounds[best], c.k, cdb.nt, acc0, run(acc_k.copy_(acc0)))
+    return rec, {"chunk": best, "planes": planes, "acc0": acc0, "hits_by_chunk": hits_by_chunk,
+                 "lanes_searched": int(searched.sum())}
+
+
 def ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
     """The chunk passes of an out-of-core Classifier over a group of span
     feeds: the group double- and single-buffered in turns, the first and
@@ -3449,16 +3558,8 @@ def ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
     the turns); chd_probe_acc's card time summed over one group's chunk
     sequence (every launch, profiler), the group's card records by op and
     its bound (group_acc_bound, with the lanes routed to each chunk, derived
-    from the bins); and chd_probe_acc against its plain version on the
-    chunk that holds most of the first span's hits, with a seeded half of
-    the span's merged words set, beside the random-row floor of the lanes it
-    probes, then its routing checked on the card (check_routing). Hits do
-    not spread evenly over the chunks: a k-mer's bin is its least scrambled
-    nt-mer, so the genomes' k-mers crowd into low bins, while the ballast
-    keys that fill the chunks are spread uniformly over the bins. Returns
-    (summary, the check's record)."""
-    import torch
-
+    from the bins); and chd_probe_acc on the first span's record chunk
+    (record_chunk_check). Returns (summary, the check's record)."""
     cdb = c._ooc[0]
     n_chunks = cdb.n_chunks
     turns = [ooc_group_pass(c, feeds, pf) for pf in (True, False, False, True)]
@@ -3470,34 +3571,7 @@ def ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
     group_ms, group_by = device_ms(group, "chd_probe_acc", 3, per_call=len(feeds) * n_chunks)
     group_by_op = device_ms_by_op(group, reps=2)
 
-    first = feeds[0]
-    in_read, searched, bins = span_lanes(first, c.k, cdb.nt)
-    b, w = bins.shape
-    merged = torch.zeros((b, w), dtype=torch.int32, device="cuda")
-    hits_by_chunk = []
-    for ci in range(n_chunks):
-        before = int((merged != 0).sum())
-        acc_pass(first, tuple(p.cuda() for p in cdb.chunk_planes[ci]), cdb.bounds[ci], c.k, cdb.nt)(merged)
-        hits_by_chunk.append(int((merged != 0).sum()) - before)
-    best = max(range(n_chunks), key=hits_by_chunk.__getitem__)
-    keep = torch.rand((b, w), generator=torch.Generator(device="cuda").manual_seed(11), device="cuda") < 0.5
-    acc0 = torch.where(keep, merged, 0)
-    planes = tuple(p.cuda() for p in cdb.chunk_planes[best])
-    lo, hi = cdb.bounds[best]
-    probed = searched & (acc0 == 0) & (bins >= lo) & (bins < hi)
-    run = acc_pass(first, planes, cdb.bounds[best], c.k, cdb.nt)
-    acc_k, acc_p = torch.empty_like(acc0), torch.empty_like(acc0)
-    hits = run(acc_p.copy_(acc0), plain=True) != acc0
-    rec = check_kernel(
-        "chd_probe_acc", (b, w),
-        lambda: (run(acc_k.copy_(acc0)),),
-        lambda: (run(acc_p.copy_(acc0), plain=True),),
-        reps=reps, bound=probe_acc_bound(first[0], c.k, cdb.nt, in_read, in_read & (acc0 == 0), probed, hits, planes),
-        extra={"restore_ms": time_ms(lambda: acc_k.copy_(acc0), reps), "lanes_set": int((acc0 != 0).sum()),
-               "lanes_probed": int(probed.sum()), "lanes_unset_searched": int((searched & (acc0 == 0)).sum()),
-               "chunk": best, **probe_floor(planes[1], int(probed.sum()), 59)},
-    )
-    check_routing(first, planes, cdb.bounds[best], c.k, cdb.nt, acc0, run(acc_k.copy_(acc0)))
+    rec, record = record_chunk_check(c, cdb, feeds[0], reps)
     passes = [t["probe_ms_by_pass"] for t in turns]
     group_bound = group_acc_bound(c, cdb, feeds)
     summary = {
@@ -3514,8 +3588,8 @@ def ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
         "group_lanes_searched": group_bound["lanes_searched"],
         "group_lanes_routed_by_chunk": group_bound["lanes_routed_by_chunk"],
         "group_hits": group_bound["hits"],
-        "span0_hits_by_chunk": hits_by_chunk,
-        "span0_lanes_searched": int(searched.sum()),
+        "span0_hits_by_chunk": record["hits_by_chunk"],
+        "span0_lanes_searched": record["lanes_searched"],
     }
     return summary, rec
 
@@ -3706,6 +3780,171 @@ def phase_ooc_compare(reps: int) -> None:
     passes, rec = ooc_passes(c, span_feeds(c, reads), reps)
     emit({"phase": "ooc_compare", "package": pkg, "chunks": cdb.n_chunks, "bounds": cdb.bounds,
           "load_s": load_s, "load_steps_s": cdb.timings, **passes, "chd_probe_acc": rec})
+
+
+def launch_ms(fn, symbols, n: int) -> tuple[list | None, str]:
+    """Each of the n launches of the kernels named by `symbols` in one call
+    of fn(), in launch order: their card milliseconds under torch.profiler
+    (device_ms's idle margins); None where every session lost a record.
+    Returns (the list, "profiler" or "lost")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for margin in PROFILE_MARGINS_S:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type.name == "CUDA" and any(sym in e.name for sym in symbols)),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == n:
+            return [e.device_time_total / 1e3 for e in evs], "profiler"
+        log(f"profiler saw {len(evs)} of {n} launches of {symbols}, margin {margin} s")
+    return None, "lost"
+
+
+def uid_ooc_passes(c, feeds, reps: int) -> tuple[dict, dict]:
+    """The chunk passes of an out-of-core UID Classifier (raw chunk tables)
+    over a group of span feeds: the group double- and single-buffered in
+    turns (ooc_group_pass: each copy's and each chunk pass's ms, CUDA events
+    on the copy and step streams); rows_probe_acc's card ms of each launch
+    of one group (launch_ms), summed per chunk; and, from a replay of the
+    group's passes in its order (chunk by chunk, each span's word plane
+    carried over), each chunk's lanes routed (searched lanes whose bin the
+    chunk owns), probed (routed and still 0), screened and split
+    (rows_split), the lanes it set and its bound (the sum over its launches
+    of probe_acc_bound with rows_sectors). Then rows_probe_acc on the first
+    span's record chunk (record_chunk_check). Returns (summary, the check's
+    record)."""
+    import torch
+
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+
+    cdb = c._ooc[0]
+    n_chunks, n_spans = cdb.n_chunks, len(feeds)
+    turns = [ooc_group_pass(c, feeds, pf) for pf in (True, False, False, True)]
+    c._ooc_prefetch = True
+    per_launch, by = launch_ms(lambda: c._ooc_probe_group([{"feed": f, "acc": None} for f in feeds]),
+                               SYMBOLS["rows_probe_acc"], n_chunks * n_spans)
+    lanes = [(*span_lanes(f, c.k, cdb.nt), kmer_front_words(f[0], f[1], c.k, 12)[0]) for f in feeds]
+    accs = [torch.zeros(ln[2].shape, dtype=torch.int32, device="cuda") for ln in lanes]
+    chunks = []
+    for ci in range(n_chunks):
+        planes = tuple(p.cuda() for p in cdb.chunk_planes[ci])
+        lo, hi = (int(x) for x in cdb.bounds[ci])
+        row = {"chunk": ci, "bins": [lo, hi], "lanes_routed": 0, "lanes_probed": 0, "lanes_set": 0,
+               "split": {"b1": 0, "b2": 0, "none": 0, "b2_reads": 0}, "bound_ms": 0.0}
+        for si, (feed, (in_read, searched, bins, hashes)) in enumerate(zip(feeds, lanes)):
+            before = accs[si].clone()
+            routed = searched & (bins >= lo) & (bins < hi)
+            probed = routed & (before == 0)
+            split = rows_split(planes, hashes[probed], torch.ones(int(probed.sum()), dtype=torch.bool,
+                                                                   device="cuda"))
+            hits = acc_pass(feed, planes, (lo, hi), c.k, cdb.nt)(accs[si]) != before
+            row["bound_ms"] += probe_acc_bound(feed[0], c.k, cdb.nt, in_read, in_read & (before == 0), probed,
+                                               hits, planes, sectors=rows_sectors(split))["bound_ms"]
+            row["lanes_routed"] += int(routed.sum())
+            row["lanes_probed"] += int(probed.sum())
+            row["lanes_set"] += int(hits.sum())
+            for key in row["split"]:
+                row["split"][key] += split[key]
+        row["device_ms"] = None if per_launch is None else sum(per_launch[ci * n_spans:(ci + 1) * n_spans])
+        copies = [t["upload_ms_by_copy"][ci] for t in turns if t["copies"] == n_chunks]
+        row["copy_ms"] = statistics.median(copies) if copies else None
+        row["pass_ms"] = statistics.median(t["probe_ms_by_pass"][ci] for t in turns)
+        chunks.append(row)
+        del planes
+
+    rec, record = record_chunk_check(c, cdb, feeds[0], reps)
+    passes = [t["probe_ms_by_pass"] for t in turns]
+    summary = {
+        "group_turns": turns,
+        "probe_ms_first_pass": statistics.median(p[0] for p in passes),
+        "probe_ms_later_passes": statistics.median(ms for p in passes for ms in p[1:]),
+        "group_rows_probe_acc_device_ms": None if per_launch is None else sum(per_launch),
+        "group_rows_probe_acc_device_ms_by": by,
+        "group_bound_ms": sum(r["bound_ms"] for r in chunks),
+        "chunk_passes": chunks,
+        "span0_hits_by_chunk": record.pop("hits_by_chunk"),
+        "record_chunk": record,
+    }
+    return summary, rec
+
+
+def phase_uid_ooc_compare(reps: int) -> None:
+    """--uid-ooc-only DIR: phase 4's database and reads with phase 13's UID
+    values (ensure_db_dir, ensure_reads, ensure_uid_db: built, or reused from
+    an earlier run of the same call, under this checkout's _build/), loaded
+    by DIR's package from one directory that links the database's files,
+    whose table caches are kept there (every load after a call's first is
+    warm while the packages' build sources agree). Resident: rows_probe on
+    the first span of phase 13's reads (the first N_READS_UID) and the real
+    planes (rows_case). Out of core at PRELOAD_SIZE (raw chunk tables): the
+    spans of those reads probed as one group (uid_ooc_passes). On a package
+    whose tools/kernel_variants has the raw probe's designs, those designs on
+    the same span and on the record chunk. One JSON line."""
+    import gc
+
+    import torch
+
+    import krakenuniq_tpu_torch
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
+
+    db_dir, genomes, _ = ensure_db_dir(N_SPECIES, GENOME_LEN, 31, 12, PAD_NODES, BALLAST)
+    reads = head_reads(ensure_reads(db_dir, genomes), N_READS_UID)
+    uid_write_s = ensure_uid_db(db_dir, genomes)
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(krakenuniq_tpu_torch.__file__)))
+    own = f"{db_dir}_uid"
+    os.makedirs(own, exist_ok=True)
+    for name in ("database.kdb", "database.idx", "taxDB", "uid_database.kdb", "uid_to_taxid.map"):
+        if not os.path.lexists(os.path.join(own, name)):
+            os.symlink(os.path.join(db_dir, name), os.path.join(own, name))
+    try:
+        from krakenuniq_tpu_torch.tools import kernel_variants as kv
+    except ImportError:
+        kv = None
+    kv = kv if hasattr(kv, "run_rows") else None
+    fns = kv.build(["rows_probe"]) if kv else None
+    line = {"phase": "uid_ooc_compare", "package": pkg, "uid_db_write_s": uid_write_s}
+
+    t = time.time()
+    c = Classifier([own], ClassifyOptions(print_progress=False, device="cuda"), uid_database=True)
+    line["resident_load_s"] = time.time() - t
+    line["resident_cache"] = c.dbs[0].timings.get("cache")
+    _, buf, offs, _, _ = next(c._iter_native_spans(reads))
+    codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
+    cw, aw = (torch.from_numpy(a.view(np.int32)).cuda() for a in (codes_w, ambig_w))
+    hashes, _, kmer_ambig = kmer_front_words(cw, aw, c.k, c._cfg.hll_p)
+    lengths = torch.from_numpy(lengths_np).cuda()
+    search = (torch.arange(hashes.shape[1], device="cuda")[None, :]
+              < (lengths - (c.k - 1)).clamp(min=0)[:, None]) & ~kmer_ambig
+    planes = c._db_planes[0]
+    _, line["rows_probe"] = rows_case("rows_probe", planes, hashes, search, reps, 103)
+    if kv:
+        kv.run_rows(fns["rows_probe"], reps, emit, "phase 13 span", planes, hashes, search)
+    del c, planes, hashes, search
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.time()
+    c = Classifier([own], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE),
+                   uid_database=True)
+    line["load_s"] = time.time() - t
+    cdb = c._ooc[0]
+    log(f"UID out of core ({pkg}): {cdb.n_chunks} chunks, loaded in {line['load_s']:.1f}s {cdb.timings}")
+    feeds = span_feeds(c, reads)
+    passes, rec = uid_ooc_passes(c, feeds, reps)
+    record = passes.pop("record_chunk")
+    if kv:
+        kv.run_rows_acc(fns["rows_probe_acc"], reps, emit, "phase 13 record chunk", feeds[0], record["planes"],
+                        cdb.bounds[record["chunk"]], record["acc0"], c.k, cdb.nt)
+    emit({**line, "spans": len(feeds), "chunks": cdb.n_chunks, "bounds": cdb.bounds,
+          "load_steps_s": cdb.timings, **passes, "rows_probe_acc": rec})
 
 
 def phase_counters(run4, reps: int):
@@ -4264,11 +4503,14 @@ def main(argv=None) -> int:
     only.add_argument("--ooc-only", metavar="DIR",
                       help="measure the out-of-core chunk passes of the krakenuniq_tpu_torch package under "
                            "DIR on phase 4's database and reads (phase 1, then phase 8's passes)")
+    only.add_argument("--uid-ooc-only", metavar="DIR",
+                      help="measure the UID probes of the krakenuniq_tpu_torch package under DIR on phase 13's "
+                           "database and reads: rows_probe on a span, then the raw chunk passes out of core")
     only.add_argument("--fallback-only", metavar="DIR",
                       help="measure the fallback lookups' kernels of the krakenuniq_tpu_torch package under "
                            "DIR on phase 4's database and reads (phase 1, then phases 9's and 10's spans)")
     args = ap.parse_args(argv)
-    pkg_dir = args.kernels_only or args.ooc_only or args.fallback_only
+    pkg_dir = args.kernels_only or args.ooc_only or args.fallback_only or args.uid_ooc_only
     if pkg_dir:
         sys.path.insert(0, os.path.abspath(pkg_dir))
     import torch
@@ -4300,6 +4542,10 @@ def main(argv=None) -> int:
         return 0
     if args.fallback_only:
         phase_fallback_compare(reps=20)
+        print(card)
+        return 0
+    if args.uid_ooc_only:
+        phase_uid_ooc_compare(reps=20)
         print(card)
         return 0
 
@@ -4355,7 +4601,7 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-            **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {}),
+            **{key: r[key] for key in ("floor_ms", "floor_mix_ms") if key in r},
         })
     emit({"kernels": rows})
     print(card)

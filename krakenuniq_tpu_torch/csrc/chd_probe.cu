@@ -105,20 +105,37 @@
 // b2 != b1, and confirms only that slot: the value where its confirm word
 // holds h's low 32 bits, else 0. That is _probe_rows bit for bit, also for
 // a query whose tag is 0, which screens on an empty slot (ptag 0, confirm
-// (0, 0)) and then misses even when a later slot holds it. The slot index
-// is formed in 64 bits (the JAX package's int32 r * 2 + c wraps at lb = 30).
-// Bound on the H100: random 32-byte sectors, three a valid query: two
-// independent 8-byte tag rows and one dependent 8-byte confirm row (none
-// where neither bucket screens). At the phase-4 table's size (lb = 27)
-// ptags is 1.07 GB and confirm 2.15 GB, both past the 50 MB L2. Design:
-// chd_probe's. A thread takes Q = 4 consecutive queries (hashes as two
-// 16-byte vectors, flags as one 4-byte word, values out as one 16-byte
-// store), issues all 2Q tag loads, then the Q confirm loads, so 2Q and then
-// Q loads of a thread are in flight together; a confirm plane larger than
-// the L2 goes through ld.global.cs (evict-first), leaving the L2 to the tag
-// rows. The out-of-core pass is chd_probe_acc_kernel with the RawTable in
-// place of the ChdTable: the front, the bins, the routing, the lane list
-// and the merge are the same code, and only the probe round differs.
+// (0, 0)) and then misses even when a later slot holds it. Bucket and slot
+// indices are 32-bit: at lb <= 30, 2*b + 1 < 2^31.
+// Bound on the H100: random 32-byte sectors. A valid query needs its b1 tag
+// row, b2's only where b1 does not screen, and one confirm row where a tag
+// screens. At the phase-4 table's size (lb = 27) ptags is 1.07 GB and
+// confirm 2.15 GB, both past the 50 MB L2. Design: the build is a two-choice
+// cuckoo that starts every key in b1 (db/hash_table.py, _host_place), so
+// most valid queries screen at b1. A thread takes kQ queries (hashes as
+// 16-byte vectors, flags as 4-byte words, values out as 16-byte stores).
+// Round 1 loads each valid query's b1 tag row. Round 2 loads, side by side,
+// the confirm row of each query a b1 slot screened and the b2 tag row of
+// each that none did (where b2 != b1); round 3 the confirm row of the
+// queries a b2 slot screened. So a query reads only the sectors the
+// function needs: two where b1 screens, at most three where it does not.
+// The slot is a 32-bit index with an explicit none, and no second tag row
+// is kept beside the first, so the round fits the register budget that
+// __launch_bounds__ takes from the table type (kQ and kMinBlocks are the
+// table's). A confirm plane larger than the L2 goes through ld.global.cs
+// (evict-first), leaving the L2 to the tag rows. The designs measured
+// against it (b1's confirm pair loaded beside its tag row, so that a query
+// screened at b1 is answered after one round; other kQ and minimum blocks)
+// are in tools/variants/rows_probe_variants.cu, and the first design's
+// round, both tag rows at once, is RawTableBoth below (PERF.md). The out-of-core pass is
+// chd_probe_acc_kernel with the RawTable in place of the ChdTable: the
+// front, the bins, the routing, the lane list and the merge are the same
+// code, and only the probe round differs; it keeps the CHD pass's
+// __launch_bounds__(kThreads) (the raw round measured no faster under a
+// budget, and the CHD instance stays the same code). A pass whose blocks
+// fill the card at most once (a work unit's [4096, W]) is bound by the
+// longest chain of dependent loads in a block, not by sectors: it takes
+// RawTableBoth, both tag rows in one round and the confirm row in a second.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -136,8 +153,12 @@ constexpr uint64_t kC2 = 0xC2B2AE3D27D4EB4Full;
 
 // A probe round over kQ queries (h, and v: valid) gives each valid query's
 // stored value, 0 on a miss; kStream marks the plane read last as
-// evict-first. The CHD table: a displacement word, then a 16-byte row.
+// evict-first. A table type names its round's kQ (and a raw table the least
+// blocks an SM must hold in rows_probe_kernel, kMinBlocks: the register
+// budget of its __launch_bounds__; 1 sets none beyond kThreads'). The CHD
+// table: a displacement word, then a 16-byte row.
 struct ChdTable {
+  static constexpr int kQ = 4;
   const uint32_t* disp;
   const uint4* rows;
   int lr, lg;
@@ -174,9 +195,73 @@ struct ChdTable {
   }
 };
 
-// The raw two-level table: both buckets' 8-byte tag rows, then the confirm
-// row of the first screened slot (the note above).
+// The raw two-level table (the note above): each valid query's b1 tag row;
+// then the confirm row of the first screened b1 slot, or, where none
+// screened and b2 != b1, the b2 tag row; then the confirm row of the first
+// screened b2 slot.
+template <int Q, int MinBlocks>
 struct RawTable {
+  static constexpr int kQ = Q;
+  static constexpr int kMinBlocks = MinBlocks;
+  static constexpr uint32_t kNone = 0xFFFFFFFFu;  // no slot screened (2*b + 1 < 2^31)
+  const uint2* ptags;
+  const uint2* confirm;
+  int lb;
+
+  template <bool kStream>
+  __device__ __forceinline__ uint2 confirm_row(uint32_t slot) const {
+    return kStream ? __ldcs(confirm + slot) : __ldg(confirm + slot);
+  }
+
+  template <bool kStream>
+  __device__ __forceinline__ void probe(const uint64_t (&h)[kQ], const bool (&v)[kQ],
+                                        uint32_t (&word)[kQ]) const {
+    uint2 t[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) t[j] = v[j] ? __ldg(ptags + (uint32_t)(h[j] >> (64 - lb))) : make_uint2(0u, 0u);
+    uint32_t slot[kQ];
+    unsigned second = 0u;  // bit j: query j goes on to b2
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const uint32_t b1 = (uint32_t)(h[j] >> (64 - lb)), p1 = (uint32_t)((h[j] << lb) >> 32);
+      slot[j] = !v[j] ? kNone : t[j].x == p1 ? 2 * b1 : t[j].y == p1 ? 2 * b1 + 1 : kNone;
+      if (v[j] && slot[j] == kNone && b1 != (uint32_t)((h[j] * kGolden) >> (64 - lb))) second |= 1u << j;
+    }
+    uint2 c[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      c[j] = make_uint2(0u, 0u);
+      if (slot[j] != kNone) c[j] = confirm_row<kStream>(slot[j]);
+      else if ((second >> j) & 1u) t[j] = __ldg(ptags + (uint32_t)((h[j] * kGolden) >> (64 - lb)));
+    }
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      word[j] = slot[j] != kNone && c[j].x == (uint32_t)h[j] ? c[j].y : 0u;
+      if ((second >> j) & 1u) {
+        const uint64_t hg = h[j] * kGolden;
+        const uint32_t b2 = (uint32_t)(hg >> (64 - lb)), p2 = (uint32_t)((hg << lb) >> 32);
+        slot[j] = t[j].x == p2 ? 2 * b2 : t[j].y == p2 ? 2 * b2 + 1 : kNone;
+      }
+    }
+    if (second == 0u) return;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      if (!((second >> j) & 1u) || slot[j] == kNone) continue;
+      c[j] = confirm_row<kStream>(slot[j]);
+      word[j] = c[j].x == (uint32_t)h[j] ? c[j].y : 0u;
+    }
+  }
+};
+
+// The raw two-level table read in two dependent rounds: both buckets' tag
+// rows of each valid query (b2's where b2 != b1), then the confirm row of
+// its first screened slot. More sectors than RawTable's rounds (b2's tag row
+// also where b1 screens), one dependent round less where b1 does not screen.
+template <int Q, int MinBlocks>
+struct RawTableBoth {
+  static constexpr int kQ = Q;
+  static constexpr int kMinBlocks = MinBlocks;
+  static constexpr uint32_t kNone = 0xFFFFFFFFu;
   const uint2* ptags;
   const uint2* confirm;
   int lb;
@@ -184,36 +269,44 @@ struct RawTable {
   template <bool kStream>
   __device__ __forceinline__ void probe(const uint64_t (&h)[kQ], const bool (&v)[kQ],
                                         uint32_t (&word)[kQ]) const {
-    const uint2 zero = make_uint2(0u, 0u);
     uint2 t1[kQ], t2[kQ];
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
-      const uint64_t b1 = h[j] >> (64 - lb), b2 = (h[j] * kGolden) >> (64 - lb);
-      t1[j] = v[j] ? __ldg(ptags + b1) : zero;
-      t2[j] = v[j] && b2 != b1 ? __ldg(ptags + b2) : zero;
+      const uint32_t b1 = (uint32_t)(h[j] >> (64 - lb)), b2 = (uint32_t)((h[j] * kGolden) >> (64 - lb));
+      t1[j] = v[j] ? __ldg(ptags + b1) : make_uint2(0u, 0u);
+      t2[j] = v[j] && b2 != b1 ? __ldg(ptags + b2) : make_uint2(0u, 0u);
     }
-    long long slot[kQ];  // the first screened slot, -1: none
+    uint32_t slot[kQ];
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
       const uint64_t hg = h[j] * kGolden;
-      const long long b1 = (long long)(h[j] >> (64 - lb)), b2 = (long long)(hg >> (64 - lb));
+      const uint32_t b1 = (uint32_t)(h[j] >> (64 - lb)), b2 = (uint32_t)(hg >> (64 - lb));
       const uint32_t p1 = (uint32_t)((h[j] << lb) >> 32), p2 = (uint32_t)((hg << lb) >> 32);
-      slot[j] = !v[j] ? -1
+      slot[j] = !v[j] ? kNone
                 : t1[j].x == p1 ? 2 * b1
                 : t1[j].y == p1 ? 2 * b1 + 1
-                : b2 == b1 ? -1
+                : b2 == b1 ? kNone
                 : t2[j].x == p2 ? 2 * b2
                 : t2[j].y == p2 ? 2 * b2 + 1
-                : -1;
+                : kNone;
     }
     uint2 c[kQ];
 #pragma unroll
     for (int j = 0; j < kQ; ++j)
-      c[j] = slot[j] < 0 ? zero : kStream ? __ldcs(confirm + slot[j]) : __ldg(confirm + slot[j]);
+      c[j] = slot[j] == kNone ? make_uint2(0u, 0u) : kStream ? __ldcs(confirm + slot[j]) : __ldg(confirm + slot[j]);
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) word[j] = slot[j] >= 0 && c[j].x == (uint32_t)h[j] ? c[j].y : 0u;
+    for (int j = 0; j < kQ; ++j) word[j] = slot[j] != kNone && c[j].x == (uint32_t)h[j] ? c[j].y : 0u;
   }
 };
+
+// rows_probe's table: kQ = 4 and six blocks an SM (40 registers, no
+// spills; eight spill). rows_probe_acc's: the
+// CHD pass's kQ (the pass keeps its launch bounds); a pass whose blocks fill
+// the card at most once is bound by its longest chain of dependent loads,
+// and takes RawTableBoth's two rounds (PERF.md)
+using RawProbeTable = RawTable<4, 6>;
+using RawAccTable = RawTable<4, 1>;
+using RawAccWaveTable = RawTableBoth<4, 1>;
 
 template <bool kStreamRows>
 __global__ void __launch_bounds__(kThreads)
@@ -373,12 +466,13 @@ chd_probe_acc_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restr
   __syncthreads();
   const int n_probe = s_count;
 
-  for (int base = 0; base < n_probe; base += kQ * kThreads) {
-    uint64_t h[kQ];
-    bool v[kQ];
-    long long at[kQ];
+  constexpr int Q = Table::kQ;
+  for (int base = 0; base < n_probe; base += Q * kThreads) {
+    uint64_t h[Q];
+    bool v[Q];
+    long long at[Q];
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) {
+    for (int j = 0; j < Q; ++j) {
       const int i = base + j * kThreads + threadIdx.x;
       v[j] = i < n_probe;
       h[j] = 0;
@@ -392,50 +486,59 @@ chd_probe_acc_kernel(const uint32_t* __restrict__ codes, const uint32_t* __restr
         at[j] = (t.r0 + rr) * g.W + t.lane0 + l;
       }
     }
-    if (!(v[0] || v[1] || v[2] || v[3])) continue;
-    uint32_t word[kQ];
+    bool any_v = false;
+#pragma unroll
+    for (int j = 0; j < Q; ++j) any_v = any_v || v[j];
+    if (!any_v) continue;
+    uint32_t word[Q];
     tab.template probe<kStreamRows>(h, v, word);
 #pragma unroll
-    for (int j = 0; j < kQ; ++j)
+    for (int j = 0; j < Q; ++j)
       if (v[j] && word[j] != 0u) acc[at[j]] = word[j];
   }
 }
 
-template <bool kStreamConfirm>
-__global__ void __launch_bounds__(kThreads)
-rows_probe_kernel(const uint2* __restrict__ ptags, const uint2* __restrict__ confirm,
-                  const uint64_t* __restrict__ hashes, const uint8_t* __restrict__ valid,
-                  uint32_t* __restrict__ out, long long n, int lb) {
-  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kQ;
+template <typename Table, bool kStreamConfirm>
+__global__ void __launch_bounds__(kThreads, Table::kMinBlocks)
+rows_probe_kernel(const Table tab, const uint64_t* __restrict__ hashes, const uint8_t* __restrict__ valid,
+                  uint32_t* __restrict__ out, long long n) {
+  constexpr int Q = Table::kQ;
+  static_assert(Q % 4 == 0, "flags load as 4-byte words, values store as 16-byte vectors");
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * Q;
   if (i0 >= n) return;
-  const bool vec = i0 + kQ <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
+  const bool vec = i0 + Q <= n && !(((uintptr_t)hashes | (uintptr_t)out) & 15) &&
                    !((uintptr_t)valid & 3);
-  uint64_t h[kQ];
-  bool v[kQ];
+  uint64_t h[Q];
+  bool v[Q];
   if (vec) {
-    const ulonglong2 h01 = reinterpret_cast<const ulonglong2*>(hashes + i0)[0];
-    const ulonglong2 h23 = reinterpret_cast<const ulonglong2*>(hashes + i0)[1];
-    const uint32_t flags = *reinterpret_cast<const uint32_t*>(valid + i0);
-    h[0] = h01.x;
-    h[1] = h01.y;
-    h[2] = h23.x;
-    h[3] = h23.y;
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) v[j] = (flags >> (8 * j)) & 0xFFu;
+    for (int j = 0; j < Q; j += 2) {
+      const ulonglong2 hh = reinterpret_cast<const ulonglong2*>(hashes + i0)[j / 2];
+      h[j] = hh.x;
+      h[j + 1] = hh.y;
+    }
+#pragma unroll
+    for (int j = 0; j < Q; j += 4) {
+      const uint32_t flags = reinterpret_cast<const uint32_t*>(valid + i0)[j / 4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) v[j + jj] = (flags >> (8 * jj)) & 0xFFu;
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < kQ; ++j) {
+    for (int j = 0; j < Q; ++j) {
       v[j] = i0 + j < n && valid[i0 + j];
       h[j] = v[j] ? hashes[i0 + j] : 0;
     }
   }
-  uint32_t res[kQ];
-  RawTable{ptags, confirm, lb}.probe<kStreamConfirm>(h, v, res);
+  uint32_t res[Q];
+  tab.template probe<kStreamConfirm>(h, v, res);
   if (vec) {
-    *reinterpret_cast<uint4*>(out + i0) = make_uint4(res[0], res[1], res[2], res[3]);
+#pragma unroll
+    for (int j = 0; j < Q; j += 4)
+      reinterpret_cast<uint4*>(out + i0)[j / 4] = make_uint4(res[j], res[j + 1], res[j + 2], res[j + 3]);
   } else {
 #pragma unroll
-    for (int j = 0; j < kQ; ++j)
+    for (int j = 0; j < Q; ++j)
       if (i0 + j < n) out[i0 + j] = res[j];
   }
 }
@@ -526,36 +629,86 @@ int stream_rows(int lr, bool* out) {
   return (int)err;
 }
 
+// the out-of-core pass's launch plan over a chunk table whose plane read
+// last is 16 B << width (lr, or a raw table's lb): the tiles, their shared
+// memory, and whether that plane streams past the L2; err != 0 where the
+// arguments or the card refuse
+struct AccPlan {
+  kmer_window::Tiles g;
+  size_t smem;
+  bool wide, streamed;
+  int err;
+};
+
+AccPlan acc_plan(int B, int LB, int W, int k, int nt, int width) {
+  AccPlan p{};
+  if (nt < 1 || nt > k || k > 31 || LB % 32 != 0 || W > LB - k + 1) {
+    p.err = (int)cudaErrorInvalidValue;
+    return p;
+  }
+  p.err = stream_rows(width, &p.streamed);
+  if (p.err != 0) return p;
+  p.wide = nt > 16;
+  p.g = kmer_window::plan_tiles(
+      B, LB, W, k, k - nt + 1, p.wide ? kmer_window::kTileBasesU64 : kmer_window::kTileBasesU32,
+      p.wide ? 8 : 4, true, true);
+  p.smem = kmer_window::smem_bytes(p.g);
+  if (p.smem > 48 * 1024) p.err = (int)cudaErrorInvalidValue;
+  return p;
+}
+
+template <typename Table>
+auto acc_kernel(const AccPlan& p) {
+  return p.wide ? (p.streamed ? chd_probe_acc_kernel<uint64_t, Table, true>
+                              : chd_probe_acc_kernel<uint64_t, Table, false>)
+                : (p.streamed ? chd_probe_acc_kernel<uint32_t, Table, true>
+                              : chd_probe_acc_kernel<uint32_t, Table, false>);
+}
+
 // codes: int32 [B, LB/16] and ambig: int32 [B, LB/32] words of
 // encode_unit_packed (LB a multiple of 32); lengths: int32 [B]; disp, rows:
 // the chunk's CHD planes; acc: int32 [B, W], W <= LB - k + 1, updated in
 // place; a lane is probed iff it is in its read, free of ambiguous bases,
 // still 0 in acc and its minimizer bin (nt-mers, 1 <= nt <= k <= 31) lies in
 // [bin_lo, bin_hi).
-// the out-of-core pass over one chunk table: `width` is the width of the
-// plane the round reads last (lr, or a raw table's lb: 16 B << width each)
+// the out-of-core pass over one chunk table (`width` as acc_plan's)
 template <typename Table>
 int probe_acc(const void* codes, const void* ambig, const void* lengths, const Table& tab,
               void* acc, int B, int LB, int W, int k, int nt, unsigned long long bin_lo,
               unsigned long long bin_hi, int width, void* stream) {
   if (B <= 0 || W <= 0) return (int)cudaGetLastError();
-  if (nt < 1 || nt > k || k > 31 || LB % 32 != 0 || W > LB - k + 1) return (int)cudaErrorInvalidValue;
-  bool streamed = false;
-  const int err = stream_rows(width, &streamed);
-  if (err != 0) return err;
-  const bool wide = nt > 16;
-  const kmer_window::Tiles g = kmer_window::plan_tiles(
-      B, LB, W, k, k - nt + 1, wide ? kmer_window::kTileBasesU64 : kmer_window::kTileBasesU32,
-      wide ? 8 : 4, true, true);
-  const size_t smem = kmer_window::smem_bytes(g);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const auto kernel = wide ? (streamed ? chd_probe_acc_kernel<uint64_t, Table, true>
-                                       : chd_probe_acc_kernel<uint64_t, Table, false>)
-                           : (streamed ? chd_probe_acc_kernel<uint32_t, Table, true>
-                                       : chd_probe_acc_kernel<uint32_t, Table, false>);
-  kernel<<<(unsigned)g.grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const AccPlan p = acc_plan(B, LB, W, k, nt, width);
+  if (p.err != 0) return p.err;
+  acc_kernel<Table>(p)<<<(unsigned)p.g.grid, kThreads, p.smem, (cudaStream_t)stream>>>(
       (const uint32_t*)codes, (const uint32_t*)ambig, (const int*)lengths, tab, (uint32_t*)acc, B, k,
-      nt, bin_lo, bin_hi, g);
+      nt, bin_lo, bin_hi, p.g);
+  return (int)cudaGetLastError();
+}
+
+// whether the raw pass's blocks fill the card at most once
+int one_wave(const AccPlan& p, bool* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, acc_kernel<RawAccTable>(p), kThreads, p.smem);
+  *out = p.g.grid <= (long long)sms * per_sm;
+  return (int)err;
+}
+
+// the raw probe of n queries over a table type's rounds
+template <typename Table>
+int rows_probe(const Table& tab, const void* hashes, const void* valid, void* out, long long n,
+               void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (tab.lb < 4 || tab.lb > 30) return (int)cudaErrorInvalidValue;
+  bool streamed = false;
+  const int err = stream_rows(tab.lb, &streamed);
+  if (err != 0) return err;
+  const long long grid = ((n + Table::kQ - 1) / Table::kQ + kThreads - 1) / kThreads;
+  const auto kernel = streamed ? rows_probe_kernel<Table, true> : rows_probe_kernel<Table, false>;
+  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(tab, (const uint64_t*)hashes,
+                                                               (const uint8_t*)valid, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -576,25 +729,26 @@ extern "C" int kuniq_rows_probe_acc(const void* codes, const void* ambig, const 
                                     int W, int k, int nt, unsigned long long bin_lo,
                                     unsigned long long bin_hi, int lb, void* stream) {
   if (lb < 4 || lb > 30) return (int)cudaErrorInvalidValue;
-  const RawTable tab{(const uint2*)ptags, (const uint2*)confirm, lb};
-  return probe_acc(codes, ambig, lengths, tab, acc, B, LB, W, k, nt, bin_lo, bin_hi, lb, stream);
+  const uint2 *pt = (const uint2*)ptags, *cf = (const uint2*)confirm;
+  if (B > 0 && W > 0) {
+    const AccPlan p = acc_plan(B, LB, W, k, nt, lb);
+    bool wave = false;
+    const int err = p.err != 0 ? p.err : one_wave(p, &wave);
+    if (err != 0) return err;
+    if (wave)
+      return probe_acc(codes, ambig, lengths, RawAccWaveTable{pt, cf, lb}, acc, B, LB, W, k, nt, bin_lo,
+                       bin_hi, lb, stream);
+  }
+  return probe_acc(codes, ambig, lengths, RawAccTable{pt, cf, lb}, acc, B, LB, W, k, nt, bin_lo, bin_hi, lb,
+                   stream);
 }
 
 // ptags, confirm as kuniq_rows_probe_acc's; hashes, valid, out as
 // kuniq_chd_probe's
 extern "C" int kuniq_rows_probe(const void* ptags, const void* confirm, const void* hashes,
                                 const void* valid, void* out, long long n, int lb, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (lb < 4 || lb > 30) return (int)cudaErrorInvalidValue;
-  bool streamed = false;
-  const int err = stream_rows(lb, &streamed);
-  if (err != 0) return err;
-  const long long grid = ((n + kQ - 1) / kQ + kThreads - 1) / kThreads;
-  const auto kernel = streamed ? rows_probe_kernel<true> : rows_probe_kernel<false>;
-  kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint2*)ptags, (const uint2*)confirm, (const uint64_t*)hashes, (const uint8_t*)valid,
-      (uint32_t*)out, n, lb);
-  return (int)cudaGetLastError();
+  return rows_probe(RawProbeTable{(const uint2*)ptags, (const uint2*)confirm, lb}, hashes, valid, out, n,
+                    stream);
 }
 
 extern "C" int kuniq_chd_probe(const void* disp, const void* rows, const void* hashes,

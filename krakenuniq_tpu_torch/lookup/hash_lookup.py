@@ -16,11 +16,12 @@ spare hash bits) both match -- also exact.
 
 Raw two-level (UID databases, whose 32-bit values leave no spare bits):
 `ptags` int32 [2^lb, 2], a tag per slot, and `confirm` int32 [2^(lb+1), 2],
-per slot (low 32 bits of h, value). The probe reads both candidate buckets'
-tag rows, takes the FIRST screened slot (slot 0 before slot 1, the first
-choice before the second, the second only where its bucket differs) and
-then that slot's confirm row: the value where it holds h's low 32 bits,
-else 0 (krakenuniq_tpu/lookup/hash_lookup.py, _probe_rows).
+per slot (low 32 bits of h, value). The probe takes the FIRST screened slot
+(slot 0 before slot 1, the first choice before the second, the second only
+where its bucket differs) and then that slot's confirm row: the value where
+it holds h's low 32 bits, else 0 (krakenuniq_tpu/lookup/hash_lookup.py,
+_probe_rows). The kernel reads the second bucket only where no slot of the
+first screens (`probe_rows_rounds` is its algorithm in plain torch).
 
 The layout is told by the plane structure, as the JAX package's `_probe`
 tells it: one plane = fused, two planes with `shape[1] == 4` = CHD, two
@@ -100,6 +101,34 @@ def probe_rows_plain(ptags, confirm, h, lb: int):
     crow = i32_to_u32(confirm[flat])
     ok = (has1 | eq2.any(dim=1)) & (crow[:, 0] == (h & 0xFFFFFFFF))
     return ok, crow[:, 1]
+
+
+def _raw_bucket(ptags, confirm, b, hc, h, lb: int):
+    """A raw bucket's answer for queries h (hc: h or h*GOLDEN, the hash its
+    tags come from): (screened bool, value int64), the value that of the
+    first slot whose tag screens, 0 where its confirm word is not h's low
+    32 bits."""
+    eq = i32_to_u32(ptags[b]) == lsr(hc << lb, 32)[:, None]
+    crow = i32_to_u32(confirm[2 * b + (~eq[:, 0]).long()])
+    screened = eq.any(dim=1)
+    return screened, torch.where(screened & (crow[:, 0] == (h & 0xFFFFFFFF)), crow[:, 1], 0)
+
+
+def probe_rows_rounds(ptags, confirm, h, lb: int):
+    """The `rows_probe` kernel's rounds in plain torch: each query's first
+    bucket's tag row and the confirm row of its first screened slot; where
+    no slot screens and the buckets differ, its second bucket's tag row and
+    the confirm row of its first screened slot. Returns (value int64 [n],
+    where it screened int64 [n]: 1 the first bucket, 2 the second, 0
+    neither); the value equals probe_rows_plain's where it found one, and is
+    0 elsewhere."""
+    hg = h * _GOLDEN
+    b1, b2 = lsr(h, 64 - lb), lsr(hg, 64 - lb)
+    s1, v1 = _raw_bucket(ptags, confirm, b1, h, h, lb)
+    s2, v2 = _raw_bucket(ptags, confirm, b2, hg, h, lb)
+    s2 &= ~s1 & (b1 != b2)
+    val = torch.where(s1, v1, torch.where(s2, v2, 0))
+    return val, torch.where(s1, 1, torch.where(s2, 2, 0))
 
 
 def probe_fused_plain(fused, h, lb: int):

@@ -1,15 +1,17 @@
-"""Time the candidate designs of five kernels against the kept ones on the card.
+"""Time the candidate designs of seven kernels against the kept ones on the card.
 
 `csrc/taxon_counts.cu`, `csrc/row_gather.cu`, `csrc/pack_runs.cu`,
-`csrc/sparse_stats.cu` and `csrc/span_dict.cu` were each chosen over other
-designs; `tools/variants/*.cu` keeps those candidates (each file includes
+`csrc/sparse_stats.cu`, `csrc/span_dict.cu` and the raw two-level probe
+round of `csrc/chd_probe.cu` (`rows_probe`, `rows_probe_acc`) were each
+chosen over other designs; `tools/variants/*.cu` keeps those candidates (each file includes
 its kernel's source and adds them). This script builds them, runs every
 candidate and the kept kernel (through its wrapper) on the same inputs,
 holds each output equal to the plain PyTorch version, and prints one JSON
 line per (case, design) with `device_ms`: the median card time of the
 design's own kernels per call, from torch.profiler.
 
-    python -m krakenuniq_tpu_torch.tools.kernel_variants [--reps 20]
+    python -m krakenuniq_tpu_torch.tools.kernel_variants [--reps 20] [--only rows_probe ...]
+    python -m krakenuniq_tpu_torch.tools.kernel_variants --resources SRC...  # registers, spills
 
 taxon_counts: grouping a warp's equal ids before the atomics (none, a
 ballot on one id, __match_any_sync) in the shared and in the global form,
@@ -30,14 +32,27 @@ __match_any_sync (the first design), behind a block's table of ids (a lane
 a thread, a first sighting reading its word from the L2 or not), and the
 remap without evict-first hints, on a span's [65536, 130] zipf-1.3 ids
 over 400, 3,000 and 40,000 of 2,400,503 ids and over the top 400 with 0
-(`device_ms` counts the three kernels, not the memset every form runs). It
-needs a card and exits with 2 without one.
+(`device_ms` counts the three kernels, not the memset every form runs).
+rows_probe: the kept round (the confirm row after the round that
+screened it, b2's tag row only where b1 does not screen), the speculative
+confirm pair (b1's tag row and both its confirm rows side by side) and the
+first design's round (both tag rows, then the confirm row), at kQ 4 and 8
+and 1, 4, 6 and 8 blocks an SM, on 8,500,000 queries over random planes of
+lb = 27 (3.2 GB), ~1% invalid, half planted (half of those in their second
+bucket); rows_probe_acc: the same forms at kQ 4 and 8 (the pass keeps its
+launch bounds), on a random raw chunk of lb = 23 at the span shape [65536,
+160] and at [4096, 160], half the words set and half the searched lanes
+planted. Each row carries its kernel's `registers`,
+`spill_stores` and `spill_loads` from the variants build's `-Xptxas -v`
+report. It needs a card and exits with 2 without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
+import hashlib
 import json
 import os
 import statistics
@@ -69,35 +84,143 @@ ENTRIES = {
     "sparse_stats": ("kuniq_sparse_stats_variant", (_I, _P, _P, _L, _I, _P, _L, _P, _P, _P, _P)),
     # form, then kuniq_span_dict's arguments
     "span_dict": ("kuniq_span_dict_variant", (_I, _P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
+    # form, kQ, minimum blocks, then kuniq_rows_probe's arguments
+    "rows_probe": ("kuniq_rows_probe_variant", (_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P)),
 }
+# further entry points of a variants library: name -> (library, symbol,
+# argtypes); form, kQ, minimum blocks, then kuniq_rows_probe_acc's arguments
+MORE_ENTRIES = {
+    "rows_probe_acc": ("rows_probe", "kuniq_rows_probe_acc_variant",
+                       (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_ulonglong,
+                        ctypes.c_ulonglong, _I, _P)),
+}
+# the raw probe's points: (form, kQ, minimum blocks); form 0 is the kept
+# round, 1 the speculative confirm pair, 2 the first design's round
+ROWS_FORMS = {0: "kept round", 1: "speculative confirm pair", 2: "both tag rows"}
+ROWS_POINTS = [(f, q, m) for f in (0, 1) for q in (4, 8) for m in (1, 4, 6, 8)] + [(2, 4, 1)]
+# the out-of-core pass keeps the CHD pass's launch bounds: only kQ varies
+ACC_POINTS = [(0, 4, 1), (0, 8, 1), (1, 4, 1), (1, 8, 1), (2, 4, 1)]
 SMEM_OPT_IN = 232_448  # bytes of shared memory one block may opt into on sm_90
 CLUSTER = 8  # blocks per cluster of the cluster flush
 
 
-def build() -> dict:
-    """Compile every variants source (one nvcc each, in parallel) next to the
-    kernels' libraries; returns name -> the loaded entry point."""
+def _variants_lib(name: str) -> str:
+    """The library of tools/variants/<name>_variants.cu, named by a digest
+    of it, of every csrc/ source (the variants include their kernel's) and
+    of the flags."""
+    h = hashlib.sha256(" ".join(_kernels.NVCC_FLAGS).encode())
+    for path in [os.path.join(VARIANTS, f"{name}_variants.cu")] + sorted(
+            os.path.join(_kernels.CSRC, f) for f in os.listdir(_kernels.CSRC)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_kernels.BUILD_DIR, f"lib{name}_variants_{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named variants sources (all by default; one nvcc each, in
+    parallel) next to the kernels' libraries, unless built already (ptxas'
+    report kept beside each library); returns name -> the loaded entry
+    point."""
     nvcc = _kernels._nvcc()
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in ENTRIES:
+    libs, procs = {}, {}
+    for name in names or ENTRIES:
         src = os.path.join(VARIANTS, f"{name}_variants.cu")
-        lib = os.path.join(_kernels.BUILD_DIR, f"lib{name}_variants.so")
-        cmd = [nvcc, *_kernels.NVCC_FLAGS, "-I", _kernels.CSRC, "-o", lib, src]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    fns, failed = {}, []
-    for name, (lib, proc) in procs.items():
+        libs[name] = lib = _variants_lib(name)
+        if not os.path.exists(lib):
+            cmd = [nvcc, *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", _kernels.CSRC, "-o", f"{lib}.tmp", src]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    failed = []
+    for name, proc in procs.items():
         out = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             failed.append(f"{name}_variants.cu:\n{out}")
             continue
-        symbol, argtypes = ENTRIES[name]
-        fn = getattr(ctypes.CDLL(lib), symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        fns[name] = fn
+        with open(libs[name] + ".ptxas.txt", "w") as f:
+            f.write(out)
+        os.replace(f"{libs[name]}.tmp", libs[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    fns = {name: _bind(ctypes.CDLL(lib), *ENTRIES[name]) for name, lib in libs.items()}
+    for name, (lib_name, symbol, argtypes) in MORE_ENTRIES.items():
+        if lib_name in libs:
+            fns[name] = _bind(ctypes.CDLL(libs[lib_name]), symbol, argtypes)
     return fns
+
+
+@functools.lru_cache(maxsize=None)
+def variants_usage(name: str) -> dict:
+    """ptxas_usage of the variants library `name` as built (its kept
+    report)."""
+    with open(_variants_lib(name) + ".ptxas.txt") as f:
+        return ptxas_usage(f.read())
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names through the toolkit's cu++filt (or c++filt); the mangled
+    names where neither runs."""
+    try:
+        tools = [os.path.join(os.path.dirname(_kernels._nvcc()), "cu++filt"), "c++filt"]
+    except RuntimeError:  # no toolkit
+        tools = ["c++filt"]
+    for exe in tools:
+        try:
+            out = subprocess.run([exe], input="\n".join(names), capture_output=True, text=True, check=True).stdout
+            return out.splitlines()[:len(names)]
+        except (OSError, subprocess.CalledProcessError):
+            continue
+    return names
+
+
+def ptxas_usage(text: str) -> dict:
+    """Each kernel's registers and spill bytes from `nvcc -Xptxas -v`
+    output: {kernel (demangled): {"registers", "spill_stores",
+    "spill_loads", "stack"}}."""
+    import re
+
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    keys = list(usage)
+    return dict(zip(_demangle(keys), (usage[k] for k in keys)))
+
+
+def resources(sources) -> list[dict]:
+    """Registers and spills of every kernel of each CUDA source (compiled
+    to a cubin for sm_90a with -Xptxas -v, its own directory on the include
+    path): one record per (source, kernel)."""
+    nvcc = _kernels._nvcc()
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    recs = []
+    for src in sources:
+        src = os.path.abspath(src)
+        out = os.path.join(_kernels.BUILD_DIR, f"resources_{os.getpid()}.cubin")
+        flags = [f for f in _kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        proc = subprocess.run([nvcc, *flags, "-cubin", "-Xptxas", "-v", "-I", os.path.dirname(src), "-o", out, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        os.remove(out)
+        for kernel, use in ptxas_usage(proc.stdout + proc.stderr).items():
+            recs.append({"source": src, "kernel": kernel, **use})
+    return recs
+
+
+def _bind(lib, symbol: str, argtypes):
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
 
 
 def call(fn, *args) -> None:
@@ -373,21 +496,184 @@ def run_span_dict(fn, reps: int, emit, cap: int = 1 << 15, t: int = 2_400_503, s
                   "equal": True})
 
 
+def _point_usage(kernel: str, form: int, q: int, m: int, streamed: bool, lib: str = "rows_probe") -> dict:
+    """registers and spill bytes of a raw probe point's kernel instance in
+    the variants build (empty where ptxas' output named none)."""
+    table = ("RawTable", "RawTableSpec", "RawTableBoth")[form] + f"<{q}, {m}>"
+    flag = "true" if streamed else "false"
+    for name, use in variants_usage(lib).items():
+        plain = name.replace("(int)", "").replace("(bool)1", "true").replace("(bool)0", "false")
+        if kernel in plain and f"::{table}, {flag}>" in plain:
+            return {"registers": use.get("registers"), "spill_stores": use.get("spill_stores"),
+                    "spill_loads": use.get("spill_loads")}
+    return {}
+
+
+def _streamed(lb: int) -> bool:
+    """Whether the probe streams the confirm plane (16 B << lb) past the L2."""
+    return (16 << lb) > torch.cuda.get_device_properties(0).L2_cache_size
+
+
+def plant_raw(planes, h, seed: int):
+    """Store the first half of `h` in slot 0 of its first-choice bucket and
+    the rest in slot 1 of its second-choice bucket (the bucket's tag; the
+    slot's confirm row: the low 32 hash bits and a random nonzero value),
+    as the two-level build lays keys out."""
+    from ..db.hash_table import GOLDEN
+    from ..ints import lsr, s64, u32_to_i32
+
+    ptags, confirm = planes
+    lb = ptags.shape[0].bit_length() - 1
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    vals = u32_to_i32(torch.randint(1, 1 << 32, h.shape, dtype=torch.int64, device=h.device, generator=gen))
+    half = h.numel() // 2
+    for part, choice in ((slice(0, half), 0), (slice(half, None), 1)):
+        hp = h[part]
+        hc = hp * s64(int(GOLDEN)) if choice else hp
+        bucket = lsr(hc, 64 - lb)
+        ptags[bucket, choice] = u32_to_i32(lsr(hc << lb, 32))
+        confirm[2 * bucket + choice, 0] = u32_to_i32(hp & 0xFFFFFFFF)
+        confirm[2 * bucket + choice, 1] = vals[part]
+
+
+def _random_i32(gen, *shape):
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device="cuda", generator=gen)
+
+
+def rows_random_case(n: int = 8_500_000, lb: int = 27, seed: int = 79):
+    """Random raw planes of width 2^lb, n random queries, ~1% invalid, half
+    of them planted (plant_raw)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    planes = (_random_i32(gen, 1 << lb, 2), _random_i32(gen, 2 << lb, 2))
+    h = (_random_i32(gen, n).long() << 32) | (_random_i32(gen, n).long() & 0xFFFFFFFF)
+    valid = torch.rand(n, device="cuda", generator=gen) >= 0.01
+    plant_raw(planes, h[: n // 2], seed + 10)
+    return planes, h, valid
+
+
+def run_rows(fn, reps: int, emit, label: str, planes, h, valid, points=None) -> None:
+    """Each raw probe design on one case: the kept kernel through its
+    wrapper, then every point (form, kQ, minimum blocks) of the variants."""
+    from ..lookup.hash_lookup import hash_lookup_kmers, hash_lookup_plain
+
+    lb = planes[0].shape[0].bit_length() - 1
+    want = hash_lookup_plain(planes, h, valid)
+
+    def variant(form, q, m):
+        out = torch.empty(h.shape, dtype=torch.int32, device="cuda")
+        call(fn, form, q, m, *planes, h, valid, out, h.numel(), lb)
+        return out
+
+    designs = [("kept", None, lambda: hash_lookup_kmers(planes, h, valid))]
+    designs += [(ROWS_FORMS[f], (f, q, m), lambda p=(f, q, m): variant(*p)) for f, q, m in points or ROWS_POINTS]
+    for design, point, run in designs:
+        if not torch.equal(run(), want):
+            raise AssertionError(f"rows_probe {label} {design} {point}: differs from plain")
+        use = _point_usage("rows_probe_kernel", *point, _streamed(lb)) if point else {}
+        emit({"kernel": "rows_probe", "case": label, "shape": list(h.shape), "lb": lb, "design": design,
+              "kq": point and point[1], "min_blocks": point and point[2], **use,
+              "device_ms": device_ms(run, "rows_probe_kernel", reps), "equal": True})
+
+
+def run_rows_acc(fn, reps: int, emit, label: str, feed, planes, bounds, acc0, k: int, nt: int,
+                 points=None) -> None:
+    """Each raw out-of-core pass design on one case (a span's packed feed,
+    a raw chunk table and its bin range, the word plane before the pass):
+    the kept kernel through probe_chunk_core, then the variants' points."""
+    codes, ambig, lengths = feed
+    lb = planes[0].shape[0].bit_length() - 1
+    b, w = acc0.shape
+    lo, hi = (int(x) for x in bounds)
+    want = ds.probe_chunk_core(acc0.clone(), planes, bounds, *feed, k, nt, plain=True)
+    acc = torch.empty_like(acc0)
+
+    def variant(form, q, m):
+        acc.copy_(acc0)
+        call(fn, form, q, m, codes, ambig, lengths, *planes, acc, b, 16 * codes.shape[1], w, k, nt, lo, hi, lb)
+        return acc
+
+    designs = [("kept", None, lambda: ds.probe_chunk_core(acc.copy_(acc0), planes, bounds, *feed, k, nt))]
+    designs += [(ROWS_FORMS[f], (f, q, m), lambda p=(f, q, m): variant(*p)) for f, q, m in points or ACC_POINTS]
+    for design, point, run in designs:
+        if not torch.equal(run(), want):
+            raise AssertionError(f"rows_probe_acc {label} {design} {point}: differs from plain")
+        use = _point_usage("chd_probe_acc_kernel<unsigned int", *point, _streamed(lb)) if point else {}
+        emit({"kernel": "rows_probe_acc", "case": label, "shape": [b, w], "lb": lb, "design": design,
+              "kq": point and point[1], "min_blocks": point and point[2], **use,
+              "device_ms": device_ms(run, "chd_probe_acc_kernel", reps), "equal": True})
+
+
+def acc_random_case(b: int, lb_chunk: int = 23, seed: int = 97, k: int = 31, nt: int = 12):
+    """A random raw chunk of width 2^lb_chunk and a span of b random reads
+    of 160 bases (packed words, ~1% ambiguous bases, lengths 0 to 160), half
+    the words set, half the searched lanes planted, the bin range the middle
+    half of the searched lanes' bins: (feed, planes, bounds, acc0)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lbases = 160
+    lengths = np.where(rng.random(b) < 0.8, lbases, rng.integers(0, lbases, size=b)).astype(np.int32)
+    amb = (rng.random((b, lbases)) < 0.01) | (np.arange(lbases)[None, :] >= lengths[:, None])
+    bases = np.where(amb, 0, rng.integers(0, 4, size=(b, lbases))).astype(np.uint8)
+    codes, ambig = ds.pack_input(torch.from_numpy(bases).cuda(), torch.from_numpy(amb).cuda())
+    lengths = torch.from_numpy(lengths).cuda()
+    feed = (codes, ambig, lengths)
+    hashes, _, kmer_ambig = ds.kmer_front_words(codes, ambig, k, 12)
+    _, bins = ds.kmer_bins_words(codes, k, nt)
+    w = lbases - k + 1
+    in_read = torch.arange(w, device="cuda")[None, :] < (lengths - (k - 1)).clamp(min=0)[:, None]
+    searched = in_read & ~kmer_ambig
+    planes = (_random_i32(gen, 1 << lb_chunk, 2), _random_i32(gen, 2 << lb_chunk, 2))
+    plant_raw(planes, hashes[searched & (torch.rand(searched.shape, device="cuda", generator=gen) < 0.5)], seed)
+    sb = bins[searched].sort().values
+    bounds = (int(sb[sb.numel() // 4]), int(sb[3 * sb.numel() // 4]))
+    acc0 = torch.where(torch.rand((b, w), device="cuda", generator=gen) < 0.5,
+                       torch.randint(1, 1 << 31, (b, w), dtype=torch.int32, device="cuda", generator=gen), 0)
+    return feed, planes, bounds, acc0
+
+
+def run_rows_random(fns, reps: int, emit) -> None:
+    """The raw probe's designs on phase 2's random cases: rows_probe on
+    8.5M queries at lb = 27, rows_probe_acc on a random lb = 23 chunk at
+    [65536, 160] and [4096, 160]."""
+    planes, h, valid = rows_random_case()
+    run_rows(fns["rows_probe"], reps, emit, "random planes", planes, h, valid)
+    del planes, h, valid
+    torch.cuda.empty_cache()
+    for b in (65536, 4096):
+        feed, planes, bounds, acc0 = acc_random_case(b)
+        run_rows_acc(fns["rows_probe_acc"], reps, emit, "random chunk", feed, planes, bounds, acc0, 31, 12)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", choices=sorted(ENTRIES), action="append",
+                    help="run only this kernel's designs (repeatable)")
+    ap.add_argument("--resources", nargs="+", metavar="SRC",
+                    help="print the registers and spills of every kernel of these CUDA sources and exit")
     args = ap.parse_args(argv)
+    emit = lambda rec: print(json.dumps(rec), flush=True)
+    if args.resources:
+        for rec in resources(args.resources):
+            emit(rec)
+        return 0
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device available", file=sys.stderr)
         return 2
-    emit = lambda rec: print(json.dumps(rec), flush=True)
-    _kernels.build(list(ENTRIES))
-    fns = build()
-    run_counts(fns["taxon_counts"], args.reps, emit)
-    run_gather(fns["row_gather"], max(5, args.reps // 2), emit)
-    run_pack_runs(fns["pack_runs"], args.reps, emit)
-    run_sparse_stats(fns["sparse_stats"], args.reps, emit)
-    run_span_dict(fns["span_dict"], args.reps, emit)
+    names = args.only or list(ENTRIES)
+    _kernels.build([n for n in names if n in _kernels.SIGNATURES] + ["chd_probe"] * ("rows_probe" in names))
+    fns = build(names)
+    runs = {
+        "taxon_counts": lambda: run_counts(fns["taxon_counts"], args.reps, emit),
+        "row_gather": lambda: run_gather(fns["row_gather"], max(5, args.reps // 2), emit),
+        "pack_runs": lambda: run_pack_runs(fns["pack_runs"], args.reps, emit),
+        "sparse_stats": lambda: run_sparse_stats(fns["sparse_stats"], args.reps, emit),
+        "span_dict": lambda: run_span_dict(fns["span_dict"], args.reps, emit),
+        "rows_probe": lambda: run_rows_random(fns, args.reps, emit),
+    }
+    for name in names:
+        runs[name]()
     return 0
 
 
