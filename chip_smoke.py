@@ -13,7 +13,7 @@ and 2 only: run on two checkouts in turns (A, B, B, A) in one call, it
 times both packages' kernels on the same inputs and the same card.
 `--ooc-only` does the same for the out-of-core chunk passes: phase 1, then
 phase 4's database and reads (built on the first run of a call, reused by
-the next) streamed through the card by DIR's package at phase 8's budget,
+the next) streamed through the card by DIR's package at PRELOAD_SIZE,
 its passes measured as phase 8 measures them (one JSON line).
 `--fallback-only` does the same for the fallback lookups: phase 1, then
 phase 4's database loaded by DIR's package under each forced fallback, the
@@ -103,9 +103,8 @@ Phases, each raising on failure:
      krakenuniq_tpu_torch/_build/ (synthesised with the reads in a child
      process while phases 2 and 3 run), loaded by Classifier(device="cuda")
      with the port's table caches removed first (a cold build, which
-     writes `database.kdb.ht_torch`), then loaded again (a warm load: the
-     cached table, no build step, planes bit-equal),
-     classifying the JAX bench's N_READS = 1M zipf-1.5 150 bp reads
+     writes `database.kdb.ht_torch`; phase 14 checks a warm load, on the
+     database it builds), classifying the JAX bench's N_READS = 1M zipf-1.5 150 bp reads
      through Classifier.run and write_report with every launch counter reset
      just before and read just after; the calls are checked against each
      read's true species, one full span is held against the same step
@@ -133,27 +132,31 @@ Phases, each raising on failure:
   6. the random row-fetch probe (krakenuniq_tpu_torch.tools.probe_gather):
      the sweep over copies in flight at 16- and 512-byte rows, with the
      launch counters reset just before and read just after;
-  7. value_pool=False on phase 4's database directory (one reload, its
-     `.ht_dense_torch` cache removed first: a cold dense build): dense
-     ids over the 2.4M-node taxonomy on the span route with the per-span
-     taxon dictionary (span_dict once per span), byte-equal to phase 4; one
+  7. value_pool=False on the database phase 14 builds (9,988,000 keys, phase
+     4's genome keys: a cut of scale for the time limit, as four cold loads
+     of phase 4's 111M keys take ~300 s; --fallback-only and --ooc-only
+     load those), one reload, its `.ht_dense_torch` cache removed first (a cold dense
+     build): dense ids over the 2.4M-node taxonomy on the span route with
+     the per-span taxon dictionary (span_dict once per span), byte-equal to
+     phase 14's run of phase 4's reads on that database (whose kraken
+     output is phase 4's; the reference of phases 7-10 and 8); one
      span step against the plain one, its card time by operation, span_dict
      on its planes; then on the first 100,000 reads a dictionary of 64 ids
      (every span redispatched on the wide rows) and --device-counters under
      the dictionary, both byte-equal to the default-capacity run;
-  9. the binary-search fallback at full size: phase 4's database loaded
-     with the table build made to fail (caches removed first), its sorted
-     planes on the card (keys, vals, vals_dense, offsets: 1.91 GB), dense
-     ids under the span dictionary; phase 4's reads byte-equal to phase 4,
+  9. the binary-search fallback: the built database loaded with the table
+     build made to fail (caches removed first), its sorted planes on the
+     card (keys, vals, vals_dense, offsets), dense ids under the span
+     dictionary; phase 4's reads byte-equal to the reference,
      bsearch_words once a span (kmer_bins and bsearch_lookup never), one
      span step against the plain one, bsearch_words on that span's feed and
      the real planes, beside the unpacked feed's pair kmer_bins and
      bsearch_lookup on the same span (bsearch_lookup with its random-sector
      floor of 2 + n_iter reads);
-  10. the fused fallback at full size: phase 4's database loaded with CHD
-     placement made to fail (caches removed before and after the load), the
-     fused two-choice layout over pool ids (lb = 27, 2.1 GB); phase 4's
-     reads byte-equal to phase 4, fused_probe once a span and chd_probe
+  10. the fused fallback: the built database loaded with CHD placement
+     made to fail (caches removed before and after the load), the fused
+     two-choice layout over pool ids; phase 4's reads byte-equal to the
+     reference, fused_probe once a span and chd_probe
      never, one span step against the plain one, and fused_probe on that
      span's hashes and the real plane, with the valid lanes answered by
      their first row, by their second and missed, the two-row and one-row
@@ -173,18 +176,19 @@ Phases, each raising on failure:
      reads (phase 5b's reference run) and the report equal outside kmers,
      dup and cov; the same reads with --device-counters (counts only on the
      card) byte-equal, output and report;
-  8. out of core on phase 4's database directory (one reload with
-     preload_size = PRELOAD_SIZE, 512 MiB, its `.htc_torch` cache removed
-     first, then a warm reload from that cache): the database cut into at least
+  8. out of core on the built database (one reload with preload_size =
+     PRELOAD_SIZE_BUILT, 64 MiB, its `.htc_torch` cache removed
+     first; the warm reload from that cache runs on a copy of the golden
+     database at 64 KiB, cold then warm, bit-equal): the database cut into at least
      4 chunk tables, two of which fit the budget, streamed through the card
      on the copy stream. The default options on phase 4's reads,
-     byte-equal to phase 4, with chd_probe_acc launched spans x chunks
+     byte-equal to the reference, with chd_probe_acc launched spans x chunks
      times, kmer_front once a span (the chunk passes compute their own
      k-mer front; only the finish step launches it), chd_probe never,
      scores and pack_runs once a span; Classifier.with_shared_db(...,
      device_counters=True, ooc_group_bytes=256 MiB) (several groups),
-     byte-equal to phase 4; single-buffered on the first 200,000 reads,
-     byte-equal to phase 4's lines for them; the run's spans probed as one
+     byte-equal to the reference; single-buffered on the first 200,000
+     reads, byte-equal to its lines for them; the run's spans probed as one
      group double- and single-buffered in turns (the share of the copies
      hidden behind the probes, the first and the later chunk passes' ms),
      chd_probe_acc's card time summed over the group's whole chunk
@@ -196,22 +200,44 @@ Phases, each raising on failure:
      one `ooc` line (budget, chunks, load split, reads/s, host s a span by
      stage, copy and probe ms a chunk, the hidden share, peak memory); then
      50 of phase 11's long reads out of core, byte-equal to phase 11's lines;
-  13. UID databases at full size: a UID database over phase 4's keys
-     (written by the synthesis process: 400 singleton UIDs and 10,000 of
-     2-4 species chained as the UID build chains them; genome keys take
-     their species' UID, 5% of them a set holding it, ballast keys uniform
-     UIDs), loaded cold with Classifier(..., uid_database=True) (3.2 GB of
-     raw planes); phase 4's first 200,000 reads on the span route, 99%
+  13. UID databases: a UID database over phase 4's 9,988,000 genome keys
+     (written by the synthesis process beside phase 4's directory, with
+     phase 4's index cut to them: 400 singleton UIDs and 10,000 of 2-4
+     species chained as the UID build chains them; genome keys take their
+     species' UID, 5% of them a set holding it; a cut of scale for the time
+     limit: --uid-ooc-only loads the 3.2 GB table of all 111M keys), loaded cold
+     with Classifier(..., uid_database=True) (201 MB of raw planes); phase
+     4's first 200,000 reads on the span route, 99%
      called as their species, rows_probe once a span and chd_probe never;
      --device-counters byte-equal; the first 20,000 reads on the Python
      route byte-equal to the span route's lines; 20 of phase 11's long
      reads each called as its species; one span step against the plain
      one, rows_probe on that span's hashes and the real planes; one `uid`
      line (reads/s, host s a span with the UID resolve alone, card s a
-     span, the load split, peak memory).
-Phases run in the order 1-5, 5b, 11, 12, 7, 9, 10, 8, 13, 6. Progress goes
-to stderr; stdout carries one JSON line per kernel check, the fallback and
-UID goldens' lines, the summaries of phases 4, 5, 5b, 11, 12, 7, 9, 10, 8 and 13,
+     span, the load split, peak memory);
+  14. the build and the host tools: phase 4's 400 genomes (a library of
+     10.0 Mbp, one line a genome) and its 2,400,503-node taxonomy (NCBI
+     dumps), both written by the second synthesis process, built by the
+     port's build CLI (build_main --kmer-len 31 --minimizer-len 12
+     --uid-database): each step's seconds, the LCA build's keys/s and peak
+     RSS, step 6b on the card with every launch counter reset just before
+     it (kmer_front, chd_probe, scores and pack_runs launched); the built
+     kdb equal to phase 4's genome keys and species, its taxDB to phase
+     4's, every library sequence called as its species; phase 4's reads
+     on step 6b's tables, byte-equal to phase 4 (the reference of phases
+     7-10 and 8, which follow on this database); the accuracy loop
+     (simulate_and_grade: N_SIM_READS reads of 150 bp at SIM_ERROR
+     substitutions, a warm load of step 6b's cached table) in a child
+     process beside the build, within tests/test_simulated_accuracy.py's
+     bounds, and its reads against the built UID database, the same calls;
+     count-unique on the library; report, translate (plain and
+     --mpa-format), mpa-report, filter and extract-reads on phase 4's
+     outputs, in a child process beside phases 5-13; one `tools` line.
+Phases run in the order 1-5, 5b, 11, 12, 13, 14, 7, 9, 10, 8, 6; phases 13,
+7, 9, 10 and 8 parse the 2.4M-node taxonomy once between them
+(shared_taxonomy). Progress goes to stderr; stdout carries one JSON line per
+kernel check, the fallback and UID goldens' lines, the summaries of phases 4,
+5, 5b, 11, 12, 13, 14, 7, 9, 10 and 8,
 one line per probe setting, the kernel table, the card line and, last, the
 device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
@@ -243,8 +269,11 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 # (bench.py:234).
 N_SPECIES, GENOME_LEN, PAD_NODES, BALLAST = 400, 25_000, 2_400_000, 101_000_000
 N_READS = 1_000_000
-# Phase 8: the out-of-core budget (--preload-size 512M), the group budget of
+# Phase 8: the out-of-core budget (--preload-size 64M on phase 14's built
+# database of 10M keys: 4 or more chunk tables, two at a time on the card; 512M
+# on phase 4's, which --ooc-only and --uid-ooc-only load), the group budget of
 # its device-counters run and the reads of its single-buffered run
+PRELOAD_SIZE_BUILT = 64 << 20
 PRELOAD_SIZE = 512 << 20
 OOC_GROUP_BYTES = 256 << 20
 N_READS_SINGLE = 200_000
@@ -272,6 +301,8 @@ LONG_MIN, LONG_MAX = 33_000, 100_000
 # N_LONG_UID of phase 11's long reads
 N_UID_SETS, UID_SET_SHARE = 10_000, 0.05
 N_READS_UID, N_READS_UID_PY, N_LONG_UID = 200_000, 20_000, 20
+# Phase 14: the accuracy loop's simulated reads (150 bp, 2% substitutions)
+N_SIM_READS, SIM_ERROR = 200_000, 0.02
 
 T0 = time.time()
 
@@ -2286,6 +2317,41 @@ def forced_fallback(kind: str):
         setattr(target, name, saved)
 
 
+_TAXONOMIES: dict = {}
+
+
+@contextlib.contextmanager
+def shared_taxonomy():
+    """Within: the port's Classifier takes a taxDB whose bytes it has parsed
+    before from the parse it made then (Taxonomy.from_taxdb_file keyed by
+    the file's sha256): a new Taxonomy over the same tree arrays, with
+    genome sizes of its own (a report adds its database's counts to them,
+    once per counts file and Taxonomy). Phase 4's 2.4M-node taxDB takes ~20
+    s to parse; phases 13, 7, 9, 10 and 8 parse it once (phase 14's build
+    and phase 4 parse their own)."""
+    import dataclasses
+    import hashlib
+
+    from krakenuniq_tpu_torch.classify import pipeline
+
+    read_taxdb = pipeline.Taxonomy.__dict__["from_taxdb_file"]
+
+    def shared(cls, path):
+        with open(path, "rb") as f:
+            key = hashlib.sha256(f.read()).hexdigest()
+        if key not in _TAXONOMIES:
+            _TAXONOMIES[key] = read_taxdb.__func__(cls, path)
+        tax = _TAXONOMIES[key]
+        return dataclasses.replace(tax, genome_size=tax.genome_size.copy(),
+                                   genome_size_children=tax.genome_size_children.copy())
+
+    pipeline.Taxonomy.from_taxdb_file = classmethod(shared)
+    try:
+        yield
+    finally:
+        pipeline.Taxonomy.from_taxdb_file = read_taxdb
+
+
 def remove_port_caches(db_dir: str, kdb: str = "database.kdb") -> None:
     """Delete the port's table caches beside db_dir's kdb (never the JAX
     package's .ht/.htc files)."""
@@ -2443,9 +2509,9 @@ def uid_chain(species, n_sets: int, seed: int = 9):
 
 
 def ensure_uid_db(db_dir: str, genomes) -> float:
-    """Write-or-reuse phase 13's UID database beside phase 4's database
-    (write_uid_db over its kdb); returns the seconds it took (0 when
-    reused)."""
+    """Write-or-reuse the UID database over all of phase 4's keys beside
+    phase 4's database (write_uid_db over its kdb; --uid-ooc-only measures
+    on it); returns the seconds it took (0 when reused)."""
     from krakenuniq_tpu_torch.formats import read_kdb
 
     if all(os.path.exists(os.path.join(db_dir, f)) for f in ("uid_database.kdb", "uid_to_taxid.map")):
@@ -2456,20 +2522,45 @@ def ensure_uid_db(db_dir: str, genomes) -> float:
     return time.time() - t
 
 
-def write_uid_db(db_dir: str, keys, vals, k: int, genomes, seed: int = 9) -> None:
-    """Write phase 13's UID database (`uid_database.kdb` over phase 4's keys
-    in their order, and `uid_to_taxid.map`; database.idx and taxDB are
-    phase 4's): genome keys (the genomes' canonical k-mers, found through a
-    byte map of their murmur hashes, then exactly) take their species'
-    singleton UID, and UID_SET_SHARE of them a UID whose set holds their
-    species; ballast keys take uniform UIDs. `vals` are phase 4's values:
-    each key's species."""
-    from krakenuniq_tpu_torch.formats import write_kdb
+def uid_genome_dir(db_dir: str) -> str:
+    """Phase 13's UID database directory beside phase 4's database."""
+    return f"{db_dir}_uid_genome"
+
+
+def ensure_uid_genome_db(db_dir: str, genomes) -> float:
+    """Write phase 13's UID database (write_uid_db over phase 4's genome
+    keys, into uid_genome_dir) from phase 4's kdb and index when no
+    synthesis process wrote it; returns the seconds it took."""
+    from krakenuniq_tpu_torch.formats import read_index, read_kdb
+
+    t = time.time()
+    hdr, keys, vals = read_kdb(os.path.join(db_dir, "database.kdb"))
+    _, _, offsets = read_index(os.path.join(db_dir, "database.idx"))
+    write_uid_db(uid_genome_dir(db_dir), keys, vals, hdr.k, genomes, offsets=offsets,
+                 taxdb=os.path.join(db_dir, "taxDB"))
+    return time.time() - t
+
+
+def write_uid_db(out_dir: str, keys, vals, k: int, genomes, offsets=None, taxdb: str | None = None,
+                 seed: int = 9) -> None:
+    """Write a UID database over phase 4's keys in their order
+    (`uid_database.kdb` and `uid_to_taxid.map`): genome keys (the genomes'
+    canonical k-mers, found through a byte map of their murmur hashes, then
+    exactly) take their species' singleton UID, and UID_SET_SHARE of them a
+    UID whose set holds their species; ballast keys take uniform UIDs.
+    `vals` are phase 4's values: each key's species. Without `offsets` every
+    key is written (database.kdb, database.idx and taxDB are phase 4's, in
+    the same directory); with phase 4's index `offsets`, only the genome
+    keys, with the LCA database over them (database.kdb: their values), the
+    index cut to them (database.idx) and taxDB linked to `taxdb`: phase
+    13's database, whose genome keys hold the same UIDs as in the whole
+    one."""
+    from krakenuniq_tpu_torch.formats import write_index, write_kdb
     from krakenuniq_tpu_torch.utils.bits import canonical_representation, murmur3_finalizer
     from krakenuniq_tpu_torch.utils.demo import _host_pack_windows
 
     t = time.time()
-    kdb, map_path = os.path.join(db_dir, "uid_database.kdb"), os.path.join(db_dir, "uid_to_taxid.map")
+    kdb, map_path = os.path.join(out_dir, "uid_database.kdb"), os.path.join(out_dir, "uid_to_taxid.map")
     species = np.asarray(sorted(genomes), dtype=np.uint32)
     chain, sets = uid_chain(species, N_UID_SETS, seed)
     lut = np.zeros(256, np.uint8)
@@ -2498,13 +2589,29 @@ def write_uid_db(db_dir: str, keys, vals, k: int, genomes, seed: int = 9) -> Non
         sel = pick[pick_sp == i]
         if uids and len(sel):
             uvals[sel] = np.asarray(uids, np.uint32)[rng.integers(0, len(uids), size=len(sel))]
-    os.makedirs(db_dir, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
+    n_written = len(keys)
+    if offsets is not None:
+        # the genome keys in their order: each bin's offset counts the
+        # genome keys before it
+        before = np.concatenate(([0], np.cumsum(genome, dtype=np.int64)))
+        sub = before[np.asarray(offsets, dtype=np.int64)].astype(np.uint64)
+        nt = (len(offsets) - 1).bit_length() // 2
+        write_index(os.path.join(out_dir, "database.idx.tmp"), nt, sub)
+        os.replace(os.path.join(out_dir, "database.idx.tmp"), os.path.join(out_dir, "database.idx"))
+        if not os.path.lexists(os.path.join(out_dir, "taxDB")):
+            os.symlink(taxdb, os.path.join(out_dir, "taxDB"))
+        keys, uvals = keys[genome], uvals[genome]
+        n_written = len(keys)
+        # the LCA database over the same keys (the report's database counts)
+        write_kdb(os.path.join(out_dir, "database.kdb.tmp"), keys, np.asarray(vals)[genome], k=k)
+        os.replace(os.path.join(out_dir, "database.kdb.tmp"), os.path.join(out_dir, "database.kdb"))
     write_kdb(kdb + ".tmp", keys, uvals, k=k)
     np.asarray(chain, dtype="<u4").reshape(-1).tofile(map_path + ".tmp")
     os.replace(map_path + ".tmp", map_path)
     os.replace(kdb + ".tmp", kdb)
-    log(f"UID database written: {len(keys)} keys ({int(genome.sum())} genome keys), {len(chain)} UIDs "
-        f"in {time.time() - t:.1f}s")
+    log(f"UID database written: {n_written} keys of phase 4's ({int(genome.sum())} genome keys), {len(chain)} "
+        f"UIDs in {time.time() - t:.1f}s")
 
 
 def _synth_child(queue, shape, n_reads: int) -> None:
@@ -2521,22 +2628,30 @@ def _synth_child(queue, shape, n_reads: int) -> None:
 def _uid_child(queue, shape) -> None:
     """The body of start_synthesis' second process: phase 4's keys and
     values made again in memory (make_demo_db is deterministic) and phase
-    13's UID database written from them into phase 4's directory, while
-    the first process writes phase 4's database; puts its seconds."""
+    13's UID database (phase 4's genome keys) written from them beside
+    phase 4's directory, while the first process writes phase 4's database;
+    then phase 14's library and taxonomy dumps (write_build_inputs); puts
+    its seconds."""
     from krakenuniq_tpu_torch.utils.demo import make_demo_db
 
     t = time.time()
     n_species, genome_len, pad_nodes, ballast = shape
-    keys, vals, _, _, genomes = make_demo_db(n_species=n_species, genome_len=genome_len, k=31, nt=12, seed=7,
-                                             species_base=10_000_000, pad_nodes=pad_nodes, ballast_keys=ballast)
-    write_uid_db(demo_db_dir(n_species, genome_len, 31, 12, pad_nodes, ballast), keys, vals, 31, genomes)
+    keys, vals, offsets, tax, genomes = make_demo_db(
+        n_species=n_species, genome_len=genome_len, k=31, nt=12, seed=7, species_base=10_000_000,
+        pad_nodes=pad_nodes, ballast_keys=ballast)
+    db_dir = demo_db_dir(n_species, genome_len, 31, 12, pad_nodes, ballast)
+    write_uid_db(uid_genome_dir(db_dir), keys, vals, 31, genomes, offsets=offsets,
+                 taxdb=os.path.join(db_dir, "taxDB"))
+    del keys, vals, offsets
+    write_build_inputs(build_dir(n_species, genome_len, pad_nodes), genomes, tax)
     queue.put(time.time() - t)
 
 
 def start_synthesis():
     """Start phase 4's database and reads synthesis (host numpy, ~110 s) in a
     child process, and phase 13's UID database (its own make_demo_db, then
-    ~40 s) in a second, so that both overlap phases 2 and 3 on the card;
+    the genome keys' UIDs) and phase 14's inputs in a second, so that both
+    overlap phases 2 and 3 on the card;
     phase_main waits for the first (finish_synthesis), phase_uid for the
     second (finish_uid_synthesis). Returns ((process, queue), (process,
     queue))."""
@@ -2554,25 +2669,31 @@ def start_synthesis():
     return tuple(out)
 
 
-def _synth_result(child):
-    """What one of start_synthesis' processes puts on its queue, after the
-    process has ended; raises as soon as the process has died without
-    putting it (or after 1,800 s)."""
+def _child_next(child, what: str):
+    """The next item a child process puts on its queue; raises as soon as
+    the process has died without putting it (or after 1,800 s)."""
     from queue import Empty
 
     proc, queue = child
     deadline = time.time() + 1800
     while True:
         try:
-            result = queue.get(timeout=5)
-            break
+            return queue.get(timeout=5)
         except Empty:
             if not proc.is_alive() or time.time() > deadline:
                 proc.join(timeout=10)
-                raise RuntimeError(f"a database synthesis process failed (exit code {proc.exitcode})")
+                raise RuntimeError(f"{what} failed (exit code {proc.exitcode})")
+
+
+def _synth_result(child, what: str = "a database synthesis process"):
+    """What one of start_synthesis' (or phase 14's) processes puts last on
+    its queue, after the process has ended; raises as soon as the process
+    has died without putting it (or after 1,800 s)."""
+    proc, _ = child
+    result = _child_next(child, what)
     proc.join(timeout=60)
     if proc.is_alive() or proc.exitcode != 0:
-        raise RuntimeError(f"a database synthesis process did not end cleanly (exit code {proc.exitcode})")
+        raise RuntimeError(f"{what} did not end cleanly (exit code {proc.exitcode})")
     return result
 
 
@@ -2626,17 +2747,8 @@ def phase_main(reps: int, synth=None):
         raise AssertionError(f"phase 4 takes the {c.route} route, not the span route")
     if db.timings.get("cache") != "miss" or not os.path.exists(os.path.join(db_dir, "database.kdb.ht_torch")):
         raise AssertionError(f"the cold load wrote no table cache: {db.timings}")
-    # a warm load: the table from the port's cache, no build step
-    t = time.time()
-    cw = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda"))
-    warm_s = time.time() - t
-    warm = cw.dbs[0].timings
-    if warm.get("cache") != "hit" or "build" in warm or not all(
-            torch.equal(a, b) for a, b in zip(cw.dbs[0].hash_table, db.hash_table)):
-        raise AssertionError(f"the warm load did not take the cached table as it was built: {warm}")
-    log(f"warm load in {warm_s:.1f}s {warm}: the cached table, bit-equal")
-    del cw
-    torch.cuda.empty_cache()
+    # (the warm load of a cached table is checked in phase 14, on the built
+    # database: a warm reload of this one took ~41 s)
     _, keys, _ = read_kdb(os.path.join(db_dir, "database.kdb"))
     probe_check(db, keys)
     del keys
@@ -2767,8 +2879,6 @@ def phase_main(reps: int, synth=None):
         "load_s": load_s,
         "placement_s": db.timings.get("build_place"),
         "load_steps_s": db.timings,
-        "warm_load_s": warm_s,
-        "warm_load_steps_s": warm,
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
@@ -2810,8 +2920,10 @@ def timed_run(c, reads, out_path, report_path):
 
     from krakenuniq_tpu_torch import _kernels
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    card = torch.cuda.is_available()  # (phase 14 rehearses on the CPU too)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     t = time.time()
     with open(out_path, "w") as kf:
@@ -2819,8 +2931,9 @@ def timed_run(c, reads, out_path, report_path):
     classify_s = time.time() - t
     with open(report_path, "w") as rf:
         c.write_report(rf)
-    torch.cuda.synchronize()
-    return time.time() - t, classify_s, dict(_kernels.LAUNCHES), torch.cuda.max_memory_allocated()
+    if card:
+        torch.cuda.synchronize()
+    return time.time() - t, classify_s, dict(_kernels.LAUNCHES), torch.cuda.max_memory_allocated() if card else 0
 
 
 def count_step_equal(c, codes, ambig, lengths, n_span, bounds) -> None:
@@ -2933,10 +3046,11 @@ def phase_span_counters(run4, reps: int):
     return {"sparse_stats": stats, "sparse_keys": keys, "taxon_counts": counts, "hll_regmax": regmax}, launches
 
 
-def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
-    """value_pool=False on phase 4's database directory (a reload: dense ids
-    over the 2.4M-node taxonomy): the span route with the per-span taxon
-    dictionary, byte-equal to phase 4, with one span step held against the
+def phase_dense_ids(ref, reps: int, n_sub: int = 100_000):
+    """value_pool=False on the built database of phase 14 (`ref`, its run of
+    phase 4's reads; a reload: dense ids over the 2.4M-node taxonomy): the
+    span route with the per-span taxon dictionary, byte-equal to that run
+    (its kraken output is phase 4's), with one span step held against the
     plain one, its card time by operation and span_dict at its planes;
     then, on the first n_sub reads, a dictionary too small for any span
     (every span redispatched on the wide rows) and --device-counters under
@@ -2948,7 +3062,7 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
-    db_dir = os.path.dirname(run4["kraken"])
+    db_dir = os.path.dirname(ref["kraken"])
     dense_cache = os.path.join(db_dir, "database.kdb.ht_dense_torch")
     if os.path.exists(dense_cache):  # a cold dense build
         os.unlink(dense_cache)
@@ -2960,16 +3074,16 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
     if c.route != "span" or not c._cfg_packed.local_dict or c._pool is not None:
         raise AssertionError("value_pool=False should take the span route with the span dictionary")
     out_path, report_path = os.path.join(db_dir, "kraken_dict.out"), os.path.join(db_dir, "report_dict.tsv")
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    run_s, classify_s, launches, peak = timed_run(c, ref["reads"], out_path, report_path)
     log(f"span dictionary: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
     per_span = ("span_dict", "pack_runs", "kmer_front", "chd_probe", "scores")
     if c.n_units or c.dict_overflows or any(launches[k] != c.n_spans for k in per_span):
         raise AssertionError(f"span dictionary: {c.n_units} Python-route units, {c.dict_overflows} "
                              f"overflows, launches {launches} for {c.n_spans} spans")
-    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
-    log("span dictionary kraken output and report: byte-equal to phase 4's")
+    same_bytes(((out_path, ref["kraken"]), (report_path, ref["report"])))
+    log("span dictionary kraken output and report: byte-equal to the reference run's")
 
-    kind, buf, offs, bounds, _ = next(c._iter_native_spans(run4["reads"]))
+    kind, buf, offs, bounds, _ = next(c._iter_native_spans(ref["reads"]))
     codes, ambig, lengths = c._encode_span(buf, offs)
     out_k = c._span_step(codes, ambig, lengths)
     out_p = c._span_step(codes, ambig, lengths, plain=True)
@@ -2986,7 +3100,7 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
 
     sub = os.path.join(db_dir, f"reads_{n_sub}.fa")
     if not os.path.exists(sub):
-        with open(run4["reads"]) as f, open(sub + ".tmp", "w") as g:
+        with open(ref["reads"]) as f, open(sub + ".tmp", "w") as g:
             for i, line in enumerate(f):
                 if i >= 2 * n_sub:
                     break
@@ -3018,7 +3132,7 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
-        "reads_per_s_phase4": run4["reads_per_s"],
+        "reads_per_s_reference": ref["reads_per_s"],
         "classify_s": classify_s,
         "spans": c.n_spans,
         "n_u_span0": n_u,
@@ -3029,7 +3143,7 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
         "span_step_device_ms_by_op": by_op,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-        "equal_to_phase4": True,
+        "equal_to_reference": True,
         "subset": {name: {k: v for k, v in r.items() if k != "paths"} for name, r in runs.items()},
     })
     del c
@@ -3040,13 +3154,14 @@ def phase_dense_ids(run4, reps: int, n_sub: int = 100_000):
 # ------------------------------------------------------------------ phase 9
 
 
-def phase_bsearch(run4, reps: int):
-    """The binary-search fallback at full size: phase 4's database loaded
-    with the table build made to fail (its table caches removed first, so
-    the load builds), every lookup a search of the sorted planes on the
-    card (dense ids, so the span dictionary engages, as in phase 7); phase
-    4's reads through Classifier.run and write_report, byte-equal to phase
-    4, with bsearch_words launched once per span, kmer_bins and
+def phase_bsearch(ref, reps: int):
+    """The binary-search fallback: the built database of phase 14 (`ref`,
+    its run of phase 4's reads) loaded with the table build made to fail
+    (its table caches removed first, so the load builds), every lookup a
+    search of the sorted planes on the card (dense ids, so the span
+    dictionary engages, as in phase 7); phase 4's reads through
+    Classifier.run and write_report, byte-equal to `ref`'s run (its kraken
+    output is phase 4's), with bsearch_words launched once per span, kmer_bins and
     bsearch_lookup never, and chd_probe never; one span step against the
     plain one; on that span's feed and the real planes, bsearch_words
     against its plain version, and the unpacked feed's pair, kmer_bins and
@@ -3065,7 +3180,7 @@ def phase_bsearch(run4, reps: int):
     )
     from krakenuniq_tpu_torch.lookup.xla_lookup import lookup_kmers, lookup_kmers_plain
 
-    db_dir = os.path.dirname(run4["kraken"])
+    db_dir = os.path.dirname(ref["kraken"])
     remove_port_caches(db_dir)
     held = torch.cuda.memory_allocated()
     t = time.time()
@@ -3082,16 +3197,16 @@ def phase_bsearch(run4, reps: int):
         raise AssertionError("the forced fallback should search the sorted planes on the span route, "
                              "dense ids under the span dictionary")
     out_path, report_path = os.path.join(db_dir, "kraken_bsearch.out"), os.path.join(db_dir, "report_bsearch.tsv")
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    run_s, classify_s, launches, peak = timed_run(c, ref["reads"], out_path, report_path)
     log(f"bsearch: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
     per_span = ("bsearch_words", "kmer_front", "scores", "pack_runs", "span_dict")
     off_path = ("kmer_bins", "bsearch_lookup", "chd_probe", "fused_probe")
     if c.n_units or any(launches[k] != c.n_spans for k in per_span) or any(launches[k] for k in off_path):
         raise AssertionError(f"bsearch: {c.n_units} Python-route units, launches {launches} for {c.n_spans} spans")
-    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
-    log("bsearch kraken output and report: byte-equal to phase 4's")
+    same_bytes(((out_path, ref["kraken"]), (report_path, ref["report"])))
+    log("bsearch kraken output and report: byte-equal to the reference run's")
 
-    kind, buf, offs, _, _ = next(c._iter_native_spans(run4["reads"]))
+    kind, buf, offs, _, _ = next(c._iter_native_spans(ref["reads"]))
     codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
     out_k = c._span_step(codes_w, ambig_w, lengths_np)
     out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
@@ -3159,7 +3274,7 @@ def phase_bsearch(run4, reps: int):
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
-        "reads_per_s_phase4": run4["reads_per_s"],
+        "reads_per_s_reference": ref["reads_per_s"],
         "classify_s": classify_s,
         "spans": c.n_spans,
         "host_s_per_span": c.host_seconds / spans,
@@ -3173,7 +3288,7 @@ def phase_bsearch(run4, reps: int):
         "max_memory_allocated_gb": peak / 1e9,
         "allocated_before_load_gb": held / 1e9,
         "launches": launches,
-        "equal_to_phase4": True,
+        "equal_to_reference": True,
     })
     del c, db, planes, plane, canon, bins, out_k, out_p, codes_u, keys_rows
     torch.cuda.empty_cache()
@@ -3210,20 +3325,21 @@ def fused_span(c, reads: str, reps: int, seed: int) -> dict:
     )
 
 
-def phase_fused(run4, reps: int):
-    """10. The fused fallback at full size: phase 4's database loaded with CHD
-    placement made to fail at every width (its table caches removed first,
-    so the load builds the fused two-choice layout over value-pool ids),
-    the caches removed again after the load (no later phase reads a fused
-    table); phase 4's reads through Classifier.run and write_report,
-    byte-equal to phase 4, with fused_probe launched once per span and
+def phase_fused(ref, reps: int):
+    """10. The fused fallback: the built database of phase 14 (`ref`, its
+    run of phase 4's reads) loaded with CHD placement made to fail at every
+    width (its table caches removed first, so the load builds the fused
+    two-choice layout over value-pool ids), the caches removed again after
+    the load (no later phase reads a fused table); phase 4's reads through
+    Classifier.run and write_report, byte-equal to `ref`'s run (its kraken
+    output is phase 4's), with fused_probe launched once per span and
     chd_probe never; one span step against the plain one; fused_probe on
     that span's hashes and the real plane (fused_span)."""
     import torch
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
-    db_dir = os.path.dirname(run4["kraken"])
+    db_dir = os.path.dirname(ref["kraken"])
     remove_port_caches(db_dir)
     held = torch.cuda.memory_allocated()
     t = time.time()
@@ -3238,16 +3354,16 @@ def phase_fused(run4, reps: int):
     table_gb = db.hash_table[0].numel() * 4 / 1e9
     log(f"fused fallback loaded in {load_s:.1f}s {db.timings}; lb={db.hash_lb}, {table_gb:.3f} GB plane")
     out_path, report_path = os.path.join(db_dir, "kraken_fused.out"), os.path.join(db_dir, "report_fused.tsv")
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    run_s, classify_s, launches, peak = timed_run(c, ref["reads"], out_path, report_path)
     log(f"fused: {c.total_sequences} reads in {run_s:.1f}s, {c.n_spans} spans, launches {launches}")
     per_span = ("fused_probe", "kmer_front", "scores", "pack_runs")
     off_path = ("chd_probe", "bsearch_words", "bsearch_lookup", "kmer_bins")
     if c.n_units or any(launches[k] != c.n_spans for k in per_span) or any(launches[k] for k in off_path):
         raise AssertionError(f"fused: {c.n_units} Python-route units, launches {launches} for {c.n_spans} spans")
-    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
-    log("fused kraken output and report: byte-equal to phase 4's")
+    same_bytes(((out_path, ref["kraken"]), (report_path, ref["report"])))
+    log("fused kraken output and report: byte-equal to the reference run's")
 
-    _, buf, offs, _, _ = next(c._iter_native_spans(run4["reads"]))
+    _, buf, offs, _, _ = next(c._iter_native_spans(ref["reads"]))
     codes_w, ambig_w, lengths_np = c._encode_span(buf, offs)
     out_k = c._span_step(codes_w, ambig_w, lengths_np)
     out_p = c._span_step(codes_w, ambig_w, lengths_np, plain=True)
@@ -3256,7 +3372,7 @@ def phase_fused(run4, reps: int):
         if not torch.equal(out_k[key], out_p[key]):
             raise AssertionError(f"fused span: kernel step differs from plain step in {key!r}")
     by_op = device_ms_by_op(lambda: c._span_step(codes_w, ambig_w, lengths_np), reps=5)
-    rec = fused_span(c, run4["reads"], reps, 97)
+    rec = fused_span(c, ref["reads"], reps, 97)
     spans = max(c.n_spans, 1)
     emit({
         "phase": "fused",
@@ -3270,7 +3386,7 @@ def phase_fused(run4, reps: int):
         "reads": c.total_sequences,
         "run_s": run_s,
         "reads_per_s": c.total_sequences / run_s,
-        "reads_per_s_phase4": run4["reads_per_s"],
+        "reads_per_s_reference": ref["reads_per_s"],
         "classify_s": classify_s,
         "spans": c.n_spans,
         "host_s_per_span": c.host_seconds / spans,
@@ -3283,7 +3399,7 @@ def phase_fused(run4, reps: int):
         "max_memory_allocated_gb": peak / 1e9,
         "allocated_before_load_gb": held / 1e9,
         "launches": launches,
-        "equal_to_phase4": True,
+        "equal_to_reference": True,
     })
     del c, db, out_k, out_p
     torch.cuda.empty_cache()
@@ -3604,34 +3720,75 @@ def span_feeds(c, reads: str) -> list:
     return feeds
 
 
-def phase_ooc(run4, reps: int):
-    """Out of core (--preload-size) on phase 4's database directory: the
-    chunk tables streamed through the card, byte-equal to phase 4 with and
-    without device counters, double- and single-buffered; the chunk passes
-    measured (ooc_passes) and chd_probe_acc against its plain version on
-    one real chunk."""
+def ooc_warm_reload() -> tuple[float, dict]:
+    """Out of core, cold then warm, on a copy of the golden database under
+    _build/ooc_warm/ at 64 KiB (5 chunk tables of its ~139 KB): the cold load writes
+    `.htc_torch`, the warm one takes the chunk tables from it (no build, the
+    same bounds, the planes bit-equal), and both classify reads.fa as
+    kraken.out has it. Returns (warm load s, its steps)."""
+    import shutil
+
+    import torch
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    root = os.path.join(ROOT, "krakenuniq_tpu_torch", "_build", "ooc_warm")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for f in ("database.kdb", "database.idx", "taxDB", "database.kdb.counts"):
+        shutil.copy(os.path.join(GOLDEN, f), os.path.join(root, f))
+    opts = ClassifyOptions(print_progress=False, device="cuda", preload_size=64 << 10)
+    with open(os.path.join(GOLDEN, "kraken.out")) as f:
+        want = f.read()
+    loads = []
+    for _ in range(2):
+        t = time.time()
+        c = Classifier([root], opts)
+        loads.append((time.time() - t, c))
+        out = io.StringIO()
+        c.run([os.path.join(GOLDEN, "reads.fa")], kraken_fh=out)
+        if out.getvalue() != want or c._ooc is None or c._ooc[0].n_chunks < 2:
+            raise AssertionError("out of core on the golden copy: kraken output differs or not out of core")
+    (_, cold), (warm_s, warm) = loads
+    cdb, wdb = cold._ooc[0], warm._ooc[0]
+    if cdb.timings.get("cache") != "miss" or wdb.timings.get("cache") != "hit" or "build" in wdb.timings or \
+            wdb.bounds != cdb.bounds or not all(torch.equal(a, b) for pa, pb in zip(wdb.chunk_planes, cdb.chunk_planes)
+                                                for a, b in zip(pa, pb)):
+        raise AssertionError(f"the warm chunk load did not take the cached tables as built: {wdb.timings}")
+    log(f"out of core on the golden copy, warm reload in {warm_s:.2f}s {wdb.timings}: {wdb.n_chunks} cached "
+        f"chunk tables, bit-equal")
+    return warm_s, wdb.timings
+
+
+def phase_ooc(ref, reps: int):
+    """Out of core (--preload-size PRELOAD_SIZE_BUILT) on the built database
+    of phase 14 (`ref`, its run of phase 4's reads): the chunk tables
+    streamed through the card, byte-equal to that run (its kraken output is
+    phase 4's) with and without device counters, double- and single-buffered;
+    the chunk passes measured (ooc_passes) and chd_probe_acc against its
+    plain version on one real chunk."""
     import statistics as st_
 
     import torch
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
 
-    db_dir = os.path.dirname(run4["kraken"])
+    db_dir = os.path.dirname(ref["kraken"])
     chunk_cache = os.path.join(db_dir, "database.kdb.htc_torch")
     if os.path.exists(chunk_cache):  # a cold chunk build
         os.unlink(chunk_cache)
     t = time.time()
-    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
+    c = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE_BUILT))
     load_s = time.time() - t
     if c._ooc is None or c.route != "span":
-        raise AssertionError("preload_size = 512 MiB should stream the phase-4 database on the span route")
+        raise AssertionError(f"preload_size = {PRELOAD_SIZE_BUILT} B should stream the built database on the span route")
     cdb = c._ooc[0]
     n_chunks, chunk_bytes = cdb.n_chunks, cdb.chunk_bytes()
     log(f"out of core: {n_chunks} chunks of {chunk_bytes / 1e6:.1f} MB at lr={cdb.lb}, loaded in {load_s:.1f}s "
         f"{cdb.timings}")
-    if n_chunks < 4 or 2 * chunk_bytes > PRELOAD_SIZE or not c._ooc_prefetch:
+    if n_chunks < 4 or 2 * chunk_bytes > PRELOAD_SIZE_BUILT or not c._ooc_prefetch:
         raise AssertionError(f"out-of-core plan: {n_chunks} chunks of {chunk_bytes} B, "
-                             f"double-buffered {c._ooc_prefetch}, budget {PRELOAD_SIZE}")
+                             f"double-buffered {c._ooc_prefetch}, budget {PRELOAD_SIZE_BUILT}")
     if cdb.timings.get("cache") != "miss" or not os.path.exists(chunk_cache):
         raise AssertionError(f"the cold chunk build wrote no cache: {cdb.timings}")
 
@@ -3639,7 +3796,7 @@ def phase_ooc(run4, reps: int):
     # compute their own k-mer front, so kmer_front runs once a span (the
     # finish step)
     out_path, report_path = os.path.join(db_dir, "kraken_ooc.out"), os.path.join(db_dir, "report_ooc.tsv")
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, report_path)
+    run_s, classify_s, launches, peak = timed_run(c, ref["reads"], out_path, report_path)
     spans = c.n_spans
     log(f"out of core: {c.total_sequences} reads in {run_s:.1f}s, {spans} spans, {c.ooc_groups} groups, "
         f"launches {launches}")
@@ -3647,8 +3804,8 @@ def phase_ooc(run4, reps: int):
             "scores": spans, "pack_runs": spans}
     if c.n_units or spans == 0 or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"out of core: {c.n_units} Python-route units, launches {launches}, want {want}")
-    same_bytes(((out_path, run4["kraken"]), (report_path, run4["report"])))
-    log("out-of-core kraken output and report: byte-equal to phase 4's")
+    same_bytes(((out_path, ref["kraken"]), (report_path, ref["report"])))
+    log("out-of-core kraken output and report: byte-equal to the reference run's")
     times = c.ooc_timings()
     probe = times["probe"]
     run1 = {"reads": c.total_sequences, "run_s": run_s, "classify_s": classify_s, "spans": spans,
@@ -3661,65 +3818,59 @@ def phase_ooc(run4, reps: int):
     # run 2: device counters in groups of 256 MiB
     cd = Classifier.with_shared_db(c, device_counters=True, ooc_group_bytes=OOC_GROUP_BYTES)
     paths = (os.path.join(db_dir, "kraken_ooc_dc.out"), os.path.join(db_dir, "report_ooc_dc.tsv"))
-    r2_s, _, r2_launches, _ = timed_run(cd, run4["reads"], *paths)
+    r2_s, _, r2_launches, _ = timed_run(cd, ref["reads"], *paths)
     if cd.ooc_groups < 2 or r2_launches["chd_probe_acc"] != cd.n_spans * n_chunks or r2_launches["chd_probe"]:
         raise AssertionError(f"out of core, device counters: {cd.ooc_groups} groups, launches {r2_launches}")
-    same_bytes(zip(paths, (run4["kraken"], run4["report"])))
+    same_bytes(zip(paths, (ref["kraken"], ref["report"])))
     run2 = {"run_s": r2_s, "reads_per_s": cd.total_sequences / r2_s, "groups": cd.ooc_groups, "spans": cd.n_spans}
-    log(f"out of core, device counters: {cd.ooc_groups} groups in {r2_s:.1f}s, byte-equal to phase 4's")
+    log(f"out of core, device counters: {cd.ooc_groups} groups in {r2_s:.1f}s, byte-equal to the reference run's")
     del cd
 
     # run 3: single-buffered on the first reads
-    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    sub = head_reads(ref["reads"], N_READS_SINGLE)
     cs = Classifier.with_shared_db(c, ooc_double_buffer=False)
     if cs._ooc_prefetch:
         raise AssertionError("ooc_double_buffer=False still prefetches")
     paths = (os.path.join(db_dir, "kraken_ooc_single.out"), os.path.join(db_dir, "report_ooc_single.tsv"))
     r3_s, _, _, _ = timed_run(cs, sub, *paths)
-    with open(run4["kraken"], "rb") as f:
+    with open(ref["kraken"], "rb") as f:
         want_lines = b"".join(line for _, line in zip(range(N_READS_SINGLE), f))
     with open(paths[0], "rb") as f:
         if f.read() != want_lines:
-            raise AssertionError("single-buffered out-of-core output differs from phase 4's lines for its reads")
+            raise AssertionError("single-buffered out-of-core output differs from the reference run's lines for "
+                                 "its reads")
     run3 = {"reads": cs.total_sequences, "run_s": r3_s, "reads_per_s": cs.total_sequences / r3_s}
-    log(f"out of core, single-buffered: {cs.total_sequences} reads in {r3_s:.1f}s, byte-equal to phase 4's lines")
+    log(f"out of core, single-buffered: {cs.total_sequences} reads in {r3_s:.1f}s, byte-equal to the reference "
+        f"run's lines")
     del cs
 
     # the run's spans as one group: the passes measured, the kernel checked
-    feeds = span_feeds(c, run4["reads"])
+    feeds = span_feeds(c, ref["reads"])
     passes, rec = ooc_passes(c, feeds, reps)
     del feeds
 
     # N_LONG_OOC of phase 11's long reads out of core: its lines for them
-    run4_long = {}
-    if "long_ooc" in run4:
-        long_path, want_long = run4["long_ooc"]
+    long_run = {}
+    if "long_ooc" in ref:
+        long_path, want_long = ref["long_ooc"]
         cl = Classifier.with_shared_db(c)
         lp = (os.path.join(db_dir, "kraken_ooc_long.out"), os.path.join(db_dir, "report_ooc_long.tsv"))
         rl_s, _, rl_launches, _ = timed_run(cl, long_path, *lp)
         with open(lp[0], "rb") as f:
             if f.read() != want_long or cl.n_long_reads != N_LONG_OOC:
                 raise AssertionError("out-of-core long reads differ from phase 11's lines for them")
-        run4_long = {"reads": cl.n_long_reads, "run_s": rl_s, "launches": rl_launches}
+        long_run = {"reads": cl.n_long_reads, "run_s": rl_s, "launches": rl_launches}
         log(f"out of core, {cl.n_long_reads} long reads in {rl_s:.1f}s: byte-equal to phase 11's lines")
         del cl
 
-    # a warm reload: the chunk tables from the port's cache
-    t = time.time()
-    cw = Classifier([db_dir], ClassifyOptions(print_progress=False, device="cuda", preload_size=PRELOAD_SIZE))
-    warm_s = time.time() - t
-    wdb = cw._ooc[0]
-    if wdb.timings.get("cache") != "hit" or "build" in wdb.timings or wdb.bounds != cdb.bounds or not all(
-            torch.equal(a, b) for pa, pb in zip(wdb.chunk_planes, cdb.chunk_planes) for a, b in zip(pa, pb)):
-        raise AssertionError(f"the warm chunk load did not take the cached tables as built: {wdb.timings}")
-    warm_steps = wdb.timings
-    log(f"out of core, warm reload in {warm_s:.1f}s {warm_steps}: the cached chunk tables, bit-equal")
-    del cw, wdb
+    # a warm reload from the port's chunk cache, on a copy of the golden
+    # database (a warm reload of this one took ~41 s)
+    warm_s, warm_steps = ooc_warm_reload()
 
     upload = times["upload"]
     emit({
         "phase": "ooc",
-        "budget": PRELOAD_SIZE,
+        "budget": PRELOAD_SIZE_BUILT,
         "chunks": n_chunks,
         "chunk_bytes": chunk_bytes,
         "lr": cdb.lb,
@@ -3728,10 +3879,10 @@ def phase_ooc(run4, reps: int):
         "groups": c.ooc_groups,
         "load_s": load_s,
         "load_steps_s": cdb.timings,
-        "warm_load_s": warm_s,
-        "warm_load_steps_s": warm_steps,
+        "warm_reload_golden_copy_s": warm_s,
+        "warm_reload_golden_copy_steps_s": warm_steps,
         "reads_per_s": c.total_sequences / run_s,
-        "reads_per_s_phase4": run4["reads_per_s"],
+        "reads_per_s_reference": ref["reads_per_s"],
         **run1,
         "upload_ms_per_chunk": st_.median(upload) if upload else None,
         "upload_gb_per_s": chunk_bytes / st_.median(upload) / 1e6 if upload else None,
@@ -3741,10 +3892,10 @@ def phase_ooc(run4, reps: int):
         **passes,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-        "equal_to_phase4": True,
+        "equal_to_reference": True,
         "device_counters_run": run2,
         "single_buffered_run": run3,
-        "long_reads_run": run4_long,
+        "long_reads_run": long_run,
     })
     del c
     torch.cuda.empty_cache()
@@ -4313,10 +4464,12 @@ def phase_exact(run4):
 
 
 def phase_uid(run4, reps: int):
-    """UID databases at full size (--uid-mapping): phase 4's key set under
-    the UID values of ensure_uid_db, loaded cold by Classifier(...,
-    uid_database=True) (the port's caches of uid_database.kdb removed
-    first: a raw two-level table of 3.2 GB on the card). Phase 4's first
+    """UID databases (--uid-mapping): phase 4's genome keys under the UID
+    values of write_uid_db, in uid_genome_dir beside phase 4's database,
+    loaded cold by Classifier(..., uid_database=True) (the port's caches of
+    uid_database.kdb removed first: a raw two-level table of 201 MB on the
+    card; all 111M keys of phase 4 make a 3.2 GB one, which only
+    --uid-ooc-only loads). Phase 4's first
     N_READS_UID reads on the span route: at least 99% called as their
     species, rows_probe, kmer_front, scores and pack_runs once a span and
     chd_probe never, no Python-route unit; a --device-counters run byte-equal
@@ -4331,13 +4484,13 @@ def phase_uid(run4, reps: int):
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
     from krakenuniq_tpu_torch.classify.device_step import kmer_front_words
 
-    db_dir = os.path.dirname(run4["kraken"])
+    db_dir = uid_genome_dir(os.path.dirname(run4["kraken"]))
     t = time.time()
     if run4["synth"] is not None:  # the synthesis process writes it while phase 4 runs
         uid_write_s = finish_uid_synthesis(run4["synth"])
         log(f"waited {time.time() - t:.1f}s for the UID database ({uid_write_s:.1f}s of synthesis)")
     else:
-        uid_write_s = ensure_uid_db(db_dir, run4["genomes"])
+        uid_write_s = ensure_uid_genome_db(os.path.dirname(run4["kraken"]), run4["genomes"])
     reads = head_reads(run4["reads"], N_READS_UID)
     remove_port_caches(db_dir, "uid_database.kdb")
     t = time.time()
@@ -4453,6 +4606,592 @@ def phase_uid(run4, reps: int):
     return rec, launches
 
 
+# ----------------------------------------------------------------- phase 14
+
+
+def build_dir(n_species, genome_len, pad_nodes) -> str:
+    """Phase 14's database directory under the port's _build/: phase 4's
+    genomes as a library and its taxonomy as NCBI dumps, built there by the
+    port's build CLI."""
+    return os.path.join(ROOT, "krakenuniq_tpu_torch", "_build", f"build_db_{n_species}_{genome_len}_{pad_nodes}")
+
+
+def write_build_inputs(d: str, genomes, tax) -> None:
+    """Phase 14's inputs: library/genomes.fna (one line a genome, seqid
+    g<taxid>) with library/genomes.map, and taxonomy/{names,nodes}.dmp
+    written from phase 4's taxonomy by the port's dump-taxdb tool; the
+    marker `inputs.done` last."""
+    from krakenuniq_tpu_torch.cli.tools import dump_taxdb_main
+
+    t = time.time()
+    for sub in ("library", "taxonomy"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    with open(os.path.join(d, "library", "genomes.fna"), "w") as f, \
+            open(os.path.join(d, "library", "genomes.map"), "w") as m:
+        for sid in sorted(genomes):
+            f.write(f">g{sid}\n{genomes[sid]}\n")
+            m.write(f"g{sid}\t{sid}\n")
+    src = os.path.join(d, "taxDB.phase4")
+    tax.write_taxdb(src)
+    dump_taxdb_main([src, os.path.join(d, "taxonomy", "names.dmp"), os.path.join(d, "taxonomy", "nodes.dmp")])
+    os.unlink(src)
+    open(os.path.join(d, "inputs.done"), "w").close()
+    log(f"build inputs written: {len(genomes)} genomes, {tax.size} taxonomy nodes in {time.time() - t:.1f}s")
+
+
+def genome_keys(genomes, k: int):
+    """Phase 4's genome keys made again from its genomes as make_demo_db
+    makes them: (keys sorted, each key's value (its first genome's species,
+    make_demo_db's tie rule), keys held by more than one species, the number
+    of distinct forward k-mers)."""
+    from krakenuniq_tpu_torch.utils.bits import canonical_representation
+    from krakenuniq_tpu_torch.utils.demo import _host_pack_windows
+
+    species = np.asarray(sorted(genomes), dtype=np.uint32)
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    codes = np.stack([lut[np.frombuffer(genomes[int(s)].encode(), np.uint8)] for s in species])
+    fwd = _host_pack_windows(codes, k)
+    flat = np.sort(fwd, axis=None)
+    n_fwd = int(1 + np.count_nonzero(flat[1:] != flat[:-1]))
+    del flat
+    kmers = canonical_representation(fwd.reshape(-1), k)
+    sp = np.repeat(np.arange(len(species), dtype=np.uint32), fwd.shape[1])
+    order = np.argsort(kmers, kind="stable")  # species ascend along the array: lexsort((sp, kmers))
+    skeys, ssp = kmers[order], sp[order]
+    first = np.concatenate([[True], skeys[1:] != skeys[:-1]])
+    starts = np.flatnonzero(first)
+    # a key held by two species: its segment's last species differs from its first
+    last = np.concatenate([starts[1:], [len(skeys)]]) - 1
+    shared = skeys[starts][ssp[last] != ssp[starts]]
+    return skeys[starts], species[ssp[starts]], shared, n_fwd
+
+
+class _Rss:
+    """Peak resident set of this process while a block runs (sampled from
+    /proc/self/statm every 20 ms on a thread)."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self.read()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def read(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def sample(self):
+        while not self.stop.wait(0.02):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+@contextlib.contextmanager
+def build_clock(after_taxdb=None, after_load=None, after_simulate=None):
+    """Time what build_main and the accuracy loop call: wraps the taxDB
+    step (Taxonomy.from_ncbi_dumps, write_taxdb), the LCA build
+    (stream_database_to_dir, with the peak RSS), step 6b (the classify CLI's
+    main, every launch counter reset just before and read just after), the
+    Classifier's load (__init__), run and write_report, the UID build, and
+    the accuracy loop's simulation and grading. Yields a dict: "steps" maps
+    each label to its calls' (start, end, result), "launches" the counters
+    after step 6b, "classifiers" each Classifier made, "rss" the LCA
+    build's (start, peak) bytes. `after_taxdb`, `after_load` and
+    `after_simulate` are called when the taxDB step has written taxDB, when
+    a Classifier has loaded and when the accuracy loop's simulation has
+    ended."""
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.build import db_build, uid_build
+    from krakenuniq_tpu_torch.classify import pipeline
+    from krakenuniq_tpu_torch.cli import main as cli_main
+    from krakenuniq_tpu_torch.report import accuracy
+    from krakenuniq_tpu_torch.taxonomy import Taxonomy
+
+    clock = {"steps": {}, "launches": None, "classifiers": [], "rss": None}
+
+    def timed(label, fn, before=None, after=None):
+        def wrapper(*a, **kw):
+            if before is not None:
+                before()
+            t = time.time()
+            if label == "lca":
+                with _Rss() as rss:
+                    out = fn(*a, **kw)
+                clock["rss"] = (rss.start, rss.peak)
+            else:
+                out = fn(*a, **kw)
+            if after is not None:
+                after()
+            clock["steps"].setdefault(label, []).append((t, time.time(), out))
+            return out
+        return wrapper
+
+    def reset():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        _kernels.reset_launches()
+
+    def read():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        clock["launches"] = dict(_kernels.LAUNCHES)
+
+    init = pipeline.Classifier.__init__
+
+    def init_wrapper(self, *a, **kw):
+        init(self, *a, **kw)
+        clock["classifiers"].append(self)
+        if after_load is not None:
+            after_load()
+
+    patches = [
+        (Taxonomy, "from_ncbi_dumps", classmethod(timed("from_dumps", Taxonomy.from_ncbi_dumps.__func__))),
+        (Taxonomy, "write_taxdb", timed("write_taxdb", Taxonomy.write_taxdb, after=after_taxdb)),
+        (db_build, "stream_database_to_dir", timed("lca", db_build.stream_database_to_dir)),
+        (cli_main, "main", timed("6b", cli_main.main, reset, read)),
+        (pipeline.Classifier, "__init__", timed("load", init_wrapper)),
+        (pipeline.Classifier, "run", timed("classify", pipeline.Classifier.run)),
+        (pipeline.Classifier, "write_report", timed("report", pipeline.Classifier.write_report)),
+        (uid_build, "build_uid_database", timed("uid", uid_build.build_uid_database)),
+        (accuracy, "write_simulated_fasta", timed("simulate", accuracy.write_simulated_fasta, after=after_simulate)),
+        (accuracy, "grade", timed("grade", accuracy.grade)),
+    ]
+    saved = [(obj, name, obj.__dict__[name]) for obj, name, _ in patches]
+    try:
+        for obj, name, new in patches:
+            setattr(obj, name, new)
+        yield clock
+    finally:
+        for obj, name, old in saved:
+            setattr(obj, name, old)
+
+
+def seconds(clock, label: str, i: int = 0) -> float:
+    start, end, _ = clock["steps"][label][i]
+    return end - start
+
+
+def first_difference(got_path: str, want_path: str, reads: str, k: int) -> str:
+    """Where two kraken outputs part: the first differing line of each and,
+    from the read's sequence, the first k-mer whose hit differs."""
+    from krakenuniq_tpu_torch.utils.bits import canonical_representation
+
+    with open(got_path) as g, open(want_path) as w:
+        for i, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                break
+        else:
+            return "one output is a prefix of the other"
+    with open(reads) as f:
+        for j, line in enumerate(f):
+            if j == 2 * i + 1:
+                seq = line.strip()
+                break
+    ha, hb = expand_hitlist(a.rstrip("\n").split("\t")[4]), expand_hitlist(b.rstrip("\n").split("\t")[4])
+    n = min(len(ha), len(hb))
+    diff = np.flatnonzero(ha[:n] != hb[:n])
+    pos = int(diff[0]) if len(diff) else 0
+    fwd = 0
+    for ch in seq[pos:pos + k]:
+        fwd = (fwd << 2) | "ACGT".index(ch)
+    kmer = int(canonical_representation(np.asarray([fwd], np.uint64), k)[0])
+    return f"line {i + 1}: {a.strip()!r} against {b.strip()!r}; k-mer {pos} (canonical {kmer}): {ha[pos]} against {hb[pos]}"
+
+
+def report_table(path: str, cols) -> dict:
+    """{taxid: the row's fields at cols} of a Classifier report's data rows."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            fields = line.rstrip("\n").split("\t")
+            if len(fields) > 6 and fields[6].isdigit():
+                out[int(fields[6])] = tuple(fields[c] for c in cols)
+    return out
+
+
+def run_tools(db_dir: str, kraken: str, report: str, reads: str) -> dict:
+    """The post-processing tools at full size on phase 4's outputs, each
+    through its function in krakenuniq_tpu_torch.report, each timed and
+    checked: report (read and clade counts equal to phase 4's report's),
+    translate plain and --mpa-format (a line for each classified read, in
+    input order), mpa-report (its species rows' counts equal to phase 4's
+    clade counts of the species), filter (a line for each read, in input
+    order) and extract-reads of the most-called species (exactly the reads
+    whose lines call it). Returns {tool: {"s", "rows"}}."""
+    from collections import Counter
+
+    from krakenuniq_tpu_torch.report.extract_reads import extract_reads
+    from krakenuniq_tpu_torch.report.postprocess import basic_report, filter_output, mpa_report, translate
+
+    with open(kraken) as f:
+        ids, calls, classified = [], [], []
+        for line in f:
+            st, rid, call = line.split("\t", 3)[:3]
+            ids.append(rid)
+            calls.append(int(call))
+            classified.append(st == "C")
+    c_ids = [r for r, c in zip(ids, classified) if c]
+    out, recs = {}, {}
+    want = {t: v for t, v in report_table(report, (1, 2)).items() if v != ("0", "0")}
+    path = os.path.join(os.path.dirname(kraken), "tool_out.txt")
+
+    def run(name, call):
+        t = time.time()
+        with open(path, "w") as fh:
+            res = call(fh)
+        s = time.time() - t
+        with open(path) as fh:
+            rows = fh.read().splitlines()
+        out[name] = {"s": s, "rows": len(rows)}
+        recs[name] = (res, rows)
+        log(f"tool {name}: {len(rows)} rows in {s:.1f}s")
+        return rows
+
+    rows = run("report", lambda fh: basic_report(db_dir, [kraken], fh))
+    got = {int(r.split("\t")[4]): (r.split("\t")[1], r.split("\t")[2]) for r in rows}
+    got = {t: v for t, v in got.items() if v != ("0", "0")}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+        raise AssertionError(f"report: read and clade counts differ from phase 4's report: {bad}")
+    for name, mpa in (("translate", False), ("translate --mpa-format", True)):
+        rows = run(name, lambda fh: translate(db_dir, [kraken], fh, mpa_format=mpa))
+        if [r.split("\t", 1)[0] for r in rows] != c_ids:
+            raise AssertionError(f"{name}: not a line for each classified read in input order")
+    rows = run("mpa-report", lambda fh: mpa_report(db_dir, [kraken], fh))
+    species = {t: v[0] for t, v in want.items() if t >= 10_000_000}  # phase 4's species ids
+    s_rows = sorted(int(r.rsplit("\t", 1)[1]) for r in rows if "|s__" in r)
+    if s_rows != sorted(int(v) for v in species.values()):
+        raise AssertionError("mpa-report: its species rows' counts differ from phase 4's clade counts")
+    rows = run("filter", lambda fh: filter_output(db_dir, [kraken], fh, threshold=0.5))
+    if [r.split("\t", 2)[1] for r in rows] != ids:
+        raise AssertionError("filter: not a line for each read in input order")
+    top = Counter(calls).most_common(1)[0][0]
+    rows = run("extract-reads", lambda fh: extract_reads([top], kraken, reads, fh, fasta_input=True))
+    got_ids = [r[1:] for r in rows if r.startswith(">")]
+    want_ids = [r for r, c in zip(ids, calls) if c == top]
+    if got_ids != want_ids or recs["extract-reads"][0] != len(want_ids):
+        raise AssertionError(f"extract-reads {top}: {len(got_ids)} reads, {len(want_ids)} lines call it")
+    out["extract-reads"]["taxid"] = top
+    os.unlink(path)
+    return out
+
+
+def _tools_child(queue, paths) -> None:
+    """The body of start_tools' process: run_tools on phase 4's outputs;
+    puts its result."""
+    queue.put(run_tools(*paths))
+
+
+def start_tools(run4):
+    """Start phase 14's tools (host numpy and Python, no card) on phase 4's
+    outputs in a child process beside phases 5-13; phase_build waits for it
+    (finish_tools). Returns (process, queue)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    paths = (os.path.dirname(run4["kraken"]), run4["kraken"], run4["report"], run4["reads"])
+    proc = ctx.Process(target=_tools_child, args=(queue, paths), daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def table_digest(planes) -> str:
+    """sha256 over a table's planes, fetched to the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(p.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _accuracy_child(queue, taxdb_ready, cache_ready, d: str, device: str, n_reads: int, error: float) -> None:
+    """The body of start_accuracy's process: simulate_and_grade on the built
+    database with every launch counter reset just before; puts ("reads",
+    path) when the reads are written. Its Classifier reads taxDB once the
+    build has written it (`taxdb_ready`) and the table once step 6b has
+    loaded the database and written its table cache (`cache_ready`), so that
+    it loads warm; puts the loop's result, its waits apart."""
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import ClassifyOptions, pipeline
+    from krakenuniq_tpu_torch.report.accuracy import simulate_and_grade
+
+    work = os.path.join(d, "accuracy")
+    waits = {"taxdb": 0.0, "cache": 0.0}
+
+    def gated(fn, event, what):
+        def wrapper(*a, **kw):
+            t = time.time()
+            if not event.wait(timeout=1800):
+                raise RuntimeError(f"the build never got to {what}")
+            waits[what] += time.time() - t
+            return fn(*a, **kw)
+        return wrapper
+
+    read_taxdb = pipeline.Taxonomy.__dict__["from_taxdb_file"]
+    pipeline.Taxonomy.from_taxdb_file = classmethod(gated(read_taxdb.__func__, taxdb_ready, "taxdb"))
+    pipeline.load_database_dir = gated(pipeline.load_database_dir, cache_ready, "cache")
+    _kernels.reset_launches()
+    t = time.time()
+    with build_clock(after_simulate=lambda: queue.put(("reads", os.path.join(work, "simulated.fa")))) as clock:
+        stats, files = simulate_and_grade(d, work, n_reads=n_reads, read_len=150, error_rate=error, seed=1,
+                                          classify_options=ClassifyOptions(print_progress=False, device=device))
+    loop_s = time.time() - t
+    db = clock["classifiers"][0].dbs[0]
+    queue.put({
+        "stats": stats, "files": files, "loop_s": loop_s, "launches": dict(_kernels.LAUNCHES),
+        **{f"{k}_s": seconds(clock, k) for k in ("simulate", "classify", "grade")},
+        "load_s": seconds(clock, "load") - sum(waits.values()), "waits_s": waits,
+        "load_steps_s": db.timings, "table_digest": table_digest(db.hash_table),
+    })
+
+
+def start_accuracy(d: str, device: str):
+    """Start phase 14's accuracy loop (simulate_and_grade on the card) in a
+    child process beside the build: its reads' simulation and taxonomy read
+    beside the build's first steps (set the first returned event when taxDB
+    is written), its table once step 6b has loaded the database (the
+    second), and its grading (Python loops) beside the rest of the build and
+    the main process's checks. Returns ((process, queue), taxDB event,
+    table event)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue, taxdb_ready, cache_ready = ctx.Queue(), ctx.Event(), ctx.Event()
+    proc = ctx.Process(target=_accuracy_child, daemon=True,
+                       args=(queue, taxdb_ready, cache_ready, d, device, N_SIM_READS, SIM_ERROR))
+    proc.start()
+    return (proc, queue), taxdb_ready, cache_ready
+
+
+def phase_build(run4, tools=None, device: str = "cuda") -> tuple[dict, dict]:
+    """The build and the host tools (phase 14). Phase 4's genomes and
+    taxonomy (written as library/genomes.fna + .map and NCBI dumps by the
+    synthesis process) built by the port's build CLI (`build_main([--db D,
+    --kmer-len 31, --minimizer-len 12, --uid-database])`): each step's
+    seconds, the LCA build's keys/s and peak RSS, step 6b's launches (every
+    counter reset just before it; kmer_front, chd_probe, scores and
+    pack_runs must launch) and route; the built kdb against phase 4's
+    genome keys and species, the built taxDB against phase 4's, every
+    library sequence self-called as its species. The accuracy loop
+    (simulate_and_grade, N_SIM_READS reads at SIM_ERROR substitutions) runs
+    in a child process beside the build, its load after step 6b's: a warm
+    load (step 6b's cached table, the same bytes), within
+    tests/test_simulated_accuracy.py's bounds. Meanwhile phase 4's reads against the built database (on step
+    6b's loaded tables), kraken output byte-equal to phase 4's and the
+    report equal outside cov; the loop's reads against the built UID
+    database, the same calls; count-unique on the library; the tools'
+    results from start_tools' process. Emits one `tools` line; returns
+    its dict and the run of phase 4's reads against the built database
+    (the reference of phases 7-10 and 8, which run on that database: the
+    keys of `run`, phase 4's)."""
+    import shutil
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.cli.build_main import main as build_main
+    from krakenuniq_tpu_torch.cli.tools import count_unique_main
+    from krakenuniq_tpu_torch.formats import read_kdb
+
+    k = 31
+    cuda = device == "cuda"
+    d = build_dir(N_SPECIES, GENOME_LEN, PAD_NODES)
+    if not os.path.exists(os.path.join(d, "inputs.done")):  # no synthesis process wrote them
+        from krakenuniq_tpu_torch.utils.demo import make_demo_taxonomy
+
+        write_build_inputs(d, run4["genomes"], make_demo_taxonomy(N_SPECIES, 10_000_000, PAD_NODES)[0])
+    for name in os.listdir(d):  # a directory kept from an earlier run: start from the inputs
+        if name not in ("library", "taxonomy", "inputs.done"):
+            path = os.path.join(d, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.unlink(path)
+
+    # the build, step by step, beside the accuracy loop's process: its load
+    # waits for step 6b's
+    acc, taxdb_ready, cache_ready = start_accuracy(d, device)
+    t = time.time()
+    with build_clock(after_taxdb=taxdb_ready.set, after_load=cache_ready.set) as clock:
+        rc = build_main(["--db", d, "--kmer-len", str(k), "--minimizer-len", "12", "--uid-database",
+                         "--device", device])
+    build_s = time.time() - t
+    if rc != 0:
+        raise AssertionError(f"build_main returned {rc}")
+    st = clock["steps"]
+    lca = st["lca"][0][2]
+    cold = clock["classifiers"][0]
+    split = {
+        "taxdb_s": st["write_taxdb"][0][1] - st["from_dumps"][0][0],
+        "seqid_map_s": st["lca"][0][0] - st["write_taxdb"][0][1],
+        "lca_s": seconds(clock, "lca"),
+        "counts_s": st["6b"][0][0] - st["lca"][0][1],
+        "step_6b_s": seconds(clock, "6b"),
+        "step_6b_load_s": seconds(clock, "load"),
+        "step_6b_classify_s": seconds(clock, "classify"),
+        "step_6b_report_s": seconds(clock, "report"),
+        "uid_s": seconds(clock, "uid"),
+        "total_s": build_s,
+    }
+    launches_6b, rss = clock["launches"], clock["rss"]
+    step_6b = {"route": cold.route, "spans": cold.n_spans, "units": cold.n_units, "long_reads": cold.n_long_reads,
+               "load_steps_s": cold.dbs[0].timings, "launches": launches_6b}
+    log(f"built {lca['key_ct']} keys in {build_s:.1f}s {split}; 6b on the {cold.route} route, launches {launches_6b}")
+    missing = [n for n in ("kmer_front", "chd_probe", "scores", "pack_runs") if cuda and not launches_6b[n]]
+    if missing:
+        raise AssertionError(f"step 6b launched no {missing} kernel: {launches_6b}")
+    if cold.dbs[0].timings.get("cache") != "miss":
+        raise AssertionError(f"step 6b's load was not a cold build: {cold.dbs[0].timings}")
+    cold_digest = table_digest(cold.dbs[0].hash_table)
+
+    # the built database against phase 4's genome keys and tree
+    t = time.time()
+    _, bkeys, bvals = read_kdb(os.path.join(d, "database.kdb"))
+    gkeys, gvals, shared, n_fwd = genome_keys(run4["genomes"], k)
+    order = np.argsort(bkeys)
+    bkeys, bvals = np.asarray(bkeys)[order], np.asarray(bvals)[order]
+    if not np.array_equal(bkeys, gkeys):
+        raise AssertionError(f"built keys differ from phase 4's genome keys: {len(bkeys)} against {len(gkeys)}, "
+                             f"{len(np.setxor1d(bkeys, gkeys))} in one only")
+    differ = np.flatnonzero(bvals != gvals)
+    tie = np.isin(bkeys[differ], shared)
+    if not tie.all():
+        bad = differ[~tie][:5]
+        raise AssertionError(f"built values differ from phase 4's species off the shared keys: "
+                             f"{list(zip(bkeys[bad].tolist(), bvals[bad].tolist(), gvals[bad].tolist()))}")
+    with open(os.path.join(d, "taxDB"), "rb") as f, \
+            open(os.path.join(os.path.dirname(run4["kraken"]), "taxDB"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the built taxDB differs from phase 4's")
+    with open(os.path.join(d, "database.kraken.tsv")) as f:
+        self_calls = [line.split("\t")[:3] for line in f]
+    if len(self_calls) != len(run4["genomes"]) or any(s != "C" or r != f"g{c}" for s, r, c in self_calls):
+        raise AssertionError(f"step 6b: {len(self_calls)} lines, not every library sequence called as its species")
+    check_s = time.time() - t
+    log(f"built kdb: {len(bkeys)} keys = phase 4's genome keys, {len(shared)} held by two species "
+        f"({int(tie.sum())} of them the LCA where phase 4 keeps the first genome); taxDB byte-equal; "
+        f"{len(self_calls)} library sequences called as their species ({check_s:.1f}s)")
+    del bkeys, bvals, gkeys, gvals
+
+    # phase 4's reads against the built database, on step 6b's tables
+    c = Classifier.with_shared_db(cold, print_progress=False)
+    del cold, clock
+    out_path, rep_path = os.path.join(d, "kraken_phase4.out"), os.path.join(d, "report_phase4.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, rep_path)
+    with open(out_path, "rb") as f, open(run4["kraken"], "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("phase 4's reads against the built database: " +
+                                 first_difference(out_path, run4["kraken"], run4["reads"], k))
+    cols = (0, 1, 2, 3, 4, 7, 8)  # all but cov: the built database holds no ballast keys
+    if report_table(rep_path, cols) != report_table(run4["report"], cols):
+        raise AssertionError("phase 4's reads against the built database: the report differs outside cov")
+    log(f"phase 4's reads against the built database: {run_s:.1f}s, kraken output byte-equal, report equal "
+        f"outside cov")
+    built_run = {"reads": run4["reads"], "kraken": out_path, "report": rep_path, "reads_per_s": N_READS / run_s,
+                 "genomes": run4["genomes"], "synth": None,
+                 **{key: run4[key] for key in ("long_ooc",) if key in run4}}
+    del c
+    gc.collect()
+
+    # the loop's reads against the built UID database
+    sim_reads = _child_next(acc, "the accuracy loop's process")[1]
+    opts = ClassifyOptions(print_progress=False, device=device)
+    t = time.time()
+    cu = Classifier([d], opts, uid_database=True)
+    uid_load_s = time.time() - t
+    uid_out, uid_rep = os.path.join(d, "accuracy", "uid.kraken.tsv"), os.path.join(d, "accuracy", "uid.report.tsv")
+    with contextlib.redirect_stderr(io.StringIO()):  # the report names every UID with no taxon
+        uid_run_s, _, uid_launches, _ = timed_run(cu, sim_reads, uid_out, uid_rep)
+    if (cuda and not uid_launches["rows_probe"]) or not cu.dbs[0].store_raw:
+        raise AssertionError(f"UID database: store_raw {cu.dbs[0].store_raw}, launches {uid_launches}")
+    del cu
+
+    # count-unique on the library
+    t = time.time()
+    old_in, old_out = sys.stdin, sys.stdout
+    with open(os.path.join(d, "library", "genomes.fna")) as lib:
+        sys.stdin, sys.stdout = lib, io.StringIO()
+        try:
+            count_unique_main(["-k", str(k)])
+            estimate = int(sys.stdout.getvalue())
+        finally:
+            sys.stdin, sys.stdout = old_in, old_out
+    cu_s = time.time() - t
+    if abs(estimate - n_fwd) > 0.05 * n_fwd:
+        raise AssertionError(f"count-unique: {estimate} against {n_fwd} distinct k-mers")
+
+    # the accuracy loop's result, then the UID calls against its calls
+    t = time.time()
+    loop = _synth_result(acc, "the accuracy loop's process")
+    log(f"waited {time.time() - t:.1f}s for the accuracy loop's process")
+    stats = loop["stats"]
+    sens, prec = stats["sensitivity"]["species"], stats["precision"]["species"]
+    if stats["total_reads"] != N_SIM_READS or sens < 75.0 or prec < 98.0:
+        raise AssertionError(f"accuracy loop: {stats['total_reads']} reads, species sensitivity {sens}, "
+                             f"precision {prec}")
+    if loop["load_steps_s"].get("cache") != "hit" or "build" in loop["load_steps_s"] or \
+            loop["table_digest"] != cold_digest:
+        raise AssertionError(f"the accuracy loop's load did not take step 6b's table as it was built: "
+                             f"{loop['load_steps_s']}")
+    log(f"accuracy loop: {N_SIM_READS} reads in {loop['loop_s']:.1f}s, species sensitivity {sens:.3f}%, precision "
+        f"{prec:.3f}%, {N_SIM_READS / loop['classify_s']:.0f} reads/s; a warm load of step 6b's table")
+    with open(uid_out) as f, open(loop["files"]["kraken"]) as g:
+        uid_calls = [line.split("\t")[2] for line in f]
+        lca_calls = [line.split("\t")[2] for line in g]
+    if uid_calls != lca_calls:
+        raise AssertionError(f"UID database: {sum(a != b for a, b in zip(uid_calls, lca_calls))} of "
+                             f"{len(uid_calls)} calls differ from the LCA database's")
+    log(f"UID database: {len(uid_calls)} calls equal to the LCA database's, {uid_run_s:.1f}s after a "
+        f"{uid_load_s:.1f}s load")
+
+    if tools is not None:
+        t = time.time()
+        tools_out = _synth_result(tools, "the tools' process")
+        log(f"waited {time.time() - t:.1f}s for the tools' process")
+    else:
+        tools_out = run_tools(os.path.dirname(run4["kraken"]), run4["kraken"], run4["report"], run4["reads"])
+    tools_out["count-unique"] = {"s": cu_s, "rows": 1, "estimate": estimate, "distinct_kmers": n_fwd}
+
+    rec = {
+        "phase": "tools",
+        "library_sequences": len(run4["genomes"]),
+        "library_bp": sum(len(g) for g in run4["genomes"].values()),
+        "keys": lca["key_ct"],
+        "keys_shared": len(shared),
+        "build_s": split,
+        "lca_keys_per_s": lca["key_ct"] / split["lca_s"],
+        "lca_rss_start_gb": rss[0] / 1e9,
+        "lca_rss_peak_gb": rss[1] / 1e9,
+        "build_memory_bytes": lca["memory_budget"],
+        "step_6b": step_6b,
+        "check_s": check_s,
+        "phase4_reads": {
+            "reads": N_READS, "run_s": run_s, "classify_s": classify_s, "reads_per_s": N_READS / run_s,
+            "launches": launches, "max_memory_allocated_gb": peak / 1e9,
+        },
+        "accuracy": {
+            "reads": N_SIM_READS, "read_len": 150, "error_rate": SIM_ERROR,
+            **{key: loop[key] for key in ("loop_s", "simulate_s", "load_s", "waits_s", "load_steps_s", "classify_s",
+                                          "grade_s", "launches")},
+            "reads_per_s": N_SIM_READS / loop["classify_s"], "unidentified": stats["unidentified"],
+            "sensitivity": stats["sensitivity"], "precision": stats["precision"],
+        },
+        "uid": {"load_s": uid_load_s, "run_s": uid_run_s, "reads_per_s": N_SIM_READS / uid_run_s,
+                "launches": uid_launches},
+        "tool_s": tools_out,
+    }
+    emit(rec)
+    return rec, built_run
+
+
 def phase_probe():
     """The probe tool's sweep through its entry point's function."""
     from krakenuniq_tpu_torch import _kernels
@@ -4557,6 +5296,7 @@ def main(argv=None) -> int:
     uid_ooc_launches = phase_uid_goldens()
     fb_launches = phase_fallback_goldens()
     recs, launches, main_run = phase_main(reps=50, synth=synth)
+    tools = start_tools(main_run)  # host only, beside phases 5-13
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
     phase_counters(main_run, reps=20)
     phase_long_reads(main_run, reps=20)
@@ -4567,11 +5307,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4's classifier released: {torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated")
-    recs["span_dict"], dict_launches = phase_dense_ids(main_run, reps=20)
-    bs_recs, bs_launches = phase_bsearch(main_run, reps=20)
-    fused_rec, fused_launches = phase_fused(main_run, reps=20)
-    recs["chd_probe_acc"], ooc_launches = phase_ooc(main_run, reps=20)
-    recs["rows_probe"], uid_launches = phase_uid(main_run, reps=20)
+    with shared_taxonomy():
+        recs["rows_probe"], uid_launches = phase_uid(main_run, reps=20)
+    _, built_run = phase_build(main_run, tools)
+    # the fallbacks and out of core on the built database (phase 4's genome
+    # keys), against its run of phase 4's reads
+    with shared_taxonomy():
+        recs["span_dict"], dict_launches = phase_dense_ids(built_run, reps=20)
+        bs_recs, bs_launches = phase_bsearch(built_run, reps=20)
+        fused_rec, fused_launches = phase_fused(built_run, reps=20)
+        recs["chd_probe_acc"], ooc_launches = phase_ooc(built_run, reps=20)
     recs["rows_probe_acc"] = rows_acc_rec
     probe_launches = phase_probe()
     recs.update(sc_recs)

@@ -48,6 +48,10 @@ def test_every_module_imports_without_jax():
     assert "krakenuniq_tpu_torch.tools.probe_gather" in mods
     assert "krakenuniq_tpu_torch.parallel.partition" in mods
     assert "krakenuniq_tpu_torch.db.chunked" in mods
+    for m in ("build.db_build", "build.download", "build.uid_build", "cli.tools", "cli.build_main",
+              "cli.download_main", "report.accuracy", "report.postprocess", "report.extract_reads",
+              "report.grade", "formats.seqmap", "utils.simulate"):
+        assert f"krakenuniq_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -88,6 +92,38 @@ def test_cuda_without_card_raises():
     data = os.path.join(ROOT, "tests", "golden", "data")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Classifier([data], ClassifyOptions(print_progress=False, device="cuda"))
+
+
+@pytest.mark.parametrize("entry", ["build_main", "simulate_and_grade"])
+def test_build_and_accuracy_default_to_the_card(entry, tmp_path):
+    """The build's step 6b and the accuracy loop classify on the card unless
+    asked for the CPU: with no card, their defaults raise as the
+    Classifier's do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the card-less behaviour")
+    data = os.path.join(ROOT, "tests", "golden", "data")
+    if entry == "build_main":
+        from krakenuniq_tpu_torch.cli.build_main import main
+
+        db = tmp_path / "DB"
+        (db / "library").mkdir(parents=True)
+        shutil.copy(os.path.join(data, "library.fna"), db / "library")
+        shutil.copy(os.path.join(data, "seqid2taxid.map"), db / "library" / "library.map")
+        shutil.copytree(os.path.join(data, "taxonomy"), db / "taxonomy")
+        argv = ["--db", str(db), "--kmer-len", "21", "--minimizer-len", "7"]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        # the failed step 6b leaves no report header behind (F9): a rerun on
+        # the CPU runs it
+        assert (db / "database.kdb").exists() and not (db / "database.report.tsv").exists()
+        assert main(argv + ["--device", "cpu"]) == 0
+        assert (db / "database.kraken.tsv").read_text().count("\n") == 5
+    else:
+        from krakenuniq_tpu_torch.report.accuracy import simulate_and_grade
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            simulate_and_grade(data, str(tmp_path), library_fastas=[os.path.join(data, "library.fna")],
+                               n_reads=10)
 
 
 def test_kernel_wrappers_refuse_cpu_launch():
