@@ -138,8 +138,9 @@ Phases, each raising on failure:
      load those), one reload, its `.ht_dense_torch` cache removed first (a cold dense
      build): dense ids over the 2.4M-node taxonomy on the span route with
      the per-span taxon dictionary (span_dict once per span), byte-equal to
-     phase 14's run of phase 4's reads on that database (whose kraken
-     output is phase 4's; the reference of phases 7-10 and 8); one
+     phase 14's run of phase 4's first N_READS_SINGLE reads on that
+     database (whose kraken output is phase 4's lines for them; the
+     reference of phases 7-10 and 8, which take those reads); one
      span step against the plain one, its card time by operation, span_dict
      on its planes; then on the first 100,000 reads a dictionary of 64 ids
      (every span redispatched on the wide rows) and --device-counters under
@@ -223,8 +224,9 @@ Phases, each raising on failure:
      RSS, step 6b on the card with every launch counter reset just before
      it (kmer_front, chd_probe, scores and pack_runs launched); the built
      kdb equal to phase 4's genome keys and species, its taxDB to phase
-     4's, every library sequence called as its species; phase 4's reads
-     on step 6b's tables, byte-equal to phase 4 (the reference of phases
+     4's, every library sequence called as its species; phase 4's first
+     N_READS_SINGLE reads on step 6b's tables, byte-equal to phase 4's
+     lines and, outside cov, phase 5b's report (the reference of phases
      7-10 and 8, which follow on this database); the accuracy loop
      (simulate_and_grade: N_SIM_READS reads of 150 bp at SIM_ERROR
      substitutions, a warm load of step 6b's cached table) in a child
@@ -232,13 +234,26 @@ Phases, each raising on failure:
      bounds, and its reads against the built UID database, the same calls;
      count-unique on the library; report, translate (plain and
      --mpa-format), mpa-report, filter and extract-reads on phase 4's
-     outputs, in a child process beside phases 5-13; one `tools` line.
-Phases run in the order 1-5, 5b, 11, 12, 13, 14, 7, 9, 10, 8, 6; phases 13,
+     outputs, in a child process beside phases 5-13; one `tools` line;
+  15. meshes on the one card (parallel.mesh.spawn_mesh: one process a
+     rank, gloo between ranks that share a card): 15a a 1x2 mesh of phase
+     4's database, each rank building its minimizer shard cold, on phase
+     4's first N_READS_SINGLE reads, byte-equal to phase 4's lines and to
+     phase 5b's report of them, with each rank's load split, shard keys and
+     width, card ms a span (the step's CUDA events), db-merge ms a span,
+     peak device memory and launches (kmer_front, chd_probe, scores and
+     pack_runs once a span on every rank); 15b on the goldens, byte-equal
+     to them: 2x1, 1x2 out of core, UID 1x2, then in a 4-rank world 2x2,
+     2x2 with device counters (the update on rank 0 alone), 1x4, 2x2 out
+     of core and hierarchical 2x2; then a 2-way --multihost CLI run, both
+     hosts at once with the auto collect, on the goldens read 600 times,
+     byte-equal to the single-host run; one `mesh` line.
+Phases run in the order 1-5, 5b, 11, 12, 13, 14, 7, 9, 10, 8, 6, 15; phases 13,
 7, 9, 10 and 8 parse the 2.4M-node taxonomy once between them
 (shared_taxonomy). Progress goes to stderr; stdout carries one JSON line per
 kernel check, the fallback and UID goldens' lines, the summaries of phases 4,
 5, 5b, 11, 12, 13, 14, 7, 9, 10 and 8,
-one line per probe setting, the kernel table, the card line and, last, the
+one line per probe setting, the mesh line, the kernel table, the card line and, last, the
 device line.
 Exits non-zero without a result when no CUDA device (or no port) is present.
 """
@@ -275,7 +290,7 @@ N_READS = 1_000_000
 # its device-counters run and the reads of its single-buffered run
 PRELOAD_SIZE_BUILT = 64 << 20
 PRELOAD_SIZE = 512 << 20
-OOC_GROUP_BYTES = 256 << 20
+OOC_GROUP_BYTES = 64 << 20
 N_READS_SINGLE = 200_000
 # Long rows for phase 2: [64, LONG_LB], rows cut into tiles. (k, nt) = (31,
 # 12) and (31, 20) take the 4- and 8-byte values; at (21, 20) and (17, 16),
@@ -4989,14 +5004,14 @@ def phase_build(run4, tools=None, device: str = "cuda") -> tuple[dict, dict]:
     (simulate_and_grade, N_SIM_READS reads at SIM_ERROR substitutions) runs
     in a child process beside the build, its load after step 6b's: a warm
     load (step 6b's cached table, the same bytes), within
-    tests/test_simulated_accuracy.py's bounds. Meanwhile phase 4's reads against the built database (on step
-    6b's loaded tables), kraken output byte-equal to phase 4's and the
-    report equal outside cov; the loop's reads against the built UID
+    tests/test_simulated_accuracy.py's bounds. Meanwhile phase 4's first N_READS_SINGLE reads against the
+    built database (on step 6b's loaded tables), kraken output byte-equal to phase 4's lines and the
+    report to phase 5b's outside cov; the loop's reads against the built UID
     database, the same calls; count-unique on the library; the tools'
     results from start_tools' process. Emits one `tools` line; returns
-    its dict and the run of phase 4's reads against the built database
-    (the reference of phases 7-10 and 8, which run on that database: the
-    keys of `run`, phase 4's)."""
+    its dict and the run of phase 4's first reads against the built
+    database (the reference of phases 7-10 and 8, which run on that
+    database: the keys of `run`, phase 4's)."""
     import shutil
 
     from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
@@ -5081,21 +5096,28 @@ def phase_build(run4, tools=None, device: str = "cuda") -> tuple[dict, dict]:
         f"{len(self_calls)} library sequences called as their species ({check_s:.1f}s)")
     del bkeys, bvals, gkeys, gvals
 
-    # phase 4's reads against the built database, on step 6b's tables
+    # phase 4's first N_READS_SINGLE reads against the built database, on
+    # step 6b's tables: phase 4's lines for them and, outside cov, phase
+    # 5b's report of them (phase 4's configuration). The reference of phases
+    # 7, 9, 10 and 8 (a cut of their depth, and of this run's, from phase
+    # 4's 1,000,000 reads, that keeps the script within its time limit
+    # beside phase 15)
     c = Classifier.with_shared_db(cold, print_progress=False)
     del cold, clock
-    out_path, rep_path = os.path.join(d, "kraken_phase4.out"), os.path.join(d, "report_phase4.tsv")
-    run_s, classify_s, launches, peak = timed_run(c, run4["reads"], out_path, rep_path)
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    out_path, rep_path = os.path.join(d, "kraken_phase4_sub.out"), os.path.join(d, "report_phase4_sub.tsv")
+    run_s, classify_s, launches, peak = timed_run(c, sub, out_path, rep_path)
     with open(out_path, "rb") as f, open(run4["kraken"], "rb") as g:
-        if f.read() != g.read():
-            raise AssertionError("phase 4's reads against the built database: " +
-                                 first_difference(out_path, run4["kraken"], run4["reads"], k))
+        if f.read() != b"".join(line for _, line in zip(range(N_READS_SINGLE), g)):
+            raise AssertionError("phase 4's first reads against the built database: " +
+                                 first_difference(out_path, run4["kraken"], sub, k))
     cols = (0, 1, 2, 3, 4, 7, 8)  # all but cov: the built database holds no ballast keys
-    if report_table(rep_path, cols) != report_table(run4["report"], cols):
-        raise AssertionError("phase 4's reads against the built database: the report differs outside cov")
-    log(f"phase 4's reads against the built database: {run_s:.1f}s, kraken output byte-equal, report equal "
-        f"outside cov")
-    built_run = {"reads": run4["reads"], "kraken": out_path, "report": rep_path, "reads_per_s": N_READS / run_s,
+    if report_table(rep_path, cols) != report_table(os.path.join(os.path.dirname(run4["kraken"]), "report_sub.tsv"),
+                                                    cols):
+        raise AssertionError("phase 4's first reads against the built database: the report differs outside cov")
+    log(f"phase 4's first {N_READS_SINGLE} reads against the built database: {run_s:.1f}s, kraken output "
+        "byte-equal to phase 4's lines, report equal to phase 5b's outside cov")
+    built_run = {"reads": sub, "kraken": out_path, "report": rep_path, "reads_per_s": N_READS_SINGLE / run_s,
                  "genomes": run4["genomes"], "synth": None,
                  **{key: run4[key] for key in ("long_ooc",) if key in run4}}
     del c
@@ -5174,7 +5196,8 @@ def phase_build(run4, tools=None, device: str = "cuda") -> tuple[dict, dict]:
         "step_6b": step_6b,
         "check_s": check_s,
         "phase4_reads": {
-            "reads": N_READS, "run_s": run_s, "classify_s": classify_s, "reads_per_s": N_READS / run_s,
+            "reads": N_READS_SINGLE, "run_s": run_s, "classify_s": classify_s,
+            "reads_per_s": N_READS_SINGLE / run_s,
             "launches": launches, "max_memory_allocated_gb": peak / 1e9,
         },
         "accuracy": {
@@ -5206,6 +5229,276 @@ def phase_probe():
                key=lambda r: r["m_rows_per_s"])
     log(f"probe sweep: {len(recs)} settings, best 16 B rate {best['m_rows_per_s']:.0f} M rows/s at S={best['depth']}")
     return launches
+
+
+# ----------------------------------------------------------------- phase 15
+
+
+def _mesh_jobs_rank(mesh, jobs, out_dir):
+    """One rank of a phase-15 world (parallel.mesh.spawn_mesh): each job
+    (label, database dirs, options, reads, uid) classified by a Classifier
+    of the job's mesh shape over this world; rank 0 writes the kraken output
+    and report to out_dir/<label>.out and .tsv, and every rank its numbers
+    to out_dir/<label>.rank<r>.json (load seconds and timings, the shard's
+    keys and width, spans, card ms a span from the step's CUDA events, the
+    db merges' ms a span, peak device memory, the kernels' launches)."""
+    import dataclasses
+
+    import torch
+
+    from krakenuniq_tpu_torch import _kernels
+    from krakenuniq_tpu_torch.classify import Classifier
+
+    card = torch.cuda.is_available()  # (rehearsed on the CPU too)
+    for label, dbs, opts, reads, uid in jobs:
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        c = Classifier(dbs, dataclasses.replace(opts, print_progress=False), uid_database=uid)
+        load_s = time.time() - t
+        m = c.mesh
+        m.merge_seconds, m.merge_calls = 0.0, 0
+        _kernels.reset_launches()
+        t = time.time()
+        kraken = os.path.join(out_dir, f"{label}.out")
+        if m.is_root:
+            with open(kraken, "w") as kf:
+                c.run([reads], kraken_fh=kf)
+        else:
+            c.run([reads])
+        if card:
+            torch.cuda.synchronize()
+        classify_s = time.time() - t
+        launches = dict(_kernels.LAUNCHES)
+        if m.is_root:
+            with open(os.path.join(out_dir, f"{label}.tsv"), "w") as rf, \
+                    contextlib.redirect_stderr(io.StringIO()):  # a UID report names uids without a taxon
+                c.write_report(rf)
+        n = max(c.n_spans, 1)
+        rec = {
+            "label": label, "rank": m.rank, "data_i": m.data_i, "db_j": m.db_j, "backend": m.backend,
+            "device": str(m.device), "load_s": load_s,
+            "timings": [db.timings for db in c.dbs] if c.dbs else [cdb.timings for cdb in c._ooc],
+            "shard_lb": [db.hash_lb for db in c.dbs], "n_chunks": [cdb.n_chunks for cdb in c._ooc or ()],
+            "classify_s": classify_s, "spans": c.n_spans, "reads": c.total_sequences,
+            "card_ms_per_span": c.device_seconds * 1e3 / n, "merge_calls": m.merge_calls,
+            "merge_ms_per_span": m.merge_seconds * 1e3 / n,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9 if card else 0.0, "launches": launches,
+        }
+        with open(os.path.join(out_dir, f"{label}.rank{m.rank}.json"), "w") as f:
+            json.dump(rec, f)
+        del c
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    return True
+
+
+def _rank_records(out_dir: str, label: str, world: int) -> list:
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{label}.rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def repeated_reads(path: str, copies: int, out_path: str) -> str:
+    """`copies` copies of a FASTA file, one after another (enough reads for
+    more than one span)."""
+    with open(path) as f:
+        text = f.read()
+    with open(out_path, "w") as g:
+        for _ in range(copies):
+            g.write(text)
+    return out_path
+
+
+def _mesh_opts(md: int, mdb: int, device: str, **kw):
+    from krakenuniq_tpu_torch.classify import ClassifyOptions
+
+    return ClassifyOptions(device=device, print_progress=False, mesh_data=md, mesh_db=mdb, **kw)
+
+
+def phase_mesh_goldens(device: str = "cuda") -> dict:
+    """Phase 15b: meshes of ranks on the one card over gloo (NCCL refuses
+    two ranks on one GPU), spawned by parallel.mesh.spawn_mesh, on the
+    goldens: in a 2-rank world 2x1, 1x2 out of core and UID 1x2, then in a
+    4-rank world 2x2, 2x2 with device counters (the counters' update on rank
+    0 alone), 1x4, 2x2 out of core and hierarchical 2x2, each byte-equal to
+    the reference binaries' goldens; beside the 4-rank world a 2-way
+    --multihost CLI run, both hosts at once with the auto collect, on the
+    goldens read 600 times (three spans), byte-equal to the single-host run.
+    It needs nothing of phase 4, so it runs while the synthesis process
+    writes phase 4's database. Launches are checked per rank (the kernels
+    run in the ranks' processes). `device="cpu"` rehearses it on the CPU."""
+    import shutil
+
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.db.chunked import table_bytes
+    from krakenuniq_tpu_torch.formats.kdb import read_header
+    from krakenuniq_tpu_torch.parallel.mesh import choose_backend, spawn_mesh
+    from krakenuniq_tpu_torch.taxonomy import Taxonomy
+
+    t0 = time.time()
+    out_dir = os.path.join(ROOT, "krakenuniq_tpu_torch", "_build", "mesh15b")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reads = os.path.join(GOLDEN, "reads.fa")
+    tax_size = Taxonomy.from_taxdb_file(os.path.join(GOLDEN, "taxDB")).size
+    table = table_bytes(read_header(os.path.join(GOLDEN, "database.kdb")).key_ct, tax_size - 1, False)
+    jobs2 = [("2x1", [GOLDEN], _mesh_opts(2, 1, device), reads, False),
+             ("1x2_preload", [GOLDEN], _mesh_opts(1, 2, device, preload_size=table // 8), reads, False),
+             ("1x2_uid", [GOLDEN], _mesh_opts(1, 2, device), reads, True)]
+    jobs4 = [("2x2", [GOLDEN], _mesh_opts(2, 2, device), reads, False),
+             ("2x2_device_counters", [GOLDEN], _mesh_opts(2, 2, device, device_counters=True), reads, False),
+             ("1x4", [GOLDEN], _mesh_opts(1, 4, device), reads, False),
+             ("2x2_preload", [GOLDEN], _mesh_opts(2, 2, device, preload_size=table // 8), reads, False),
+             ("2x2_hier", [os.path.join(GOLDEN, d) for d in ("db_bact", "db_viral")], _mesh_opts(2, 2, device),
+              reads, False)]
+    spawn_mesh(_mesh_jobs_rank, 1, 2, device, args=(jobs2, out_dir), timeout=600)
+    world2_s = time.time() - t0
+
+    # the single-host references: the UID report, the goldens read 600 times
+    uid_ref = Classifier([GOLDEN], ClassifyOptions(device=device, print_progress=False), uid_database=True)
+    uid_ref.run([reads])
+    uid_report = io.StringIO()
+    with contextlib.redirect_stderr(io.StringIO()):
+        uid_ref.write_report(uid_report)
+    big = repeated_reads(reads, 600, os.path.join(out_dir, "golden_x600.fa"))
+    ref = Classifier([GOLDEN], ClassifyOptions(device=device, print_progress=False))
+    with open(os.path.join(out_dir, "single.out"), "w") as kf:
+        ref.run([big], kraken_fh=kf)
+    ref_report = io.StringIO()
+    ref.write_report(ref_report)
+    del uid_ref, ref
+
+    # the 2-way --multihost CLI beside the 4-rank world
+    out, rep = os.path.join(out_dir, "mh.out"), os.path.join(out_dir, "mh.tsv")
+    cmd = [sys.executable, "-m", "krakenuniq_tpu_torch.cli.main", "--db", GOLDEN, "--output", out,
+           "--report-file", rep, "--device", device, big]
+    t = time.time()
+    procs = [subprocess.Popen(cmd + ["--multihost", f"{h}/2"], cwd=ROOT, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True) for h in (1, 0)]
+    try:
+        spawn_mesh(_mesh_jobs_rank, 2, 2, device, args=(jobs4, out_dir), timeout=600)
+        world4_s = time.time() - t
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    multihost_s = time.time() - t
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"--multihost CLI failed: {[p.returncode for p in procs]} {errs[0][-1500:]} "
+                             f"{errs[1][-1500:]}")
+
+    want = {"2x1": ("kraken.out", "report.tsv"), "1x2_preload": ("kraken.out", "report.tsv"),
+            "1x2_uid": ("kraken_uid.out", None), "2x2": ("kraken.out", "report.tsv"),
+            "2x2_device_counters": ("kraken.out", "report.tsv"), "1x4": ("kraken.out", "report.tsv"),
+            "2x2_preload": ("kraken.out", "report.tsv"), "2x2_hier": ("kraken_hier.out", "report_hier.tsv")}
+    checks = {}
+    for label, (k_name, r_name) in want.items():
+        same_bytes([(os.path.join(out_dir, f"{label}.out"), os.path.join(GOLDEN, k_name))])
+        if r_name is not None:
+            same_bytes([(os.path.join(out_dir, f"{label}.tsv"), os.path.join(GOLDEN, r_name))])
+        else:
+            with open(os.path.join(out_dir, f"{label}.tsv")) as f:
+                if f.read() != uid_report.getvalue():
+                    raise AssertionError(f"15b {label}: the report differs from the single-device run's")
+        rr = _rank_records(out_dir, label, 2 if any(j[0] == label for j in jobs2) else 4)
+        probe = "rows_probe" if "uid" in label else "chd_probe_acc" if "preload" in label else "chd_probe"
+        if device == "cuda" and any(r["launches"][probe] == 0 for r in rr):
+            raise AssertionError(f"15b {label}: a rank launched no {probe}: {[r['launches'] for r in rr]}")
+        if "preload" in label and any(n % 2 or n < 4 for r in rr for n in r["n_chunks"]):
+            raise AssertionError(f"15b {label}: {rr[0]['n_chunks']} chunk tables, not groups of the 2 db ranks")
+        if "device_counters" in label and device == "cuda":
+            ln = [r["launches"]["taxon_counts"] for r in rr]
+            if ln[0] == 0 or any(ln[1:]):
+                raise AssertionError(f"15b {label}: the counters' update runs on rank 0 alone, launches {ln}")
+        checks[label] = {"launches": {probe: [r["launches"][probe] for r in rr]},
+                         "merge_calls": [r["merge_calls"] for r in rr], "n_chunks": rr[0]["n_chunks"]}
+        log(f"15b {label}: byte-equal to {k_name}{' and ' + r_name if r_name else ''}; {checks[label]}")
+
+    same_bytes([(out, os.path.join(out_dir, "single.out"))])
+    with open(rep) as f:
+        body = [line for line in f if not line.startswith("#")]
+    if body != ref_report.getvalue().splitlines(keepends=True):
+        raise AssertionError("--multihost CLI: the merged report differs from the single-host run's")
+    manifests = []
+    for h in (0, 1):
+        with open(f"{out}.part{h}.manifest") as f:
+            manifests.append(len(json.load(f)))
+    if min(manifests) == 0:
+        raise AssertionError(f"--multihost CLI: a host classified no span ({manifests})")
+    log(f"15b --multihost 2-way CLI (auto collect, {manifests} spans): byte-equal to the single-host run")
+    rec = {"phase": "mesh goldens", "backend": choose_backend(2, device), "runs": checks, "equal": True,
+           "world2_s": world2_s, "world4_s": world4_s,
+           "multihost": {"spans_per_host": manifests, "cli_s": multihost_s, "equal": True},
+           "phase_s": time.time() - t0}
+    emit(rec)
+    return rec
+
+
+def phase_mesh(run4, device: str = "cuda") -> dict:
+    """Phase 15a: a 1x2 mesh of phase 4's database on the one card over
+    gloo, each rank building its minimizer shard cold (its cache
+    `database.kdb.ht2_torch` removed first), on phase 4's first
+    N_READS_SINGLE reads: the kraken output byte-equal to phase 4's lines for
+    those reads and the report to phase 5b's single-device run of them. Each
+    rank's load split, shard keys and width, card ms a span (the step's CUDA
+    events), db-merge ms a span, peak device memory and launches
+    (kmer_front, chd_probe, scores and pack_runs once a span on every
+    rank). `device="cpu"` rehearses it on the CPU."""
+    import shutil
+
+    from krakenuniq_tpu_torch.parallel.mesh import choose_backend, spawn_mesh
+
+    db_dir = os.path.dirname(run4["kraken"])
+    sub = head_reads(run4["reads"], N_READS_SINGLE)
+    out_dir = os.path.join(db_dir, "mesh15")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    for suffix in (".ht2_torch", ".ht2_dense_torch"):  # a cold shard build
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(os.path.join(db_dir, "database.kdb" + suffix))
+    backend = choose_backend(2, device)
+    t = time.time()
+    spawn_mesh(_mesh_jobs_rank, 1, 2, device, args=([("15a", [db_dir], _mesh_opts(1, 2, device), sub, False)],
+                                                    out_dir), timeout=900)
+    world_s = time.time() - t
+    with open(run4["kraken"], "rb") as f:
+        want_lines = b"".join(line for _, line in zip(range(N_READS_SINGLE), f))
+    with open(os.path.join(out_dir, "15a.out"), "rb") as f:
+        if f.read() != want_lines:
+            raise AssertionError("15a: the 1x2 mesh's kraken lines differ from phase 4's for its reads")
+    same_bytes([(os.path.join(out_dir, "15a.tsv"), os.path.join(db_dir, "report_sub.tsv"))])
+    recs = _rank_records(out_dir, "15a", 2)
+    for r in recs:
+        spans, ln = r["spans"], r["launches"]
+        if r["backend"] != backend or spans == 0 or r["merge_calls"] != spans:
+            raise AssertionError(f"15a rank {r['rank']}: {r['backend']}, {spans} spans, {r['merge_calls']} merges")
+        if device == "cuda" and any(ln[k] != spans for k in ("kmer_front", "chd_probe", "scores", "pack_runs")):
+            raise AssertionError(f"15a rank {r['rank']}: launches {ln} for {spans} spans")
+        t0 = r["timings"][0]
+        log(f"15a rank {r['rank']} (data {r['data_i']}, db {r['db_j']}, {r['device']}, {r['backend']}): cold load "
+            f"{r['load_s']:.1f}s {t0}; shard {t0['shard_keys']} keys at 2^{r['shard_lb'][0]}; {spans} spans, "
+            f"card {r['card_ms_per_span']:.2f} ms a span, merge {r['merge_ms_per_span']:.2f} ms a span, "
+            f"peak {r['peak_device_gb']:.3f} GB")
+    root = recs[0]
+    log(f"15a: {root['reads']} reads in {root['classify_s']:.2f}s ({root['reads'] / root['classify_s']:.0f} "
+        "reads/s), byte-equal to phase 4's lines and phase 5b's report")
+    rec = {
+        "phase": "mesh", "mesh": "1x2", "backend": backend, "card": card_line() if device == "cuda" else "cpu",
+        "reads": root["reads"], "classify_s": root["classify_s"], "reads_per_s": root["reads"] / root["classify_s"],
+        "world_s": world_s,
+        "ranks": [{key: r[key] for key in ("rank", "device", "load_s", "timings", "shard_lb", "spans",
+                                           "card_ms_per_span", "merge_ms_per_span", "merge_calls",
+                                           "peak_device_gb", "launches")} for r in recs],
+        "equal_to_phase4_lines": True, "equal_to_phase5b_report": True,
+    }
+    emit(rec)
+    return rec
 
 
 # ------------------------------------------------------------------- driver
@@ -5295,6 +5588,7 @@ def main(argv=None) -> int:
     phase_goldens()
     uid_ooc_launches = phase_uid_goldens()
     fb_launches = phase_fallback_goldens()
+    phase_mesh_goldens()  # while the synthesis process writes phase 4's database
     recs, launches, main_run = phase_main(reps=50, synth=synth)
     tools = start_tools(main_run)  # host only, beside phases 5-13
     sc_recs, sc_launches = phase_span_counters(main_run, reps=50)
@@ -5311,7 +5605,7 @@ def main(argv=None) -> int:
         recs["rows_probe"], uid_launches = phase_uid(main_run, reps=20)
     _, built_run = phase_build(main_run, tools)
     # the fallbacks and out of core on the built database (phase 4's genome
-    # keys), against its run of phase 4's reads
+    # keys), against its run of phase 4's first N_READS_SINGLE reads
     with shared_taxonomy():
         recs["span_dict"], dict_launches = phase_dense_ids(built_run, reps=20)
         bs_recs, bs_launches = phase_bsearch(built_run, reps=20)
@@ -5319,6 +5613,7 @@ def main(argv=None) -> int:
         recs["chd_probe_acc"], ooc_launches = phase_ooc(built_run, reps=20)
     recs["rows_probe_acc"] = rows_acc_rec
     probe_launches = phase_probe()
+    phase_mesh(main_run)
     recs.update(sc_recs)
     recs.update(bs_recs)
     recs["row_gather"] = gather_rec

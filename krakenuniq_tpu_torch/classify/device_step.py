@@ -22,6 +22,9 @@ for the resident CHD-hash path:
   stream. With `with_kmers` (--exact) the step also returns the canonical
   k-mers from `kmer_front`'s optional canon plane; with `resolve=False`
   (the long-read step) it skips the tree resolution and returns zero calls.
+Under a mesh (`mesh=`, parallel/mesh.py) the step and `probe_chunk_core`
+run on a rank's rows and db shard with the same kernels; the words merge
+over the rank's db group and a span dictionary over its data group.
 
 The returned dict carries what the host text/report layer needs, with the
 JAX step's keys: uint32 planes come back as int32 bit patterns (read them on
@@ -697,6 +700,7 @@ def probe_chunk_core(
     k: int,
     nt: int,  # the database's minimizer length
     plain: bool = False,
+    mesh=None,  # parallel/mesh.Mesh: this rank probes its chunk of a group of n_db
 ) -> torch.Tensor:
     """One out-of-core pass, after the JAX package's _probe_chunk_core
     (krakenuniq_tpu/classify/device_step.py:496-531): each lane in its read,
@@ -711,7 +715,17 @@ def probe_chunk_core(
     `chd_probe_acc` kernel (`rows_probe_acc` on a raw two-level chunk
     table), which computes the front, the bins and the probe in one pass;
     CPU tensors, or `plain`, run `kmer_front_packed`, `kmer_bins_plain`,
-    the range mask and `hash_lookup_acc_plain`."""
+    the range mask and `hash_lookup_acc_plain`.
+
+    Under a mesh with n_db > 1 (OOC x mesh, JAX device_step.py:525-529) each
+    rank of a data row probes another chunk of the group; the new words of
+    the group (the lanes still 0 in acc) sum over the db group, a k-mer's
+    bin lying in one chunk at most, and fold into acc, which is the same on
+    every rank of the row."""
+    if mesh is not None and mesh.n_db > 1:
+        part = probe_chunk_core(acc.clone(), planes, bounds, codes, ambig, lengths, k, nt, plain)
+        part.masked_fill_(acc != 0, 0)
+        return acc.add_(mesh.merge_db(part))
     b, lbw = codes.shape
     lb, w = 16 * lbw, acc.shape[1]
     lo, hi = (int(x) for x in bounds)
@@ -759,9 +773,18 @@ def classify_step_core(
     lengths: torch.Tensor,  # int32 [B]
     cfg: StepConfig,
     plain: bool = False,
+    mesh=None,
 ):
     """One classify step. `plain=True` runs the plain PyTorch version of
-    every kernel on any device, for holding the kernels against it."""
+    every kernel on any device, for holding the kernels against it.
+
+    `mesh` (parallel/mesh.Mesh): the batch is this rank's rows and
+    db_planes its db shard of each database. Each database's words sum over
+    the db group before the lanes it found are taken (JAX device_step.py:
+    185-190, 204-206), so the first-database-wins rule sees merged words;
+    a span dictionary merges over the data group (JAX device_step.py:
+    316-335). The outputs are this rank's rows."""
+    merge = mesh.merge_db if mesh is not None and mesh.n_db > 1 else None
     k = cfg.k
     lookup = hash_lookup_plain if plain else hash_lookup_kmers
     hashes, enc, kmer_ambig, kmers, b, lb = _front(codes, ambig, cfg, plain)
@@ -796,8 +819,18 @@ def classify_step_core(
         # missing from the taxonomy, dense id 0, is still a hit), so a lane
         # is found iff its taxon is nonzero and the first database's hit wins
         for plane in db_planes:
-            taxon, taxon_dense = bsearch_words(plane, codes, ambig, lengths, k, cfg.nt, cfg.n_iter, taxon,
-                                               None if taxon is None else taxon_dense, plain=plain)
+            if merge is None:
+                taxon, taxon_dense = bsearch_words(plane, codes, ambig, lengths, k, cfg.nt, cfg.n_iter, taxon,
+                                                   None if taxon is None else taxon_dense, plain=plain)
+                continue
+            # a shard's words merge before they fill the lanes still 0
+            t_i, td_i = bsearch_words(plane, codes, ambig, lengths, k, cfg.nt, cfg.n_iter, plain=plain)
+            t_i, td_i = merge(t_i), merge(td_i)
+            if taxon is None:
+                taxon, taxon_dense = t_i, td_i
+            else:
+                rem = taxon == 0
+                taxon, taxon_dense = torch.where(rem, t_i, taxon), torch.where(rem, td_i, taxon_dense)
         if taxon is None:  # no database
             taxon = taxon_dense = torch.zeros((b, w), dtype=torch.int32, device=codes.device)
         found = taxon != 0
@@ -821,12 +854,16 @@ def classify_step_core(
             keys, vals, vals_dense, offsets, bin_start = plane
             t_i, td_i = search_fn(keys, vals, vals_dense, offsets, canon, bins, remaining, cfg.n_iter,
                                   bin_start)
+            if merge is not None:
+                t_i, td_i = merge(t_i), merge(td_i)
             taxon = torch.where(remaining, t_i, taxon)
             taxon_dense = torch.where(remaining, td_i, taxon_dense)
             # keyed on the stored taxid, as above
             found = found | (t_i != 0)
             continue
         word = lookup(plane, hashes, remaining)
+        if merge is not None:
+            word = merge(word)
         if any_raw:
             taxon = torch.where(remaining, word, taxon)
         else:
@@ -903,6 +940,16 @@ def classify_step_core(
                 out["lut"], ids, local_call = dictf(
                     taxon_dense, call_dense, taxid_table.shape[0], cfg.dict_capacity, not cfg.quick
                 )
+                if mesh is not None and mesh.n_data > 1:
+                    # one dictionary for every data slice: this slice's local
+                    # ids map to their place in the merged one
+                    cap = cfg.dict_capacity
+                    merged, n_u = mesh.merge_dict(out["lut"], cap)
+                    to_merged = torch.searchsorted(merged, out["lut"][:cap]).clamp_(max=cap - 1).to(torch.int32)
+                    ids = to_merged[ids.long()]
+                    if local_call is not None:
+                        local_call = to_merged[local_call.long()]
+                    out["lut"] = torch.cat([merged, n_u.reshape(1)])
                 if not cfg.quick:
                     row_call = local_call
             hll16 = asked("hll_dense")

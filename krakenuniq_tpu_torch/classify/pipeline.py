@@ -57,11 +57,23 @@ on the wide rows (no dictionary), and each read's call is resolved on the
 host from its k-mers' sets (classify/uid.py, resolve_uids3). The k-mer
 counters key on the raw ids, the read counts on the resolved taxids.
 
-Meshes of the JAX package are a later slice (ROADMAP item 7).
+A mesh (`mesh_data` x `mesh_db` > 1, parallel/mesh.py) runs one Classifier
+a rank, in ranks that parallel/mesh.spawn_mesh started: each rank holds its
+db shard of every database's table (parallel/partition.load_sharded_db; out
+of core, every n_db-th chunk table), takes the same spans of the same input
+and steps its data slice of each span's rows, the words merged over its db
+group inside the step; the outputs come to rank 0, which alone counts,
+formats and writes. A host decision that needs another step (a dictionary
+or sparse-buffer overflow) is taken on every rank: the dictionary's count
+is the same on all of them, and rank 0 broadcasts the sparse buffer's.
+Multi-host runs (`host_id` of `n_hosts`, parallel/multihost.py) classify
+the global spans s with s % n_hosts == host_id and record each one's byte
+range of the kraken output in `span_manifest`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import os
@@ -178,6 +190,20 @@ class ClassifyOptions:
     # run; total resident bytes stay within --preload-size. Falls back to
     # single-buffering when half the budget cannot hold a legal chunk.
     ooc_double_buffer: bool = True
+    # a mesh of mesh_data x mesh_db ranks (parallel/mesh.py): the tables
+    # minimizer-sharded over mesh_db ranks, each span's rows over mesh_data;
+    # the Classifier must be built in every rank of a torch.distributed world
+    # of that size (parallel/mesh.spawn_mesh starts one). 1x1 = one device
+    mesh_data: int = 1
+    mesh_db: int = 1
+    # multi-host input sharding: this process classifies the global spans s
+    # with s % n_hosts == host_id (parallel/multihost.py)
+    host_id: int = 0
+    n_hosts: int = 1
+    # the span geometry: a work unit's bases (None: WORK_UNIT_SIZE) and a
+    # span's reads (None: SPAN_READS)
+    work_unit_size: int | None = None
+    device_batch_reads: int | None = None
 
 
 def _bucket(n: int, lo: int, step: int = 2) -> int:
@@ -189,15 +215,16 @@ def _bucket(n: int, lo: int, step: int = 2) -> int:
     return b
 
 
-def _unit_bounds(seq_lens) -> list[int]:
-    """Greedy >= WORK_UNIT_SIZE bp work units (classify.cpp:511-521) over
-    a chunk's read lengths: [0, end of unit 1, ...]; a last unit short of
-    WORK_UNIT_SIZE has no end in the list."""
+def _unit_bounds(seq_lens, size: int | None = None) -> list[int]:
+    """Greedy >= size (WORK_UNIT_SIZE) bp work units (classify.cpp:511-521)
+    over a chunk's read lengths: [0, end of unit 1, ...]; a last unit short
+    of the size has no end in the list."""
+    size = size or WORK_UNIT_SIZE
     bounds = [0]
     acc = 0
     for i, m in enumerate(seq_lens):
         acc += m
-        if acc >= WORK_UNIT_SIZE:
+        if acc >= size:
             bounds.append(i + 1)
             acc = 0
     return bounds
@@ -248,6 +275,14 @@ class Classifier:
         and no quick mode (JAX pipeline.py:196-216)."""
         self.opts = options or ClassifyOptions()
         self.device = resolve_device(self.opts.device)
+        self.mesh = None
+        if self.opts.mesh_data * self.opts.mesh_db > 1:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self.opts.mesh_data, self.opts.mesh_db, self.opts.device)
+            self.device = self.mesh.device
+        # rank 0 of a mesh (or the one process) counts, formats and writes
+        self._is_root = self.mesh is None or self.mesh.is_root
         self.db_dirs = [os.fspath(d) for d in db_dirs]
         self._uid_database = uid_database
         if uid_database:
@@ -271,7 +306,9 @@ class Classifier:
         GB-sized at reference scale; sharing them is the difference between
         an option swap and a reload."""
         opts = options or dataclasses.replace(other.opts, **changes)
-        if resolve_device(opts.device) != other.device:
+        if (opts.mesh_data, opts.mesh_db) != (other.opts.mesh_data, other.opts.mesh_db):
+            raise ValueError("cannot share DB state across mesh configurations")
+        if other.mesh is None and resolve_device(opts.device) != other.device:
             raise ValueError(f"cannot share {other.device} tables on {opts.device}")
         if opts.value_pool != other.opts.value_pool:
             raise ValueError("cannot share tables across value_pool settings")
@@ -282,7 +319,8 @@ class Classifier:
     def _adopt_loaded(self, other: "Classifier") -> None:
         # out of core: the host chunk tables and the device slots they
         # stream through
-        for name in ("taxonomy", "uid_map", "dbs", "k", "nt", "_pool", "_ooc", "_ooc_slots", "_ooc_budget"):
+        for name in ("taxonomy", "uid_map", "dbs", "k", "nt", "_pool", "_ooc", "_ooc_slots", "_ooc_budget",
+                     "mesh", "device"):
             setattr(self, name, getattr(other, name))
 
     def _estimate_table_bytes(self, pooled: bool = True) -> int:
@@ -327,8 +365,10 @@ class Classifier:
         if len(self.db_dirs) > 1 and self.opts.value_pool:
             pool_arg = joint_pool()
         use_ooc = False
-        if ps and self._estimate_table_bytes(pooled=False) > ps:
-            if self._estimate_table_bytes(pooled=True) > ps or pool_arg is None:
+        # under a mesh the budget is a rank's: the shards hold n_db times it
+        capacity = ps * (self.mesh.n_db if self.mesh is not None else 1)
+        if ps and self._estimate_table_bytes(pooled=False) > capacity:
+            if self._estimate_table_bytes(pooled=True) > capacity or pool_arg is None:
                 use_ooc = True
             else:
                 # between the estimates: resident only if the value pool
@@ -341,6 +381,17 @@ class Classifier:
             self._ooc = self._load_chunked(ps, pool_arg, pre_vd)
             self._pool = self._ooc[0].pool
             self._check_widths([c.k for c in self._ooc], [c.nt for c in self._ooc])
+            return
+        if self.mesh is not None:
+            # this rank's shard of every database's table, one id space
+            # (JAX pipeline.py:356-450)
+            from ..parallel.partition import load_sharded_db
+
+            self.dbs = [load_sharded_db(d, self.mesh, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d),
+                                        uid_database=self._uid_database)
+                        for d in self.db_dirs]
+            self._check_widths([db.k for db in self.dbs], [db.nt for db in self.dbs])
+            self._pool = self.dbs[0].pool
             return
         for d in self.db_dirs:
             db, _ = load_database_dir(
@@ -373,12 +424,15 @@ class Classifier:
         Double-buffered streaming plans at half the budget, so that two
         chunk tables fit it at once; when half the budget cannot hold a legal
         chunk table, the chunks are planned at the full budget (and stream
-        through one slot)."""
+        through one slot). Under a mesh the budget is a rank's and each
+        database's chunk count a multiple of n_db (a group of chunks, one a
+        db rank)."""
         pin = self.device.type == "cuda"
+        multiple = self.mesh.n_db if self.mesh is not None else 1
 
         def build(budget):
             return [load_chunked_db(d, budget, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d), pin=pin,
-                                    uid_database=self._uid_database)
+                                    uid_database=self._uid_database, chunk_multiple=multiple)
                     for d in self.db_dirs]
 
         if self.opts.ooc_double_buffer:
@@ -574,7 +628,7 @@ class Classifier:
         p = self._effective_p
         self.counter = TaxonCounter(p, exact=self.opts.exact)
         self.dev_counters = None
-        if not self.opts.device_counters:
+        if not self.opts.device_counters or not self._is_root:  # a mesh counts on rank 0
             return
         from .device_counters import DeviceCounters
 
@@ -638,6 +692,7 @@ class Classifier:
 
     def _work_units(self, path: str):
         """Greedy >= WORK_UNIT_SIZE bp batches in read order (classify.cpp:511-521)."""
+        size = self.opts.work_unit_size or WORK_UNIT_SIZE
         fastq = is_fastq(path)
         with open_maybe_compressed(path, "rt") as fh:
             reader = read_fastq(fh) if fastq else read_fasta(fh)
@@ -646,7 +701,7 @@ class Classifier:
             for dna in reader:
                 unit.append(dna)
                 total_nt += len(dna.seq)
-                if total_nt >= WORK_UNIT_SIZE:
+                if total_nt >= size:
                     yield unit, fastq
                     unit, total_nt = [], 0
             if unit:
@@ -656,19 +711,55 @@ class Classifier:
 
     def run(self, input_paths: list[str], kraken_fh=None, classified_fh=None,
             unclassified_fh=None) -> None:
+        """Classify the inputs; under a mesh every rank runs this over the
+        same inputs, and only rank 0's output handles are written."""
         t0 = time.time()
+        # the global span numbering of multi-host runs (work units on the
+        # Python route), across the input files
+        self._span_counter = 0
+        self.span_manifest = []  # [(global span index, byte start, byte end)]
         for path in input_paths:
             if self.route == "span":
                 run = self._run_native if self._ooc is None else self._run_native_ooc
                 run(path, kraken_fh, classified_fh, unclassified_fh)
                 continue
             for unit, fastq in self._work_units(path):
-                self._process_unit(unit, fastq, kraken_fh, classified_fh, unclassified_fh)
+                idx = self._claim_span()
+                if idx is None:
+                    continue
+                with self._manifest_span(idx, kraken_fh):
+                    self._process_unit(unit, fastq, kraken_fh, classified_fh, unclassified_fh)
                 self._progress()
         self._elapsed = time.time() - t0
 
+    def _claim_span(self) -> int | None:
+        """The next global span's index, or None when another host owns it
+        (parallel/multihost.owns_span: s % n_hosts == host_id)."""
+        idx = self._span_counter
+        self._span_counter += 1
+        return idx if idx % self.opts.n_hosts == self.opts.host_id else None
+
+    @contextlib.contextmanager
+    def _manifest_span(self, span_idx: int, kraken_fh):
+        """Record the kraken output's byte range of one global span in
+        span_manifest (multi-host runs, on an output that can tell)."""
+        b0 = None
+        if self.opts.n_hosts > 1 and kraken_fh is not None:
+            try:
+                b0 = kraken_fh.tell()
+            except (OSError, AttributeError):
+                b0 = None
+        yield
+        if b0 is not None:
+            self.span_manifest.append((span_idx, b0, kraken_fh.tell()))
+
+    def _round_mesh(self, b: int) -> int:
+        """A batch height rounded up to split evenly over the data ranks."""
+        n = self.mesh.n_data if self.mesh is not None else 1
+        return -(-b // n) * n
+
     def _progress(self):
-        if self.opts.print_progress:
+        if self.opts.print_progress and self._is_root:
             pct = 100.0 * self.total_classified / max(self.total_sequences, 1)
             sys.stderr.write(
                 f"\r Processed {self.total_sequences} sequences ({pct:.2f}% classified)"
@@ -678,19 +769,26 @@ class Classifier:
         """One classify step on numpy batch arrays under `cfg` (default: the
         unpacked feed's config); returns device tensors. Out of core the
         chunk tables stream through the card for this one batch first (the
-        Python route's units, fallback chunks and long reads)."""
+        Python route's units, fallback chunks and long reads). Under a mesh
+        the step runs on this rank's rows and every rank gets the full
+        outputs back."""
         dev = self.device
-        feed = tuple(torch.from_numpy(a).to(dev) for a in (codes, ambig, lengths))
+        b = codes.shape[0]
+        if self.mesh is not None:
+            rows = self.mesh.rows(b)
+            codes, ambig, lengths = codes[rows], ambig[rows], lengths[rows]
+        feed = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (codes, ambig, lengths))
         planes = self._db_planes
         if self._ooc is not None:
             # the chunk passes read the packed feed, packed once here
             st = {"feed": (*pack_input(feed[0], feed[1]), feed[2]), "acc": None}
             self._ooc_probe_group([st], plain=plain)
             planes = st["acc"]
-        return classify_step_core(
+        out = classify_step_core(
             planes, self._taxid_table, self._io, self._parent, self._root_dense, *feed, cfg or self._cfg,
-            plain=plain,
+            plain=plain, mesh=self.mesh,
         )
+        return out if self.mesh is None else self.mesh.gather_rows(out, b, to_all=True)
 
     def _encode_unit(self, unit):
         """Pad one work unit into its bucketed (B, LB) batch; a read longer
@@ -700,7 +798,7 @@ class Classifier:
         seqs = ["" if len(d.seq) > mrl else d.seq for d in unit]
         max_len = max((len(s) for s in seqs), default=1)
         lb = _bucket_len(max(max_len, self.k), max(128, self.k))
-        b = _bucket(len(unit), self.opts.min_batch_reads)
+        b = self._round_mesh(_bucket(len(unit), self.opts.min_batch_reads))
         return encode_batch(seqs, lb=lb, batch=b)
 
     def _classify_long_read(self, seq: str):
@@ -714,7 +812,7 @@ class Classifier:
         payload = opts.max_read_len - (k - 1)
         chunks = [seq[s : s + opts.max_read_len] for s in range(0, max(1, len(seq) - k + 1), payload)]
         lb = _bucket_len(max(len(c) for c in chunks), max(128, k))
-        enc = encode_batch(chunks, lb=lb, batch=_bucket(len(chunks), 8))
+        enc = encode_batch(chunks, lb=lb, batch=self._round_mesh(_bucket(len(chunks), 8)))
         cfg = dataclasses.replace(self._cfg, resolve=False, max_runs=0, quick=False)
         out = self._device_step(enc.codes, enc.ambig, enc.lengths, cfg=cfg)
         rows = [len(c) - k + 1 for c in chunks]
@@ -799,6 +897,8 @@ class Classifier:
             res = long_results[i] = self._classify_long_read(unit[i].seq)
             calls[i], hits[i] = res[3], res[4]
         t_dev1 = time.perf_counter()
+        if not self._is_root:  # a mesh rank's share is the device steps above
+            return
 
         def long_lanes(i):
             t_l, a_l, e_l, _, _, proc, c_l = long_results[i]
@@ -911,7 +1011,7 @@ class Classifier:
                     seq_lens = [len(d.seq) for d in records]
                 else:
                     seq_lens = offs[:, 5].tolist()
-                bounds = _unit_bounds(seq_lens)
+                bounds = _unit_bounds(seq_lens, self.opts.work_unit_size)
                 if bounds[-1] != n:
                     if eof:
                         bounds.append(n)
@@ -927,12 +1027,13 @@ class Classifier:
                 # consecutive units grouped into spans of at most
                 # SPAN_READS reads and MAX_UNITS units (the sparse-exact
                 # keys' unit field, which the span counters of item 4 use)
+                span_reads = self.opts.device_batch_reads or SPAN_READS
                 i = 0
                 while i < len(bounds) - 1:
                     j = i + 1
                     while (
                         j < len(bounds) - 1
-                        and bounds[j + 1] - bounds[i] <= SPAN_READS
+                        and bounds[j + 1] - bounds[i] <= span_reads
                         and j - i < MAX_UNITS
                     ):
                         j += 1
@@ -953,21 +1054,31 @@ class Classifier:
         # The JAX package first warms its device link (_warm_link) against a
         # TPU transport's first-transfer ramp; a card's copy engines have no
         # such ramp, so the port starts with the first span.
-        pending = deque()  # spans in flight, in read order
+        pending = deque()  # (global index, span) in flight, in read order
         outs = (kraken_fh, classified_fh, unclassified_fh)
+
+        def finish():
+            idx, st = pending.popleft()
+            with self._manifest_span(idx, kraken_fh):
+                self._finish_native_span(st, *outs)
+
         for kind, buf, offs, unit_bounds, fastq in self._iter_native_spans(path):
+            idx = self._claim_span()
+            if idx is None:
+                continue
             if kind == "fallback":
                 while pending:  # keep the output in read order
-                    self._finish_native_span(pending.popleft(), *outs)
-                self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
+                    finish()
+                with self._manifest_span(idx, kraken_fh):
+                    self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
                 continue
-            pending.append(self._start_native_span(buf, offs, unit_bounds, fastq))
+            pending.append((idx, self._start_native_span(buf, offs, unit_bounds, fastq)))
             # the card runs the newest spans while the host finishes the oldest
             while len(pending) > PIPELINE_DEPTH:
-                self._finish_native_span(pending.popleft(), *outs)
+                finish()
             self._progress()
         while pending:
-            self._finish_native_span(pending.popleft(), *outs)
+            finish()
         self._progress()
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -986,14 +1097,18 @@ class Classifier:
         from .._native_build import native
 
         lb = _bucket_len(max(int(np.max(offs[:, 5])), self.k), max(128, self.k))
-        b = _bucket(len(offs), 1024, step=8)
+        b = self._round_mesh(_bucket(len(offs), 1024, step=8))
         return native().encode_unit_packed(buf, np.ascontiguousarray(offs), lb, b)
 
     def _span_feed(self, codes, ambig, lengths):
         """A span's feed on the device: encode_unit_packed's arrays are
-        uploaded (as int32 words), device tensors pass as they are."""
+        uploaded (as int32 words; under a mesh this rank's rows), device
+        tensors pass as they are."""
         if isinstance(codes, torch.Tensor):
             return codes, ambig, lengths
+        if self.mesh is not None:
+            rows = self.mesh.rows(codes.shape[0])
+            codes, ambig, lengths = (np.ascontiguousarray(a[rows]) for a in (codes, ambig, lengths))
         return self._upload(codes.view(np.int32)), self._upload(ambig.view(np.int32)), self._upload(lengths)
 
     def _span_step(self, codes, ambig, lengths, plain: bool = False, cfg: StepConfig | None = None,
@@ -1012,7 +1127,37 @@ class Classifier:
             *self._span_feed(codes, ambig, lengths),
             cfg or self._cfg_packed,
             plain=plain,
+            mesh=self.mesh,
         )
+
+    def _mesh_step(self, st: dict, cfg: StepConfig | None = None):
+        """A span's step on a mesh: this rank's rows on its shards, the
+        outputs gathered to rank 0 and there, for the span's own dispatch
+        with device counters, the counters' update (JAX pipeline.py:
+        657-663, 1473-1494). Returns (outputs on rank 0, None elsewhere;
+        the sparse-stats buffer or ()). Every rank keeps the span
+        dictionary ("lut"), whose count decides a redispatch."""
+        cfg = cfg or self._cfg_packed
+        counting = self.opts.device_counters and cfg is self._cfg_packed
+        if counting:
+            counted = (self._fb_id_key, "enc", "hll_lanes", "call_dense")
+            cfg = dataclasses.replace(cfg, outputs=cfg.outputs + tuple(k for k in counted if k not in cfg.outputs))
+        out = self._span_step(*st["feed"], cfg=cfg, planes=st["acc"])
+        st["lut"] = out.get("lut")
+        out = self.mesh.gather_rows(out, st["b"])
+        sp = ()
+        if counting and out is not None:
+            from .device_counters import update_core
+
+            dc, b = self.dev_counters, st["b"]
+            n_valid = 0 if self.uid_map is not None else st["n_span"]
+            row_valid = torch.arange(b, device=self.device) < n_valid
+            sp = update_core(
+                *dc.state(), dc.lut, out[self._fb_id_key], out["enc"], out["hll_lanes"], out["call_dense"],
+                row_valid, dc.p, self._upload(self._unit_id_rows(st["unit_bounds"], b)), dc.sparse_cap,
+                dc.counts_only,
+            )[3:]
+        return out, sp
 
     def _span_count_step(self, codes, ambig, lengths, n_span: int, unit_bounds, plain: bool = False,
                          planes=None):
@@ -1071,6 +1216,7 @@ class Classifier:
             "seq_lens": np.ascontiguousarray(offs[:, 5], dtype=np.int32), "n_span": len(offs),
             "feed": self._encode_span(buf, offs), "acc": None,
         }
+        st["b"] = st["feed"][0].shape[0]
         self._lap("encode", t)
         return st
 
@@ -1086,7 +1232,9 @@ class Classifier:
             step_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             step_evs[0].record()
         sp = ()
-        if self.dev_counters is not None:
+        if self.mesh is not None:
+            out, sp = self._mesh_step(st)
+        elif self.dev_counters is not None:
             out, sp = self._span_count_step(*feed, n_span, unit_bounds, planes=st["acc"])
         else:
             out = self._span_step(*feed, planes=st["acc"])
@@ -1096,7 +1244,11 @@ class Classifier:
             t1 = time.perf_counter()
             self.device_seconds += t1 - t
             t = t1
-        host, fetch_evs = self._slice_and_prefetch(out, feed[0].shape[0], n_span)
+        if out is None:  # a mesh rank other than 0: nothing to fetch
+            self._lap("step", t)
+            st.update(out=None, host=None, fetch_evs=None, step_evs=step_evs, sp=None)
+            return st
+        host, fetch_evs = self._slice_and_prefetch(out, st["b"], n_span)
         sp_pending = self.dev_counters.start_sp(sp, self._fetch_stream) if sp else None
         self._lap("step", t)
         # `out` stays referenced until the finish has waited for the fetch:
@@ -1116,10 +1268,9 @@ class Classifier:
         plane."""
         st = self._encode_native_span(buf, offs, unit_bounds, fastq)
         t = time.perf_counter()
-        codes, ambig, lengths = st["feed"]
+        st["feed"] = codes, ambig, lengths = self._span_feed(*st["feed"])
         w = 16 * codes.shape[1] - self.k + 1
-        st["bytes"] = codes.nbytes + ambig.nbytes + lengths.nbytes + 4 * codes.shape[0] * w
-        st["feed"] = self._span_feed(codes, ambig, lengths)
+        st["bytes"] = sum(a.numel() * a.element_size() for a in st["feed"]) + 4 * codes.shape[0] * w
         self._lap("step", t)
         return st
 
@@ -1133,7 +1284,10 @@ class Classifier:
         minimizer bin (the database's own nt) lies in the chunk's range.
         Double-buffered, chunk i + 1's copy is started before chunk i's
         probes are launched, into the other slot; single-buffered, each copy
-        waits for the previous chunk's probes."""
+        waits for the previous chunk's probes. Under a mesh the chunks go in
+        groups of n_db (JAX pipeline.py:879-977): this rank streams chunk
+        g * n_db + db_j of each database's group g, and the group's words
+        merge over the db group in the pass (probe_chunk_core)."""
         for st in spans:
             if st["acc"] is None:
                 codes = st["feed"][0]
@@ -1141,7 +1295,8 @@ class Classifier:
                 st["acc"] = torch.zeros((codes.shape[0], w), dtype=torch.int32, device=self.device)
         slots = self._ooc_slots
         n_slots = 2 if self._ooc_prefetch else 1
-        seq = [(cdb, ci) for cdb in self._ooc for ci in range(cdb.n_chunks)]
+        n_g, j = (1, 0) if self.mesh is None else (self.mesh.n_db, self.mesh.db_j)
+        seq = [(cdb, ci) for cdb in self._ooc for ci in range(j, cdb.n_chunks, n_g)]
         evs = self._ooc_events if self.device.type == "cuda" else None
         if evs is not None:
             self._ooc_fold(wait=False)
@@ -1157,7 +1312,8 @@ class Classifier:
                 probe_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 probe_evs[0].record()
             for st in spans:
-                probe_chunk_core(st["acc"], planes, cdb.bounds[ci], *st["feed"], self.k, cdb.nt, plain=plain)
+                probe_chunk_core(st["acc"], planes, cdb.bounds[ci], *st["feed"], self.k, cdb.nt, plain=plain,
+                                 mesh=self.mesh)
             if evs is not None:
                 probe_evs[1].record()
                 evs["probe"].append(probe_evs)
@@ -1194,33 +1350,43 @@ class Classifier:
         pass through the card for the whole group and the group's spans are
         finished in read order (PIPELINE_DEPTH in flight)."""
         outs = (kraken_fh, classified_fh, unclassified_fh)
-        group: deque = deque()
+        group: deque = deque()  # (global index, span)
         group_bytes = 0
+
+        def finish(item):
+            idx, st = item
+            with self._manifest_span(idx, kraken_fh):
+                self._finish_native_span(st, *outs)
 
         def flush():
             nonlocal group_bytes
             if not group:
                 return
             t = time.perf_counter()
-            self._ooc_probe_group(list(group))
+            self._ooc_probe_group([st for _, st in group])
             self._lap("probe", t)
             pending = deque()
             while group:
-                pending.append(self._dispatch_span(group.popleft()))
+                idx, st = group.popleft()
+                pending.append((idx, self._dispatch_span(st)))
                 while len(pending) > PIPELINE_DEPTH:
-                    self._finish_native_span(pending.popleft(), *outs)
+                    finish(pending.popleft())
             while pending:
-                self._finish_native_span(pending.popleft(), *outs)
+                finish(pending.popleft())
             group_bytes = 0
             self._progress()
 
         for kind, buf, offs, unit_bounds, fastq in self._iter_native_spans(path):
+            idx = self._claim_span()
+            if idx is None:
+                continue
             if kind == "fallback":
                 flush()  # keep the output in read order
-                self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
+                with self._manifest_span(idx, kraken_fh):
+                    self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
                 continue
             st = self._start_ooc_span(buf, offs, unit_bounds, fastq)
-            group.append(st)
+            group.append((idx, st))
             group_bytes += st["bytes"]
             if group_bytes >= self.opts.ooc_group_bytes:
                 flush()
@@ -1264,9 +1430,13 @@ class Classifier:
         with device counters, its sparse-stats buffer; with exact, its
         canonical k-mers) and write its kraken lines (overflow rows from the
         device planes). A span past the dictionary's capacity is run again
-        on the wide rows first."""
+        on the wide rows first. A mesh rank other than 0 takes only the
+        redispatches (_follow_span)."""
         from .._native_build import native
 
+        if not self._is_root:
+            self._follow_span(st)
+            return
         if st["fetch_evs"] is not None:
             st["fetch_evs"][1].synchronize()
             self.device_seconds += st["step_evs"][0].elapsed_time(st["step_evs"][1]) / 1e3
@@ -1277,7 +1447,10 @@ class Classifier:
         buf, offs_c, seq_lens, n_span = st["buf"], st["offs"], st["seq_lens"], st["n_span"]
         out, host = st["out"], st["host"]
         bounds = st["unit_bounds"]
-        redispatch = lambda cfg: self._span_step(*st["feed"], cfg=cfg, planes=st["acc"])  # noqa: E731
+        if self.mesh is None:
+            redispatch = lambda cfg: self._span_step(*st["feed"], cfg=cfg, planes=st["acc"])  # noqa: E731
+        else:
+            redispatch = lambda cfg: self._mesh_step(st, cfg)[0]  # noqa: E731
         cfg = self._cfg_packed
         id_map = self._taxids_host  # u16 dense (or local) ids -> taxids
         if cfg.local_dict:
@@ -1321,7 +1494,10 @@ class Classifier:
             # the counts and registers were updated in the step's stream;
             # the sparse-regime stats fold here
             fb_key = self._fb_id_key
-            if st["sp"] is not None and not dc.finish_sp(st["sp"]):
+            overflow = st["sp"] is not None and not dc.finish_sp(st["sp"])
+            if self.mesh is not None:
+                self.mesh.broadcast_flag(overflow)  # the other ranks redispatch with rank 0
+            if overflow:
                 fb = redispatch(self._cfg_sparse_fb)
                 dc.consume_host(fb[fb_key][:n_span], fb["enc"][:n_span], fb["hll_lanes"][:n_span],
                                 unit_bounds=bounds)
@@ -1442,9 +1618,28 @@ class Classifier:
         self.n_spans += 1
         self._lap("format", t)
 
+    def _follow_span(self, st) -> None:
+        """A mesh rank other than 0 at a span's finish: the steps rank 0
+        takes again, in its order, on this rank's rows (a span past the
+        dictionary's capacity, whose count every rank holds; a sparse-buffer
+        overflow, which rank 0 broadcasts). The span's step time (CUDA
+        events) and count are the rank's own."""
+        if st["step_evs"] is not None:
+            st["step_evs"][1].synchronize()
+            self.device_seconds += st["step_evs"][0].elapsed_time(st["step_evs"][1]) / 1e3
+        self.n_spans += 1
+        cfg = self._cfg_packed
+        if cfg.local_dict and int(st["lut"][-1]) > cfg.dict_capacity:
+            self._mesh_step(st, self._cfg_packed_wide)
+        if self.opts.device_counters and self.mesh.broadcast_flag(None):
+            self._mesh_step(st, self._cfg_sparse_fb)
+
     # --------------------------------------------------------------- reports
 
-    def report_stats(self, fh=sys.stderr) -> None:
+    def report_stats(self, fh=None) -> None:
+        """The run's totals, on `fh` (the sys.stderr of the call's moment
+        by default)."""
+        fh = sys.stderr if fh is None else fh
         seconds = getattr(self, "_elapsed", 0.0) or 1e-9
         fh.write("\r")
         fh.write(
@@ -1516,10 +1711,21 @@ class Classifier:
                 dev_counts[tid] = rc.copy()
         return dev_counts
 
-    def write_report(self, fh) -> None:
+    def write_report(self, fh, extra_counts: list | None = None) -> None:
+        """`extra_counts`: other hosts' finalized counts (dicts, or state
+        files of parallel/multihost.save_counter_state) folded in first
+        (JAX pipeline.py:2203-2215)."""
         self.ensure_counts_files()
         opts = self.opts
-        rep = TaxReport(self.taxonomy, self.finalized_counts(), show_zeros=opts.report_zeros)
+        counts = self.finalized_counts()  # fresh objects: the fold cannot touch the live state
+        if extra_counts:
+            from ..parallel.multihost import load_counter_state, merge_counts
+
+            for other in extra_counts:
+                if isinstance(other, (str, os.PathLike)):
+                    other = load_counter_state(os.fspath(other))
+                merge_counts(counts, other)
+        rep = TaxReport(self.taxonomy, counts, show_zeros=opts.report_zeros)
         if opts.hll_precision > 0:
             rep.set_cols(FULL_COLS if opts.full_report else DEFAULT_COLS)
         else:

@@ -31,7 +31,7 @@ process never holds two copies of the set).
 the database, `<kdb>.htc_torch` (db/ht_cache.py), valid while the kdb, the
 taxDB, the port's cache version, the code of the build and the planner
 (ht_cache.CHUNK_SOURCES), the value pool's rows, the budget and
-chunk_multiple (the port's 1) all match. It never reads, writes or deletes the JAX
+chunk_multiple (a mesh's n_db, else 1) all match. It never reads, writes or deletes the JAX
 package's `<kdb>.htc` files.
 """
 
@@ -87,9 +87,8 @@ def plan_chunks(
     largest-range-that-fits binary search (krakendb.cpp:430-461), realized as
     the smallest equal-key chunk count whose largest chunk fits the budget.
     `min_chunks` forces a finer cut (the retry after a placement stall);
-    `chunk_multiple` rounds the count up to a multiple (the JAX package's
-    out-of-core mesh composition, ROADMAP item 7: no caller in the port
-    sets it yet; the chunk cache's key holds the 1 the port plans with).
+    `chunk_multiple` rounds the count up to a multiple (a mesh's n_db: the
+    chunks stream through the mesh in groups of one chunk a db rank).
     """
     from ..parallel.partition import partition_bins_equal_keys
 
@@ -219,6 +218,7 @@ def build_chunked_db(
     nt: int,
     pin: bool = False,
     store_raw: bool = False,
+    chunk_multiple: int = 1,
 ) -> ChunkedHashDB:
     """Build per-chunk CHD tables on the host over `keys` (the bin-sorted
     pair array, so each chunk's keys are a contiguous slice) -> `values`
@@ -230,7 +230,8 @@ def build_chunked_db(
     set: one bit wider if the budget allows (halves the load), else cut
     finer at the same width (fewer keys per chunk), as the JAX package's
     build_chunked_db does, so both plan alike. Each chunk's planes become
-    host tensors (pinned with `pin`) as soon as they are built."""
+    host tensors (pinned with `pin`) as soon as they are built. The chunk
+    count is a multiple of `chunk_multiple`."""
     values = np.asarray(values)
     vmax = int(values.max()) if len(keys) else 0
     offsets = np.asarray(offsets, dtype=np.int64)
@@ -242,7 +243,7 @@ def build_chunked_db(
         return (1 << w) * _RAW_BYTES_PER_BUCKET if store_raw else chd_table_bytes(w)
 
     while True:
-        bounds, lb = plan_chunks(offsets, budget_bytes, vmax, store_raw, min_chunks)
+        bounds, lb = plan_chunks(offsets, budget_bytes, vmax, store_raw, min_chunks, chunk_multiple)
         if width_bytes(lb + lb_bump) <= budget_bytes:
             lb = min(lb + lb_bump, 30)
         else:
@@ -289,6 +290,7 @@ def load_chunked_db(
     vals_dense: np.ndarray | None = None,
     pin: bool = False,
     uid_database: bool = False,
+    chunk_multiple: int = 1,
 ) -> ChunkedHashDB:
     """Load a reference-layout database directory as a chunked (out-of-core)
     table set. `pool`: "auto" builds the database's own value pool
@@ -297,9 +299,10 @@ def load_chunked_db(
     dense values when the caller has them. `pin` pins each chunk's planes
     for the card's copy engines. `uid_database` loads `uid_database.kdb`
     as raw two-level chunk tables (JAX chunked.py:230-316): no pool, no
-    dense values. The chunk tables come from the port's cache
+    dense values. `chunk_multiple`: the chunk count is a multiple of it (a
+    mesh's n_db). The chunk tables come from the port's cache
     `<kdb>.htc_torch` when it holds them for this kdb, taxDB, value kind,
-    pool, budget and code; else they are built and the cache written
+    pool, budget, chunk_multiple and code; else they are built and the cache written
     (a failed write is not fatal). ChunkedHashDB.timings["cache"] says
     which."""
     from ..formats import read_index, read_kdb
@@ -332,7 +335,7 @@ def load_chunked_db(
             pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
         # a cache without one bin range a chunk is a miss: the passes route by them
         bounds = extra.get("bounds")
-        if (space_ok and extra.get("budget") == budget_bytes and extra.get("chunk_multiple") == 1
+        if (space_ok and extra.get("budget") == budget_bytes and extra.get("chunk_multiple") == chunk_multiple
                 and len(planes) % 2 == 0 and bounds is not None and len(bounds) == len(planes) // 2):
             t = time.perf_counter()
             cdb = chunked_db_from_planes(
@@ -344,12 +347,12 @@ def load_chunked_db(
     if cdb is None:
         table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
         cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin,
-                               store_raw=uid_database)
+                               store_raw=uid_database, chunk_multiple=chunk_multiple)
         del table_vals
         cdb.timings["build"] = time.perf_counter() - t1 - cdb.timings["pin"]
         t = time.perf_counter()
         extra = {"budget": budget_bytes, "bounds": [list(b) for b in cdb.bounds],
-                 "chunk_multiple": 1}
+                 "chunk_multiple": chunk_multiple}
         if pool is not None:
             extra["pool_rows"] = pool.rows
         flat = [p.numpy().view(np.uint32) for planes in cdb.chunk_planes for p in planes]

@@ -58,8 +58,12 @@ def grade(
     seqid_map_path: str,
     kraken_path: str,
     per_read_out,
-    stats_out=sys.stdout,
+    stats_out=None,
 ) -> dict:
+    """Grade a kraken output of simulated reads (grade_classification.cpp):
+    a line a read to `per_read_out`, the rank tables to `stats_out` (the
+    sys.stdout of the call's moment by default)."""
+    stats_out = sys.stdout if stats_out is None else stats_out
     tax = Taxonomy.from_taxdb_file(taxdb_path)
     pm = tax.parent_map()
     seqid_map = read_seqid2taxid(seqid_map_path)

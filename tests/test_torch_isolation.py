@@ -47,6 +47,8 @@ def test_every_module_imports_without_jax():
     assert "krakenuniq_tpu_torch.classify.device_counters" in mods
     assert "krakenuniq_tpu_torch.tools.probe_gather" in mods
     assert "krakenuniq_tpu_torch.parallel.partition" in mods
+    assert "krakenuniq_tpu_torch.parallel.mesh" in mods
+    assert "krakenuniq_tpu_torch.parallel.multihost" in mods
     assert "krakenuniq_tpu_torch.db.chunked" in mods
     for m in ("build.db_build", "build.download", "build.uid_build", "cli.tools", "cli.build_main",
               "cli.download_main", "report.accuracy", "report.postprocess", "report.extract_reads",
@@ -124,6 +126,57 @@ def test_build_and_accuracy_default_to_the_card(entry, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             simulate_and_grade(data, str(tmp_path), library_fastas=[os.path.join(data, "library.fna")],
                                n_reads=10)
+
+
+def test_mesh_ranks_default_to_the_card(tmp_path):
+    """spawn_mesh, run_mesh and the CLI's --mesh put their ranks on the card
+    unless asked for the CPU: with no card they raise before any rank
+    starts, as the Classifier does; a Classifier with mesh options outside
+    a torch.distributed world of that size raises too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the card-less behaviour")
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+    from krakenuniq_tpu_torch.cli.main import main
+    from krakenuniq_tpu_torch.parallel.mesh import classify_rank, run_mesh, spawn_mesh
+
+    data = os.path.join(ROOT, "tests", "golden", "data")
+    reads = os.path.join(data, "reads.fa")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_mesh(classify_rank, 1, 2, args=([data], ClassifyOptions(mesh_db=2), [reads]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_mesh([data], ClassifyOptions(print_progress=False, mesh_data=2), [reads])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--db", data, "--mesh", "1x2", "--output", str(tmp_path / "k.out"), reads])
+    assert not (tmp_path / "k.out").exists()
+    with pytest.raises(RuntimeError, match="torch.distributed initialized"):
+        Classifier([data], ClassifyOptions(print_progress=False, device="cpu", mesh_data=1, mesh_db=2))
+
+
+def test_nccl_on_the_cpu_raises():
+    """Asking for NCCL where it cannot run raises; nothing falls back to
+    gloo."""
+    from krakenuniq_tpu_torch.parallel.mesh import choose_backend, classify_rank, spawn_mesh
+    from krakenuniq_tpu_torch.parallel.multihost import initialize
+
+    assert choose_backend(2, "cpu") == "gloo"
+    with pytest.raises(ValueError, match="nccl backend needs a card"):
+        choose_backend(2, "cpu", "nccl")
+    with pytest.raises(ValueError, match="nccl backend needs a card"):
+        spawn_mesh(classify_rank, 1, 2, "cpu", backend="nccl")
+    with pytest.raises(ValueError, match="nccl backend needs a card"):
+        initialize("tcp://127.0.0.1:1", num_processes=2, process_id=0, platform="cpu", backend="nccl")
+
+
+def test_a_failing_rank_fails_the_mesh(tmp_path):
+    """Every rank raising (no database there) fails spawn_mesh; the error is
+    never caught into a result."""
+    from krakenuniq_tpu_torch.classify import ClassifyOptions
+    from krakenuniq_tpu_torch.parallel.mesh import run_mesh
+
+    reads = os.path.join(ROOT, "tests", "golden", "data", "reads.fa")
+    with pytest.raises(Exception, match="taxDB"):
+        run_mesh([str(tmp_path)], ClassifyOptions(print_progress=False, device="cpu", mesh_db=2), [reads],
+                 timeout=120)
 
 
 def test_kernel_wrappers_refuse_cpu_launch():

@@ -544,3 +544,29 @@ def test_ooc_writes_only_its_chunk_cache(tmp_path, budget):
     assert c2._ooc[0].timings["cache"] == "hit" and "build" not in c2._ooc[0].timings
     assert (tmp_path / "database.kdb.htc_torch").read_bytes() == cache
     assert sorted(os.listdir(tmp_path)) == sorted([*before, "database.kdb.htc_torch"])
+
+
+@pytest.mark.parametrize(
+    "mode,mesh",
+    [("default", (1, 4)), ("default", (2, 2)), ("device_counters", (2, 2)), ("exact", (1, 2))],
+)
+def test_ooc_mesh_composition(mode, mesh):
+    """--preload-size composes with a mesh (JAX test_ooc_mesh_composition):
+    the chunk tables stream through the spawned gloo ranks in groups of
+    n_db (one chunk a db rank, the group's words merged over the db
+    group), each span's rows stay on its data rank, and the result is
+    byte-equal to the resident single-device run."""
+    from krakenuniq_tpu_torch.parallel.mesh import run_mesh
+
+    n_data, n_db = mesh
+    kw = {"device_counters": {"device_counters": True}, "exact": {"exact": True}}.get(mode, {})
+    out0, rep0, _ = _run([DATA], **kw)
+    # a rank's budget small enough for three groups or more
+    budget = _tiny_budget(DATA, frac=4 * n_db)
+    got = run_mesh([DATA], ClassifyOptions(print_progress=False, device="cpu", preload_size=budget,
+                                           mesh_data=n_data, mesh_db=n_db, **kw), [READS], timeout=240)
+    (n_chunks,) = got["n_chunks"]
+    assert n_chunks % n_db == 0 and n_chunks // n_db >= 3
+    assert got["ooc_groups"] == 1 and got["merge_calls"] == (n_chunks // n_db if n_db > 1 else 0)
+    assert got["kraken"] == out0
+    assert got["report"] == rep0

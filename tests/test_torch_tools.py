@@ -117,13 +117,26 @@ CASES = {
 SETUP_ARG = {"upgrade_db": "db", "grade": "kraken.renamed"}
 
 
+def jax_grade_main(argv):
+    """The JAX package's grade tool with the stats table sent to this call's
+    sys.stdout: its grade() binds stats_out=sys.stdout when the module is
+    imported (ROADMAP F10), so its grade_main writes the table wherever
+    stdout pointed then."""
+    from krakenuniq_tpu.report.grade import grade
+
+    taxdb, seqid_map, kraken, per_read = argv
+    with open(per_read, "w") as fh:
+        grade(taxdb, seqid_map, kraken, fh, stats_out=sys.stdout)
+    return 0
+
+
 def run_case(pkg_tools, name, out_dir):
     fn_name, argv, _, files, stdin, setup = CASES[name]
     os.makedirs(out_dir)
     if setup is not None:
         setup(os.path.join(out_dir, SETUP_ARG[name]))
-    rc, stdout = run_main(getattr(pkg_tools, fn_name), [a.replace("{out}", out_dir) for a in argv],
-                          stdin() if stdin else "")
+    fn = jax_grade_main if (pkg_tools, name) == (jax_tools, "grade") else getattr(pkg_tools, fn_name)
+    rc, stdout = run_main(fn, [a.replace("{out}", out_dir) for a in argv], stdin() if stdin else "")
     written = {}
     for rel in files:
         with open(os.path.join(out_dir, rel), "rb") as f:
@@ -138,6 +151,8 @@ def test_tool_matches_jax_and_golden(name, tmp_path):
     assert rc_t == rc_j == 0
     assert out_t == out_j
     assert files_t == files_j
+    if name == "grade":  # the stats table, whatever module was imported first
+        assert out_t.startswith("#rank\ttotal_reads")
     _, _, gold, files, _, _ = CASES[name]
     if gold is not None:
         if name == "count_unique":
@@ -149,6 +164,51 @@ def test_tool_matches_jax_and_golden(name, tmp_path):
             with open(os.path.join(DATA, g), "rb") as f:
                 assert files_t[rel] == f.read()
     assert out_t or files_t
+
+
+def test_grade_writes_to_the_stdout_of_its_call(tmp_path):
+    """Both packages' report.grade modules imported first under another
+    sys.stdout: the port's grade_main still writes its stats table to the
+    sys.stdout of its call (the JAX package's would not: ROADMAP F10)."""
+    import importlib
+
+    import krakenuniq_tpu_torch.report.grade as torch_grade
+
+    jax_grade = importlib.import_module("krakenuniq_tpu.report.grade")
+    old = sys.stdout
+    sys.stdout = io.StringIO()
+    try:
+        importlib.reload(jax_grade)
+        importlib.reload(torch_grade)
+    finally:
+        sys.stdout = old
+    try:
+        kraken = str(tmp_path / "kraken.renamed")
+        graded_kraken(kraken)
+        rc, out = run_main(torch_tools.grade_main, [os.path.join(DATA, "taxDB"),
+                                                    os.path.join(DATA, "seqid2taxid.map"), kraken,
+                                                    str(tmp_path / "per_read.tsv")])
+    finally:
+        importlib.reload(jax_grade)  # its default bound to this worker's stdout again
+    assert rc == 0
+    assert out.startswith("#rank\ttotal_reads") and "\n#rank\ttrue_count" in out
+
+
+def test_report_stats_writes_to_the_stderr_of_its_call():
+    """Classifier.report_stats() writes to the sys.stderr of its call, not to
+    the one of the pipeline module's import."""
+    from krakenuniq_tpu_torch.classify import Classifier, ClassifyOptions
+
+    c = Classifier([DATA], ClassifyOptions(device="cpu", print_progress=False))
+    c.run([os.path.join(DATA, "reads.fa")])
+    err = io.StringIO()
+    old = sys.stderr
+    sys.stderr = err
+    try:
+        c.report_stats()
+    finally:
+        sys.stderr = old
+    assert f"{c.total_sequences} sequences" in err.getvalue() and "sequences classified" in err.getvalue()
 
 
 def test_every_tool_main_is_covered():
