@@ -78,7 +78,6 @@ import dataclasses
 import io
 import os
 import sys
-import time
 from collections import deque
 
 import numpy as np
@@ -101,6 +100,7 @@ from ..formats.seqio import (
 from ..kmer import encode_batch
 from ..report import DEFAULT_COLS, FULL_COLS, NO_HLL_COLS, TaxReport
 from ..taxonomy import Taxonomy
+from ..utils import trace
 from .accumulate import TaxonCounter
 from .device_step import StepConfig, classify_and_count_core, classify_step_core, pack_input, probe_chunk_core
 from .output import kraken_line
@@ -273,29 +273,30 @@ class Classifier:
         """`uid_database`: the databases' `uid_database.kdb` and
         `uid_to_taxid.map` (the reference's --uid-mapping), one database
         and no quick mode (JAX pipeline.py:196-216)."""
-        self.opts = options or ClassifyOptions()
-        self.device = resolve_device(self.opts.device)
-        self.mesh = None
-        if self.opts.mesh_data * self.opts.mesh_db > 1:
-            from ..parallel.mesh import make_mesh
+        with trace.span("load"):
+            self.opts = options or ClassifyOptions()
+            self.device = resolve_device(self.opts.device)
+            self.mesh = None
+            if self.opts.mesh_data * self.opts.mesh_db > 1:
+                from ..parallel.mesh import make_mesh
 
-            self.mesh = make_mesh(self.opts.mesh_data, self.opts.mesh_db, self.opts.device)
-            self.device = self.mesh.device
-        # rank 0 of a mesh (or the one process) counts, formats and writes
-        self._is_root = self.mesh is None or self.mesh.is_root
-        self.db_dirs = [os.fspath(d) for d in db_dirs]
-        self._uid_database = uid_database
-        if uid_database:
-            if self.opts.quick:
-                raise ValueError("Quick mode not available when mapping UIDs")
-            if len(self.db_dirs) > 1:
-                raise ValueError("Cannot use more than one database with UID mapping!")
-        if _shared is not None:
-            self._adopt_loaded(_shared)
-        else:
-            self.uid_map = UidMap(os.path.join(self.db_dirs[0], "uid_to_taxid.map")) if uid_database else None
-            self._load()
-        self._configure()
+                self.mesh = make_mesh(self.opts.mesh_data, self.opts.mesh_db, self.opts.device)
+                self.device = self.mesh.device
+            # rank 0 of a mesh (or the one process) counts, formats and writes
+            self._is_root = self.mesh is None or self.mesh.is_root
+            self.db_dirs = [os.fspath(d) for d in db_dirs]
+            self._uid_database = uid_database
+            if uid_database:
+                if self.opts.quick:
+                    raise ValueError("Quick mode not available when mapping UIDs")
+                if len(self.db_dirs) > 1:
+                    raise ValueError("Cannot use more than one database with UID mapping!")
+            if _shared is not None:
+                self._adopt_loaded(_shared)
+            else:
+                self.uid_map = UidMap(os.path.join(self.db_dirs[0], "uid_to_taxid.map")) if uid_database else None
+                self._load()
+            self._configure()
 
     @classmethod
     def with_shared_db(cls, other: "Classifier", options: ClassifyOptions | None = None,
@@ -341,7 +342,8 @@ class Classifier:
         return sum(table_bytes(read_header(os.path.join(d, kdb)).key_ct, max_val, uid) for d in self.db_dirs)
 
     def _load(self) -> None:
-        self.taxonomy = Taxonomy.from_taxdb_file(os.path.join(self.db_dirs[0], "taxDB"))
+        with trace.span("load.taxonomy"):
+            self.taxonomy = Taxonomy.from_taxdb_file(os.path.join(self.db_dirs[0], "taxDB"))
         self._ooc: list[ChunkedHashDB] | None = None  # the chunk tables, out of core
         self._ooc_slots = None
         ps = self._ooc_budget = self.opts.preload_size or 0
@@ -387,27 +389,29 @@ class Classifier:
             # (JAX pipeline.py:356-450)
             from ..parallel.partition import load_sharded_db
 
-            self.dbs = [load_sharded_db(d, self.mesh, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d),
-                                        uid_database=self._uid_database)
-                        for d in self.db_dirs]
+            for i, d in enumerate(self.db_dirs):
+                with trace.span("load.tables", db=i):
+                    self.dbs.append(load_sharded_db(d, self.mesh, self.taxonomy, pool=pool_arg,
+                                                    vals_dense=pre_vd.get(d), uid_database=self._uid_database))
             self._check_widths([db.k for db in self.dbs], [db.nt for db in self.dbs])
             self._pool = self.dbs[0].pool
             return
-        for d in self.db_dirs:
-            db, _ = load_database_dir(
-                d, taxonomy=self.taxonomy, device=self.device, pool=pool_arg,
-                vals_dense=pre_vd.get(d), uid_database=self._uid_database,
-            )
+        for i, d in enumerate(self.db_dirs):
+            with trace.span("load.tables", db=i):
+                db, _ = load_database_dir(
+                    d, taxonomy=self.taxonomy, device=self.device, pool=pool_arg,
+                    vals_dense=pre_vd.get(d), uid_database=self._uid_database,
+                )
             self.dbs.append(db)
         if any(db.pool is None for db in self.dbs) and any(db.pool is not None for db in self.dbs):
             # a fallback to the binary search dropped one database's pool;
             # mixed id spaces are invalid, so every database is reloaded with
             # dense ids (krakenuniq_tpu/classify/pipeline.py:463-474)
-            self.dbs = [
-                load_database_dir(d, taxonomy=self.taxonomy, device=self.device, pool=None,
-                                  vals_dense=pre_vd.get(d))[0]
-                for d in self.db_dirs
-            ]
+            self.dbs = []
+            for i, d in enumerate(self.db_dirs):
+                with trace.span("load.tables", db=i):
+                    self.dbs.append(load_database_dir(d, taxonomy=self.taxonomy, device=self.device, pool=None,
+                                                      vals_dense=pre_vd.get(d))[0])
         self._check_widths([db.k for db in self.dbs], [db.nt for db in self.dbs])
         self._pool = self.dbs[0].pool
 
@@ -431,9 +435,12 @@ class Classifier:
         multiple = self.mesh.n_db if self.mesh is not None else 1
 
         def build(budget):
-            return [load_chunked_db(d, budget, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d), pin=pin,
-                                    uid_database=self._uid_database, chunk_multiple=multiple)
-                    for d in self.db_dirs]
+            out = []
+            for i, d in enumerate(self.db_dirs):
+                with trace.span("load.tables", db=i):
+                    out.append(load_chunked_db(d, budget, self.taxonomy, pool=pool_arg, vals_dense=pre_vd.get(d),
+                                               pin=pin, uid_database=self._uid_database, chunk_multiple=multiple))
+            return out
 
         if self.opts.ooc_double_buffer:
             try:
@@ -596,17 +603,18 @@ class Classifier:
         self.total_sequences = 0
         self.total_bases = 0
         self.total_classified = 0
-        # Python route: wall seconds of the device step (upload, kernels,
-        # fetch) and of the host's share of each work unit (encode,
-        # accumulate, format). Span route: the host's seconds, by stage in
-        # span_host_seconds (encode; step: the launches and the resolve's
-        # waits on the card; probe: out of core, the launches of a group's
-        # chunk passes; uid: the host's resolve of the UID calls, one read
-        # at a time; counters: the sparse buffer's fetch and fold
-        # and its overflow fallback; fold: the host's HLL fold; format; not
-        # the wait for the fetch), the card's (CUDA events around upload and
-        # step; the step's wall on the CPU) and the fetch copies' (CUDA
-        # events on the fetch stream).
+        # Sums of the run's spans (utils/trace.py). Python route: the
+        # "unit.step" spans (upload, kernels, fetch) and the rest of the
+        # "unit" spans (encode, accumulate, format). Span route: the host's
+        # seconds, by stage in span_host_seconds, each the self time of its
+        # "span.<stage>" spans (encode; step: the launches and the resolve's
+        # waits on the card; probe: out of core, the "ooc.group" spans, the
+        # launches of a group's chunk passes; uid: the host's resolve of the
+        # UID calls, one read at a time; counters: the sparse buffer's fetch
+        # and fold and its overflow fallback; fold: the host's HLL fold;
+        # format; not the "span.fetch_wait" spans), the card's (CUDA events
+        # around upload and step; on the CPU the "span.step.cpu" spans) and
+        # the fetch copies' (CUDA events on the fetch stream).
         self.device_seconds = 0.0
         self.host_seconds = 0.0
         self.fetch_seconds = 0.0
@@ -713,24 +721,24 @@ class Classifier:
             unclassified_fh=None) -> None:
         """Classify the inputs; under a mesh every rank runs this over the
         same inputs, and only rank 0's output handles are written."""
-        t0 = time.time()
-        # the global span numbering of multi-host runs (work units on the
-        # Python route), across the input files
-        self._span_counter = 0
-        self.span_manifest = []  # [(global span index, byte start, byte end)]
-        for path in input_paths:
-            if self.route == "span":
-                run = self._run_native if self._ooc is None else self._run_native_ooc
-                run(path, kraken_fh, classified_fh, unclassified_fh)
-                continue
-            for unit, fastq in self._work_units(path):
-                idx = self._claim_span()
-                if idx is None:
+        with trace.span("run", run=trace.new_run()) as sp:
+            # the global span numbering of multi-host runs (work units on the
+            # Python route), across the input files
+            self._span_counter = 0
+            self.span_manifest = []  # [(global span index, byte start, byte end)]
+            for path in input_paths:
+                if self.route == "span":
+                    run = self._run_native if self._ooc is None else self._run_native_ooc
+                    run(path, kraken_fh, classified_fh, unclassified_fh)
                     continue
-                with self._manifest_span(idx, kraken_fh):
-                    self._process_unit(unit, fastq, kraken_fh, classified_fh, unclassified_fh)
-                self._progress()
-        self._elapsed = time.time() - t0
+                for unit, fastq in self._work_units(path):
+                    idx = self._claim_span()
+                    if idx is None:
+                        continue
+                    with self._manifest_span(idx, kraken_fh):
+                        self._process_unit(unit, fastq, kraken_fh, classified_fh, unclassified_fh)
+                    self._progress()
+        self._elapsed = sp.seconds
 
     def _claim_span(self) -> int | None:
         """The next global span's index, or None when another host owns it
@@ -854,51 +862,60 @@ class Classifier:
         return taxa, ambig, enc_l, call, hits, processed, canon
 
     def _process_unit(self, unit, fastq, kraken_fh, classified_fh, unclassified_fh) -> None:
+        """One work unit on the Python route. Its "unit.step" span (the
+        step, its fetch, the long reads) is the device's seconds and the
+        rest of its "unit" span the host's."""
+        with trace.span("unit") as sp:
+            step = self._classify_unit(unit, fastq, kraken_fh, classified_fh, unclassified_fh)
+        if step is not None:  # None: a mesh rank's share is the device steps
+            self.device_seconds += step.seconds
+            self.host_seconds += sp.seconds - step.seconds
+
+    def _classify_unit(self, unit, fastq, kraken_fh, classified_fh, unclassified_fh) -> trace.Span | None:
         opts = self.opts
-        t_host0 = time.perf_counter()
         long_idx = [i for i, d in enumerate(unit) if len(d.seq) > opts.max_read_len]
         enc = self._encode_unit(unit)
 
-        t_dev0 = time.perf_counter()
-        out = self._device_step(enc.codes, enc.ambig, enc.lengths)
-        n = len(unit)
-        dc = self.dev_counters
-        # a unit's short and long lanes must meet in ONE unit-local counter
-        # per taxon for the sparse-regime decision, so a unit with long
-        # reads under sparse tracking folds entirely on the host (merged at
-        # finalized_counts)
-        use_dev = dc is not None and not (long_idx and dc.tracker is not None)
-        uid = self.uid_map is not None
-        if use_dev:
-            # per-taxon accumulation stays on the device; the long reads'
-            # zero-length placeholder rows are not counted (their lanes fold
-            # on the host below). Under UID the k-mers count under the raw
-            # ids and no read on the device (the calls resolve on the host)
-            row_valid = torch.zeros(out["call_dense"].shape[0], dtype=torch.bool, device=self.device)
-            if uid:
-                dc.update(out["taxa"], out["enc"], out["hll_lanes"], torch.zeros_like(out["call_dense"]), row_valid)
-            else:
-                row_valid[:n] = True
-                row_valid[long_idx] = False
-                dc.update(out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"], row_valid)
-        taxa = out["taxa"].cpu().numpy().view(np.uint32)
-        ambig = out["ambig"].cpu().numpy()
-        calls = out["call"][:n].cpu().numpy().view(np.uint32).copy()
-        hits = out["hits"][:n].cpu().numpy().astype(np.int64)
-        n_kmers = out["n_kmers"][:n].cpu().numpy().astype(np.int64)
-        calls = self._resolve_uid_calls(taxa, n_kmers, calls, n)
-        if not use_dev or opts.exact:
-            hll_lanes = out["hll_lanes"].cpu().numpy()
-            # the k-mer stream the host folds: canonical k-mers or encodings
-            kmers = (out["canon"].cpu().numpy().view(np.uint64) if opts.exact
-                     else out["enc"].cpu().numpy().view(np.uint32))
-        long_results = {}
-        for i in long_idx:
-            res = long_results[i] = self._classify_long_read(unit[i].seq)
-            calls[i], hits[i] = res[3], res[4]
-        t_dev1 = time.perf_counter()
-        if not self._is_root:  # a mesh rank's share is the device steps above
-            return
+        with trace.span("unit.step") as step:
+            out = self._device_step(enc.codes, enc.ambig, enc.lengths)
+            n = len(unit)
+            dc = self.dev_counters
+            # a unit's short and long lanes must meet in ONE unit-local counter
+            # per taxon for the sparse-regime decision, so a unit with long
+            # reads under sparse tracking folds entirely on the host (merged at
+            # finalized_counts)
+            use_dev = dc is not None and not (long_idx and dc.tracker is not None)
+            uid = self.uid_map is not None
+            if use_dev:
+                # per-taxon accumulation stays on the device; the long reads'
+                # zero-length placeholder rows are not counted (their lanes fold
+                # on the host below). Under UID the k-mers count under the raw
+                # ids and no read on the device (the calls resolve on the host)
+                row_valid = torch.zeros(out["call_dense"].shape[0], dtype=torch.bool, device=self.device)
+                if uid:
+                    dc.update(out["taxa"], out["enc"], out["hll_lanes"], torch.zeros_like(out["call_dense"]),
+                              row_valid)
+                else:
+                    row_valid[:n] = True
+                    row_valid[long_idx] = False
+                    dc.update(out["taxa_dense"], out["enc"], out["hll_lanes"], out["call_dense"], row_valid)
+            taxa = out["taxa"].cpu().numpy().view(np.uint32)
+            ambig = out["ambig"].cpu().numpy()
+            calls = out["call"][:n].cpu().numpy().view(np.uint32).copy()
+            hits = out["hits"][:n].cpu().numpy().astype(np.int64)
+            n_kmers = out["n_kmers"][:n].cpu().numpy().astype(np.int64)
+            calls = self._resolve_uid_calls(taxa, n_kmers, calls, n)
+            if not use_dev or opts.exact:
+                hll_lanes = out["hll_lanes"].cpu().numpy()
+                # the k-mer stream the host folds: canonical k-mers or encodings
+                kmers = (out["canon"].cpu().numpy().view(np.uint64) if opts.exact
+                         else out["enc"].cpu().numpy().view(np.uint32))
+            long_results = {}
+            for i in long_idx:
+                res = long_results[i] = self._classify_long_read(unit[i].seq)
+                calls[i], hits[i] = res[3], res[4]
+        if not self._is_root:
+            return None
 
         def long_lanes(i):
             t_l, a_l, e_l, _, _, proc, c_l = long_results[i]
@@ -958,11 +975,9 @@ class Classifier:
                 )
         self.total_sequences += n
         self.total_bases += sum(len(d.seq) for d in unit)
-        t_host1 = time.perf_counter()
-        self.device_seconds += t_dev1 - t_dev0
-        self.host_seconds += (t_host1 - t_host0) - (t_dev1 - t_dev0)
         self.n_units += 1
         self.n_long_reads += len(long_idx)
+        return step
 
     # ------------------------------------------------------------ span route
 
@@ -984,62 +999,65 @@ class Classifier:
         nat = native()
         fastq = is_fastq(path)
         with open_maybe_compressed(path, "rb") as fh:
-            carry = b""
-            eof = False
+            carry, eof = b"", False
             while not eof:
-                chunk = fh.read(_CHUNK_BYTES)
-                eof = not chunk
-                buf, carry = carry + chunk, b""
-                if not buf:
-                    break
-                n, offs, multi = nat.parse_unit(buf, fastq)
-                cut = len(buf)  # where the bytes to carry start
-                if not eof:
-                    if n <= 1:  # no record known to be complete yet
-                        carry = buf
-                        continue
-                    n -= 1  # the last record may be cut short
-                    cut = int(offs[n, 2]) - 1  # its '>' or '@'
-                    offs = offs[:n]
-                if n == 0:
-                    continue
-                records = None
-                if multi or bool((np.abs(offs[:, 5]) > self.opts.max_read_len).any()):
-                    text = buf[:cut].decode("ascii", "replace")
-                    reader = read_fastq(io.StringIO(text)) if fastq else read_fasta(io.StringIO(text))
-                    records = list(reader)[:n]
-                    seq_lens = [len(d.seq) for d in records]
-                else:
-                    seq_lens = offs[:, 5].tolist()
-                bounds = _unit_bounds(seq_lens, self.opts.work_unit_size)
-                if bounds[-1] != n:
-                    if eof:
-                        bounds.append(n)
-                    else:  # an unfinished unit: its records start the next chunk
-                        cut = int(offs[bounds[-1], 2]) - 1
-                carry = buf[cut:]
-                done = bounds[-1]
-                if done == 0:
-                    continue
-                if records is not None:
-                    yield ("fallback", records, None, bounds, fastq)
-                    continue
-                # consecutive units grouped into spans of at most
-                # SPAN_READS reads and MAX_UNITS units (the sparse-exact
-                # keys' unit field, which the span counters of item 4 use)
-                span_reads = self.opts.device_batch_reads or SPAN_READS
-                i = 0
-                while i < len(bounds) - 1:
-                    j = i + 1
-                    while (
-                        j < len(bounds) - 1
-                        and bounds[j + 1] - bounds[i] <= span_reads
-                        and j - i < MAX_UNITS
-                    ):
-                        j += 1
-                    span = offs[bounds[i] : bounds[j]]
-                    yield ("span", buf, span, [b - bounds[i] for b in bounds[i : j + 1]], fastq)
-                    i = j
+                # a "parse" span a chunk: the read, parse_unit and the cut
+                # into units and spans, which are yielded after it closes
+                with trace.span("parse"):
+                    chunk = fh.read(_CHUNK_BYTES)
+                    eof = not chunk
+                    buf, carry = carry + chunk, b""
+                    if not buf:
+                        break
+                    items, carry = self._cut_chunk(nat, buf, eof, fastq)
+                yield from items
+
+    def _cut_chunk(self, nat, buf: bytes, eof: bool, fastq: bool) -> tuple[list, bytes]:
+        """One parsed chunk's spans (or its fallback) as _iter_native_spans
+        yields them, and the bytes that start the next chunk."""
+        n, offs, multi = nat.parse_unit(buf, fastq)
+        cut = len(buf)  # where the bytes to carry start
+        if not eof:
+            if n <= 1:  # no record known to be complete yet
+                return [], buf
+            n -= 1  # the last record may be cut short
+            cut = int(offs[n, 2]) - 1  # its '>' or '@'
+            offs = offs[:n]
+        if n == 0:
+            return [], b""
+        records = None
+        if multi or bool((np.abs(offs[:, 5]) > self.opts.max_read_len).any()):
+            text = buf[:cut].decode("ascii", "replace")
+            reader = read_fastq(io.StringIO(text)) if fastq else read_fasta(io.StringIO(text))
+            records = list(reader)[:n]
+            seq_lens = [len(d.seq) for d in records]
+        else:
+            seq_lens = offs[:, 5].tolist()
+        bounds = _unit_bounds(seq_lens, self.opts.work_unit_size)
+        if bounds[-1] != n:
+            if eof:
+                bounds.append(n)
+            else:  # an unfinished unit: its records start the next chunk
+                cut = int(offs[bounds[-1], 2]) - 1
+        carry = buf[cut:]
+        if bounds[-1] == 0:
+            return [], carry
+        if records is not None:
+            return [("fallback", records, None, bounds, fastq)], carry
+        # consecutive units grouped into spans of at most SPAN_READS reads
+        # and MAX_UNITS units (the sparse-exact keys' unit field, which the
+        # span counters of item 4 use)
+        span_reads = self.opts.device_batch_reads or SPAN_READS
+        items = []
+        i = 0
+        while i < len(bounds) - 1:
+            j = i + 1
+            while j < len(bounds) - 1 and bounds[j + 1] - bounds[i] <= span_reads and j - i < MAX_UNITS:
+                j += 1
+            items.append(("span", buf, offs[bounds[i] : bounds[j]], [b - bounds[i] for b in bounds[i : j + 1]],
+                          fastq))
+            i = j
+        return items, carry
 
     def _python_fallback_chunk(self, records, unit_bounds, fastq, kraken_fh, classified_fh,
                                unclassified_fh) -> None:
@@ -1072,7 +1090,7 @@ class Classifier:
                 with self._manifest_span(idx, kraken_fh):
                     self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
                 continue
-            pending.append((idx, self._start_native_span(buf, offs, unit_bounds, fastq)))
+            pending.append((idx, self._start_native_span(buf, offs, unit_bounds, fastq, idx)))
             # the card runs the newest spans while the host finishes the oldest
             while len(pending) > PIPELINE_DEPTH:
                 finish()
@@ -1195,62 +1213,67 @@ class Classifier:
         last = ids[-1] if len(ids) else np.uint8(0)
         return np.concatenate([ids, np.full(b - len(ids), last, np.uint8)])
 
-    def _lap(self, stage: str, t0: float) -> float:
-        """Charge the host seconds since t0 to a span stage; returns now."""
-        t1 = time.perf_counter()
-        self.span_host_seconds[stage] += t1 - t0
-        self.host_seconds += t1 - t0
-        return t1
+    @contextlib.contextmanager
+    def _stage(self, stage: str, **ids):
+        """The span "span.<stage>" of a span route's host stage, charged on
+        its close."""
+        with trace.span("span." + stage, **ids) as sp:
+            yield sp
+        self._charge(stage, sp)
 
-    def _start_native_span(self, buf, offs, unit_bounds, fastq):
-        """Encode one span, launch its step (with the counters' update) and
-        start its fetch; returns the state _finish_native_span reads."""
-        return self._dispatch_span(self._encode_native_span(buf, offs, unit_bounds, fastq))
+    def _charge(self, stage: str, sp: trace.Span) -> None:
+        """A finished span's self time to span_host_seconds[stage] and
+        host_seconds."""
+        self.span_host_seconds[stage] += sp.self_seconds
+        self.host_seconds += sp.self_seconds
 
-    def _encode_native_span(self, buf, offs, unit_bounds, fastq) -> dict:
+    def _start_native_span(self, buf, offs, unit_bounds, fastq, idx: int):
+        """Encode global span idx, launch its step (with the counters'
+        update) and start its fetch; returns the state _finish_native_span
+        reads."""
+        return self._dispatch_span(self._encode_native_span(buf, offs, unit_bounds, fastq, idx))
+
+    def _encode_native_span(self, buf, offs, unit_bounds, fastq, idx: int) -> dict:
         """A span's host state and its packed feed (host arrays, "feed")."""
-        t = time.perf_counter()
-        offs = np.ascontiguousarray(offs)
-        st = {
-            "buf": buf, "offs": offs, "unit_bounds": unit_bounds, "fastq": fastq,
-            "seq_lens": np.ascontiguousarray(offs[:, 5], dtype=np.int32), "n_span": len(offs),
-            "feed": self._encode_span(buf, offs), "acc": None,
-        }
-        st["b"] = st["feed"][0].shape[0]
-        self._lap("encode", t)
+        with self._stage("encode", span=idx):
+            offs = np.ascontiguousarray(offs)
+            st = {
+                "idx": idx, "buf": buf, "offs": offs, "unit_bounds": unit_bounds, "fastq": fastq,
+                "seq_lens": np.ascontiguousarray(offs[:, 5], dtype=np.int32), "n_span": len(offs),
+                "feed": self._encode_span(buf, offs), "acc": None,
+            }
+            st["b"] = st["feed"][0].shape[0]
         return st
 
     def _dispatch_span(self, st: dict) -> dict:
         """Launch a span's step (with the counters' update; out of core on
         its merged word plane) and start its fetch; returns the state
-        _finish_native_span reads."""
-        t = time.perf_counter()
-        n_span, unit_bounds, feed = st["n_span"], st["unit_bounds"], st["feed"]
-        cuda = self.device.type == "cuda"
-        step_evs = None
-        if cuda:
-            step_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            step_evs[0].record()
-        sp = ()
-        if self.mesh is not None:
-            out, sp = self._mesh_step(st)
-        elif self.dev_counters is not None:
-            out, sp = self._span_count_step(*feed, n_span, unit_bounds, planes=st["acc"])
-        else:
-            out = self._span_step(*feed, planes=st["acc"])
-        if cuda:
-            step_evs[1].record()
-        else:  # the step ran on the host: it is the device's time
-            t1 = time.perf_counter()
-            self.device_seconds += t1 - t
-            t = t1
-        if out is None:  # a mesh rank other than 0: nothing to fetch
-            self._lap("step", t)
-            st.update(out=None, host=None, fetch_evs=None, step_evs=step_evs, sp=None)
-            return st
-        host, fetch_evs = self._slice_and_prefetch(out, st["b"], n_span)
-        sp_pending = self.dev_counters.start_sp(sp, self._fetch_stream) if sp else None
-        self._lap("step", t)
+        _finish_native_span reads. On the CPU the step itself runs in a
+        "span.step.cpu" child span: the device's time, not the host's."""
+        with self._stage("step", span=st["idx"]):
+            n_span, unit_bounds, feed = st["n_span"], st["unit_bounds"], st["feed"]
+            cuda = self.device.type == "cuda"
+            step_evs = None
+            if cuda:
+                step_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                step_evs[0].record()
+            with contextlib.nullcontext() if cuda else trace.span("span.step.cpu") as on_cpu:
+                sp = ()
+                if self.mesh is not None:
+                    out, sp = self._mesh_step(st)
+                elif self.dev_counters is not None:
+                    out, sp = self._span_count_step(*feed, n_span, unit_bounds, planes=st["acc"])
+                else:
+                    out = self._span_step(*feed, planes=st["acc"])
+            if cuda:
+                step_evs[1].record()
+            else:
+                self.device_seconds += on_cpu.seconds
+            if out is None:  # a mesh rank other than 0: nothing to fetch
+                st.update(out=None, host=None, fetch_evs=None, step_evs=step_evs, sp=None)
+                return st
+            host, fetch_evs = self._slice_and_prefetch(out, st["b"], n_span)
+            sp_pending = self.dev_counters.start_sp(sp, self._fetch_stream) if sp else None
         # `out` stays referenced until the finish has waited for the fetch:
         # the copies read it on the fetch stream. The feed (and out of core
         # the word plane) stays for a redispatch (a dictionary or
@@ -1260,21 +1283,20 @@ class Classifier:
 
     # ------------------------------------------------------- out-of-core route
 
-    def _start_ooc_span(self, buf, offs, unit_bounds, fastq) -> dict:
-        """Encode one span and put its feed on the device for its group; the
-        chunk passes and the finish step run when the group is flushed.
-        "bytes" counts what the span holds on the device until its finish:
-        the packed codes and flags, the lengths and the int32 [B, W] word
-        plane."""
-        st = self._encode_native_span(buf, offs, unit_bounds, fastq)
-        t = time.perf_counter()
-        st["feed"] = codes, ambig, lengths = self._span_feed(*st["feed"])
-        w = 16 * codes.shape[1] - self.k + 1
-        st["bytes"] = sum(a.numel() * a.element_size() for a in st["feed"]) + 4 * codes.shape[0] * w
-        self._lap("step", t)
+    def _start_ooc_span(self, buf, offs, unit_bounds, fastq, idx: int) -> dict:
+        """Encode global span idx and put its feed on the device for its
+        group; the chunk passes and the finish step run when the group is
+        flushed. "bytes" counts what the span holds on the device until its
+        finish: the packed codes and flags, the lengths and the int32 [B, W]
+        word plane."""
+        st = self._encode_native_span(buf, offs, unit_bounds, fastq, idx)
+        with self._stage("step", span=idx):
+            st["feed"] = codes, ambig, lengths = self._span_feed(*st["feed"])
+            w = 16 * codes.shape[1] - self.k + 1
+            st["bytes"] = sum(a.numel() * a.element_size() for a in st["feed"]) + 4 * codes.shape[0] * w
         return st
 
-    def _ooc_probe_group(self, spans: list, plain: bool = False) -> None:
+    def _ooc_probe_group(self, spans: list, plain: bool = False) -> trace.Span:
         """Stream every chunk table through the card once for a group of
         spans (each with its packed feed): the outer chunk loop of
         classify.cpp:587-648, with the reference's on-disk hit merge
@@ -1287,41 +1309,44 @@ class Classifier:
         waits for the previous chunk's probes. Under a mesh the chunks go in
         groups of n_db (JAX pipeline.py:879-977): this rank streams chunk
         g * n_db + db_j of each database's group g, and the group's words
-        merge over the db group in the pass (probe_chunk_core)."""
-        for st in spans:
-            if st["acc"] is None:
-                codes = st["feed"][0]
-                w = 16 * codes.shape[1] - self.k + 1
-                st["acc"] = torch.zeros((codes.shape[0], w), dtype=torch.int32, device=self.device)
-        slots = self._ooc_slots
-        n_slots = 2 if self._ooc_prefetch else 1
-        n_g, j = (1, 0) if self.mesh is None else (self.mesh.n_db, self.mesh.db_j)
-        seq = [(cdb, ci) for cdb in self._ooc for ci in range(j, cdb.n_chunks, n_g)]
-        evs = self._ooc_events if self.device.type == "cuda" else None
-        if evs is not None:
-            self._ooc_fold(wait=False)
-            group_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            group_evs[0].record()
-        for i, (cdb, ci) in enumerate(seq):
-            s = i % n_slots
-            slots.load(s, cdb, ci, None if evs is None else evs["upload"])
-            if self._ooc_prefetch and i + 1 < len(seq):
-                slots.load((i + 1) % n_slots, *seq[i + 1], None if evs is None else evs["upload"])
-            planes = slots.planes(s, cdb, ci)
-            if evs is not None:
-                probe_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                probe_evs[0].record()
+        merge over the db group in the pass (probe_chunk_core).
+        Returns its "ooc.group" span."""
+        with trace.span("ooc.group", group=self.ooc_groups) as sp:
             for st in spans:
-                probe_chunk_core(st["acc"], planes, cdb.bounds[ci], *st["feed"], self.k, cdb.nt, plain=plain,
-                                 mesh=self.mesh)
+                if st["acc"] is None:
+                    codes = st["feed"][0]
+                    w = 16 * codes.shape[1] - self.k + 1
+                    st["acc"] = torch.zeros((codes.shape[0], w), dtype=torch.int32, device=self.device)
+            slots = self._ooc_slots
+            n_slots = 2 if self._ooc_prefetch else 1
+            n_g, j = (1, 0) if self.mesh is None else (self.mesh.n_db, self.mesh.db_j)
+            seq = [(cdb, ci) for cdb in self._ooc for ci in range(j, cdb.n_chunks, n_g)]
+            evs = self._ooc_events if self.device.type == "cuda" else None
             if evs is not None:
-                probe_evs[1].record()
-                evs["probe"].append(probe_evs)
-            slots.release(s)
-        if evs is not None:
-            group_evs[1].record()
-            evs["group"].append(group_evs)
-        self.ooc_groups += 1
+                self._ooc_fold(wait=False)
+                group_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                group_evs[0].record()
+            for i, (cdb, ci) in enumerate(seq):
+                s = i % n_slots
+                slots.load(s, cdb, ci, None if evs is None else evs["upload"])
+                if self._ooc_prefetch and i + 1 < len(seq):
+                    slots.load((i + 1) % n_slots, *seq[i + 1], None if evs is None else evs["upload"])
+                planes = slots.planes(s, cdb, ci)
+                if evs is not None:
+                    probe_evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    probe_evs[0].record()
+                for st in spans:
+                    probe_chunk_core(st["acc"], planes, cdb.bounds[ci], *st["feed"], self.k, cdb.nt, plain=plain,
+                                     mesh=self.mesh)
+                if evs is not None:
+                    probe_evs[1].record()
+                    evs["probe"].append(probe_evs)
+                slots.release(s)
+            if evs is not None:
+                group_evs[1].record()
+                evs["group"].append(group_evs)
+            self.ooc_groups += 1
+        return sp
 
     def _ooc_fold(self, wait: bool) -> None:
         """Turn the recorded chunk-pass events into milliseconds
@@ -1362,9 +1387,7 @@ class Classifier:
             nonlocal group_bytes
             if not group:
                 return
-            t = time.perf_counter()
-            self._ooc_probe_group([st for _, st in group])
-            self._lap("probe", t)
+            self._charge("probe", self._ooc_probe_group([st for _, st in group]))
             pending = deque()
             while group:
                 idx, st = group.popleft()
@@ -1385,7 +1408,7 @@ class Classifier:
                 with self._manifest_span(idx, kraken_fh):
                     self._python_fallback_chunk(buf, unit_bounds, fastq, *outs)
                 continue
-            st = self._start_ooc_span(buf, offs, unit_bounds, fastq)
+            st = self._start_ooc_span(buf, offs, unit_bounds, fastq, idx)
             group.append((idx, st))
             group_bytes += st["bytes"]
             if group_bytes >= self.opts.ooc_group_bytes:
@@ -1431,26 +1454,45 @@ class Classifier:
         canonical k-mers) and write its kraken lines (overflow rows from the
         device planes). A span past the dictionary's capacity is run again
         on the wide rows first. A mesh rank other than 0 takes only the
-        redispatches (_follow_span)."""
-        from .._native_build import native
-
+        redispatches (_follow_span). The rows' decode is charged to the
+        first stage after the wait: the UID resolve, else the fold."""
         if not self._is_root:
             self._follow_span(st)
             return
+        idx = st["idx"]
         if st["fetch_evs"] is not None:
-            st["fetch_evs"][1].synchronize()
+            with trace.span("span.fetch_wait", span=idx):
+                st["fetch_evs"][1].synchronize()
             self.device_seconds += st["step_evs"][0].elapsed_time(st["step_evs"][1]) / 1e3
             self.fetch_seconds += st["fetch_evs"][0].elapsed_time(st["fetch_evs"][1]) / 1e3
-        t = time.perf_counter()
-        nat = native()
-        opts = self.opts
-        buf, offs_c, seq_lens, n_span = st["buf"], st["offs"], st["seq_lens"], st["n_span"]
-        out, host = st["out"], st["host"]
-        bounds = st["unit_bounds"]
+        uid = self.uid_map is not None
+        fold = "counters" if self.dev_counters is not None else "fold"
+        with self._stage("uid" if uid else fold, span=idx):
+            self._span_rows(st)
+            if uid:
+                st["calls"] = self._resolve_uid_calls(st["host"]["taxa"].numpy().view(np.uint32), st["n_kmers"],
+                                                      st["calls"], st["n_span"])
+            else:
+                self._fold_span(st)
+        if uid:
+            with self._stage(fold, span=idx):
+                self._fold_span(st)
+        with self._stage("format", span=idx):
+            self._format_span(st, kraken_fh, classified_fh, unclassified_fh)
+
+    def _redispatch(self, st: dict, cfg: StepConfig) -> dict:
+        """A span's step again under `cfg` (a dictionary or sparse-buffer
+        overflow); under a mesh every rank takes it."""
         if self.mesh is None:
-            redispatch = lambda cfg: self._span_step(*st["feed"], cfg=cfg, planes=st["acc"])  # noqa: E731
-        else:
-            redispatch = lambda cfg: self._mesh_step(st, cfg)[0]  # noqa: E731
+            return self._span_step(*st["feed"], cfg=cfg, planes=st["acc"])
+        return self._mesh_step(st, cfg)[0]
+
+    def _span_rows(self, st: dict) -> None:
+        """Decode a fetched span's rows into st: "cfg" (the wide rows' after
+        a dictionary overflow, whose redispatch replaces "out" and "host"),
+        "id_map", "packed", "calls", "n_kmers" and "n_runs"."""
+        n_span, seq_lens = st["n_span"], st["seq_lens"]
+        out, host = st["out"], st["host"]
         cfg = self._cfg_packed
         id_map = self._taxids_host  # u16 dense (or local) ids -> taxids
         if cfg.local_dict:
@@ -1460,7 +1502,7 @@ class Classifier:
                 # more distinct taxa than the dictionary holds: the wide rows
                 # (rare); the counters were updated by the first dispatch
                 cfg = self._cfg_packed_wide
-                out = redispatch(cfg)
+                out = self._redispatch(st, cfg)
                 self.dict_overflows += 1
                 host = {key: out[key][:n_span].cpu() for key in ("packed", "hll_pairs", *_EXACT_FETCH)
                         if key in out}
@@ -1477,18 +1519,24 @@ class Classifier:
             n_kmers = packed[:, meta + 1].astype(np.int32)
             n_runs = packed[:, meta + 2] & np.uint32(0xFFFF)
         else:
-            if opts.quick:
+            if self.opts.quick:
                 calls = packed[:, r].copy()
                 n_runs = packed[:, r + 1] & np.uint32(0xFFFF)
             else:
                 calls = id_map[(packed[:, r] >> np.uint32(16)).astype(np.int64)]
                 n_runs = packed[:, r] & np.uint32(0xFFFF)
             n_kmers = np.maximum(seq_lens - (self.k - 1), 0).astype(np.int32)
-        uid = self.uid_map is not None
-        if uid:
-            calls = self._resolve_uid_calls(host["taxa"].numpy().view(np.uint32), n_kmers, calls, n_span)
-            t = self._lap("uid", t)
+        st.update(out=out, host=host, cfg=cfg, id_map=id_map, packed=packed, calls=calls, n_kmers=n_kmers,
+                  n_runs=n_runs)
 
+    def _fold_span(self, st: dict) -> None:
+        """Fold a decoded span's counts: with device counters the sparse
+        stats (and, with exact, the k-mer sets; under UID the read counts),
+        else the HLL feed per work unit."""
+        opts = self.opts
+        n_span, bounds, calls, host, out, cfg = (st[key] for key in ("n_span", "unit_bounds", "calls", "host",
+                                                                     "out", "cfg"))
+        uid = self.uid_map is not None
         dc = self.dev_counters
         if dc is not None:
             # the counts and registers were updated in the step's stream;
@@ -1498,7 +1546,7 @@ class Classifier:
             if self.mesh is not None:
                 self.mesh.broadcast_flag(overflow)  # the other ranks redispatch with rank 0
             if overflow:
-                fb = redispatch(self._cfg_sparse_fb)
+                fb = self._redispatch(st, self._cfg_sparse_fb)
                 dc.consume_host(fb[fb_key][:n_span], fb["enc"][:n_span], fb["hll_lanes"][:n_span],
                                 unit_bounds=bounds)
             if dc.host_stats:
@@ -1512,23 +1560,21 @@ class Classifier:
             if uid:
                 # the read counts key on the resolved taxids: the host counter
                 self.counter.process_unit(_EMPTY, _EMPTY, calls)
-            t = self._lap("counters", t)
         elif opts.exact:
             # per-unit fold of each counted lane's taxon and canonical k-mer
             taxa_x, lanes_x, canon_x = self._exact_planes(host, n_span)
             for s_, e_ in zip(bounds[:-1], bounds[1:]):
                 ok = lanes_x[s_:e_]
                 self.counter.process_unit(taxa_x[s_:e_][ok], canon_x[s_:e_][ok], calls[s_:e_])
-            t = self._lap("fold", t)
         elif cfg.dense_runs:
             # per-unit HLL fold (work-unit semantics): u32 encodings and u16
             # ids (0xFFFF: lane not counted)
+            id_map = st["id_map"]
             hd = host["hll_dense"].numpy().view(np.uint16)[:n_span]
             he = host["hll_enc"].numpy().view(np.uint32)[:n_span]
             for s_, e_ in zip(bounds[:-1], bounds[1:]):
                 m = hd[s_:e_] != np.uint16(0xFFFF)
                 self.counter.process_unit(id_map[hd[s_:e_][m].astype(np.int64)], he[s_:e_][m], calls[s_:e_])
-            t = self._lap("fold", t)
         else:
             # the wide rows' u64 feed: dense id<<32 | encoding, all ones on
             # the lanes not counted (under UID the raw id, counted as it is)
@@ -1541,8 +1587,18 @@ class Classifier:
                     taxa = self._taxids_host[taxa.astype(np.int64)]
                 self.counter.process_unit(taxa, (flat & np.uint64(0xFFFFFFFF)).astype(np.uint32),
                                           calls[s_:e_])
-            t = self._lap("fold", t)
 
+    def _format_span(self, st: dict, kraken_fh, classified_fh, unclassified_fh) -> None:
+        """Write a decoded span's kraken lines (overflow rows from the
+        device planes) and reads, and count it."""
+        from .._native_build import native
+
+        nat = native()
+        opts = self.opts
+        buf, offs_c, seq_lens, n_span = st["buf"], st["offs"], st["seq_lens"], st["n_span"]
+        out, cfg, packed, calls, n_kmers, n_runs = (st[key] for key in ("out", "cfg", "packed", "calls", "n_kmers",
+                                                                        "n_runs"))
+        r = cfg.max_runs
         if kraken_fh is not None:
             # rows with more runs than R: their planes gathered on the device,
             # mapped and formatted on the host
@@ -1571,7 +1627,7 @@ class Classifier:
                 ov_lines = sub.splitlines(keepends=True)
                 if len(ov_lines) != len(ov_rows):
                     raise RuntimeError("kraken_lines: one line per overflow row expected")
-            if uid:  # the rows' call word: the resolved calls
+            if self.uid_map is not None:  # the rows' call word: the resolved calls
                 packed = packed.copy()
                 packed[:, r + r // 2] = calls
             lines = nat.kraken_lines_rle(
@@ -1587,7 +1643,7 @@ class Classifier:
                 ov_lines,
                 cfg.dense_runs,
                 self.k,
-                id_map if cfg.dense_runs else None,
+                st["id_map"] if cfg.dense_runs else None,
             )
             if hasattr(kraken_fh, "buffer"):
                 kraken_fh.flush()  # text written through the wrapper goes first
@@ -1616,7 +1672,6 @@ class Classifier:
         self.total_sequences += n_span
         self.total_bases += int(seq_lens.sum())
         self.n_spans += 1
-        self._lap("format", t)
 
     def _follow_span(self, st) -> None:
         """A mesh rank other than 0 at a span's finish: the steps rank 0
@@ -1638,7 +1693,7 @@ class Classifier:
 
     def report_stats(self, fh=None) -> None:
         """The run's totals, on `fh` (the sys.stderr of the call's moment
-        by default)."""
+        by default); the seconds are the last run's "run" span."""
         fh = sys.stderr if fh is None else fh
         seconds = getattr(self, "_elapsed", 0.0) or 1e-9
         fh.write("\r")
@@ -1714,20 +1769,31 @@ class Classifier:
     def write_report(self, fh, extra_counts: list | None = None) -> None:
         """`extra_counts`: other hosts' finalized counts (dicts, or state
         files of parallel/multihost.save_counter_state) folded in first
-        (JAX pipeline.py:2203-2215)."""
-        self.ensure_counts_files()
-        opts = self.opts
-        counts = self.finalized_counts()  # fresh objects: the fold cannot touch the live state
-        if extra_counts:
-            from ..parallel.multihost import load_counter_state, merge_counts
+        (JAX pipeline.py:2203-2215). Its "report" span holds TaxReport's
+        "report.aggregate" and "report.write"."""
+        with trace.span("report", run=trace.new_run()):
+            self.ensure_counts_files()
+            opts = self.opts
+            counts = self.finalized_counts()  # fresh objects: the fold cannot touch the live state
+            if extra_counts:
+                from ..parallel.multihost import load_counter_state, merge_counts
 
-            for other in extra_counts:
-                if isinstance(other, (str, os.PathLike)):
-                    other = load_counter_state(os.fspath(other))
-                merge_counts(counts, other)
-        rep = TaxReport(self.taxonomy, counts, show_zeros=opts.report_zeros)
-        if opts.hll_precision > 0:
-            rep.set_cols(FULL_COLS if opts.full_report else DEFAULT_COLS)
-        else:
-            rep.set_cols(NO_HLL_COLS)
-        rep.write(fh)
+                for other in extra_counts:
+                    if isinstance(other, (str, os.PathLike)):
+                        other = load_counter_state(os.fspath(other))
+                    merge_counts(counts, other)
+            rep = TaxReport(self.taxonomy, counts, show_zeros=opts.report_zeros)
+            if opts.hll_precision > 0:
+                rep.set_cols(FULL_COLS if opts.full_report else DEFAULT_COLS)
+            else:
+                rep.set_cols(NO_HLL_COLS)
+            rep.write(fh)
+
+    @staticmethod
+    def spans() -> list[trace.Span]:
+        """The process's finished spans (utils/trace.py's log): "load" with
+        "load.taxonomy" and a "load.tables" a database; "run" with "parse",
+        "span.<stage>", "span.fetch_wait", "ooc.group" (or, on the Python
+        route, "unit" and "unit.step"); "report" with "report.aggregate" and
+        "report.write"."""
+        return trace.spans()

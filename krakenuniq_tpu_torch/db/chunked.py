@@ -40,7 +40,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -53,6 +52,7 @@ from .hash_table import (
     chd_min_lr,
     chd_table_bytes,
 )
+from ..utils import trace
 from .ht_cache import CHUNK_SOURCES, load_ht_cache, save_ht_cache
 
 CACHE_SUFFIX = ".htc_torch"  # the port's chunk cache beside `database.kdb`
@@ -155,10 +155,11 @@ class ChunkedHashDB:
     vals_dense: np.ndarray | None  # host dense values (counts-file generation)
     pool: object | None = None  # ValuePool when the table values are pool ids
     store_raw: bool = False  # raw (UID) values in two-level tables
-    # set-up wall seconds: "read" (kdb, dense values, pool), "cache_read" (a
-    # hit) or "build" (plan, placement, planes, self-check) and
-    # "cache_write", "pin" (copies into pinned memory); "cache" is "hit",
-    # "miss" (built, and written) or "write_failed" (built, not written)
+    # set-up wall seconds of the "load.tables.<step>" spans: "read" (kdb,
+    # dense values, pool), "cache_read" (a hit) or "build" (plan,
+    # placement, planes, self-check) and "cache_write", "pin" (copies into
+    # pinned memory); "cache" is "hit", "miss" (built, and written) or
+    # "write_failed" (built, not written)
     timings: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -262,10 +263,10 @@ def build_chunked_db(
                 else:
                     min_chunks = len(bounds) + 1
                 break
-            t = time.perf_counter()
-            chunk_planes.append(tuple(_host_tensor(p, pin) for p in host))
-            del host
-            pin_s += time.perf_counter() - t
+            with trace.span("load.tables.pin") as pinned:
+                chunk_planes.append(tuple(_host_tensor(p, pin) for p in host))
+                del host
+            pin_s += pinned.seconds
         if ok:
             break
     cdb = ChunkedHashDB(
@@ -309,60 +310,63 @@ def load_chunked_db(
     from .device_db import compute_vals_dense
     from .pool import build_value_pool
 
-    t0 = time.perf_counter()
     db_dir = os.fspath(db_dir)
     kdb_path = os.path.join(db_dir, "uid_database.kdb" if uid_database else "database.kdb")
     taxdb_path = os.path.join(db_dir, "taxDB")
-    hdr, keys, vals = read_kdb(kdb_path)
-    _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
-    if uid_database:  # set ids, not taxids: no dense values and no pool
-        vals_dense, pool = None, None
-    else:
-        if vals_dense is None:
-            vals_dense = compute_vals_dense(vals, taxonomy)
-        vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
-    if pool == "auto":
-        pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
-    t1 = time.perf_counter()
+    with trace.span("load.tables.read") as read:
+        hdr, keys, vals = read_kdb(kdb_path)
+        _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
+        if uid_database:  # set ids, not taxids: no dense values and no pool
+            vals_dense, pool = None, None
+        else:
+            if vals_dense is None:
+                vals_dense = compute_vals_dense(vals, taxonomy)
+            vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
+        if pool == "auto":
+            pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     htc_path = kdb_path + CACHE_SUFFIX
     cdb = None
-    cached = load_ht_cache(htc_path, kdb_path, taxdb_path, CHUNK_SOURCES, store_raw=uid_database)
-    if cached is not None:
-        planes, lb, extra = cached
-        extra = extra or {}
-        c_rows = extra.get("pool_rows")
-        space_ok = (c_rows is None) == (pool is None) and (
-            pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
-        # a cache without one bin range a chunk is a miss: the passes route by them
-        bounds = extra.get("bounds")
-        if (space_ok and extra.get("budget") == budget_bytes and extra.get("chunk_multiple") == chunk_multiple
-                and len(planes) % 2 == 0 and bounds is not None and len(bounds) == len(planes) // 2):
-            t = time.perf_counter()
+    with trace.span("load.tables.cache_read") as cache_read:
+        cached = load_ht_cache(htc_path, kdb_path, taxdb_path, CHUNK_SOURCES, store_raw=uid_database)
+        hit = False
+        if cached is not None:
+            planes, lb, extra = cached
+            extra = extra or {}
+            c_rows = extra.get("pool_rows")
+            space_ok = (c_rows is None) == (pool is None) and (
+                pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
+            # a cache without one bin range a chunk is a miss: the passes route by them
+            bounds = extra.get("bounds")
+            hit = (space_ok and extra.get("budget") == budget_bytes and extra.get("chunk_multiple") == chunk_multiple
+                   and len(planes) % 2 == 0 and bounds is not None and len(bounds) == len(planes) // 2)
+    if hit:
+        with trace.span("load.tables.pin") as pinned:
             cdb = chunked_db_from_planes(
                 [planes[i : i + 2] for i in range(0, len(planes), 2)], lb, hdr.k, nt,
                 bounds=bounds, key_ct=len(keys), pin=pin,
             )
-            pin_s = time.perf_counter() - t
-            cdb.timings.update(cache="hit", cache_read=t - t1, pin=pin_s)
+        cdb.timings.update(cache="hit", cache_read=cache_read.seconds, pin=pinned.seconds)
     if cdb is None:
-        table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
-        cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin,
-                               store_raw=uid_database, chunk_multiple=chunk_multiple)
-        del table_vals
-        cdb.timings["build"] = time.perf_counter() - t1 - cdb.timings["pin"]
-        t = time.perf_counter()
-        extra = {"budget": budget_bytes, "bounds": [list(b) for b in cdb.bounds],
-                 "chunk_multiple": chunk_multiple}
-        if pool is not None:
-            extra["pool_rows"] = pool.rows
-        flat = [p.numpy().view(np.uint32) for planes in cdb.chunk_planes for p in planes]
-        ok = save_ht_cache(htc_path, flat, cdb.lb, kdb_path, taxdb_path, extra=extra, sources=CHUNK_SOURCES,
-                           store_raw=uid_database)
-        cdb.timings.update(cache="miss" if ok else "write_failed", cache_write=time.perf_counter() - t)
+        with trace.span("load.tables.build") as build:
+            table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
+            cdb = build_chunked_db(keys, table_vals, offsets, budget_bytes, hdr.k, nt, pin=pin,
+                                   store_raw=uid_database, chunk_multiple=chunk_multiple)
+            del table_vals
+        # the build's wall beside its pinning, with the cache read it follows
+        cdb.timings["build"] = cache_read.seconds + build.seconds - cdb.timings["pin"]
+        with trace.span("load.tables.cache_write") as cache_write:
+            extra = {"budget": budget_bytes, "bounds": [list(b) for b in cdb.bounds],
+                     "chunk_multiple": chunk_multiple}
+            if pool is not None:
+                extra["pool_rows"] = pool.rows
+            flat = [p.numpy().view(np.uint32) for planes in cdb.chunk_planes for p in planes]
+            ok = save_ht_cache(htc_path, flat, cdb.lb, kdb_path, taxdb_path, extra=extra, sources=CHUNK_SOURCES,
+                               store_raw=uid_database)
+        cdb.timings.update(cache="miss" if ok else "write_failed", cache_write=cache_write.seconds)
     del keys, vals
     cdb.vals_dense = vals_dense
     cdb.pool = pool
-    cdb.timings["read"] = t1 - t0
+    cdb.timings["read"] = read.seconds
     print(
         f"out-of-core: {db_dir} split into {cdb.n_chunks} chunk tables of {cdb.chunk_bytes()} "
         f"bytes at width 2^{cdb.lb} (budget {budget_bytes} bytes)",

@@ -29,13 +29,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
 from ..formats import read_index, read_kdb
 from ..taxonomy import Taxonomy
+from ..utils import trace
 from .hash_table import HashBuildError, build_hash_table
 from .ht_cache import load_ht_cache, save_ht_cache
 from .pool import ValuePool, build_value_pool
@@ -223,38 +223,38 @@ def _build_device_db(keys, vals, offsets, k, nt, taxonomy, device, cached_hash, 
         pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     timings: dict = {}
     built = None
-    t0 = time.perf_counter()
     host_planes, hlb = cached_hash if cached_hash is not None else (None, 0)
     if use_hash and host_planes is None:
-        table_vals = vals if store_raw else pool.pool_index(vals_dense) if pool is not None else vals_dense
         steps: dict = {}
-        try:
-            host_planes, hlb = built = build_hash_table(
-                keys, table_vals, timings=steps, store_raw=store_raw,
-                check=_card_self_check(device) if torch.device(device).type == "cuda" else None,
-            )
-        except HashBuildError as e:
-            # never hard-fail on valid input: the bsearch planes answer
-            # every query the hash table would; slower but correct
-            print(
-                f"warning: hash-table build failed ({e}); falling back to binary-search lookup",
-                file=sys.stderr,
-            )
-            use_hash = False
-            pool = None  # the bsearch planes answer in dense-id space
-        timings.update(build=time.perf_counter() - t0, **{f"build_{s}": v for s, v in steps.items()})
-    t1 = time.perf_counter()
-    db = DeviceDB(
-        vals_dense=vals_dense, k=k, nt=nt, key_ct=len(keys), hash_table=None, hash_lb=0,
-        keys=keys, vals=vals, offsets=offsets, max_bin=max_bin,
-    )
-    if use_hash:
-        db.hash_table = tuple(_to_device(p, device) for p in host_planes)
-        db.hash_lb, db.pool, db.store_raw = hlb, pool, store_raw
-        _sync(db.hash_table[-1])
-    else:
-        _sync(db.upload_sorted_planes(device)[0])
-    db.timings = {**timings, "upload": time.perf_counter() - t1}
+        with trace.span("load.tables.build") as build:
+            table_vals = vals if store_raw else pool.pool_index(vals_dense) if pool is not None else vals_dense
+            try:
+                host_planes, hlb = built = build_hash_table(
+                    keys, table_vals, timings=steps, store_raw=store_raw,
+                    check=_card_self_check(device) if torch.device(device).type == "cuda" else None,
+                )
+            except HashBuildError as e:
+                # never hard-fail on valid input: the bsearch planes answer
+                # every query the hash table would; slower but correct
+                print(
+                    f"warning: hash-table build failed ({e}); falling back to binary-search lookup",
+                    file=sys.stderr,
+                )
+                use_hash = False
+                pool = None  # the bsearch planes answer in dense-id space
+        timings.update(build=build.seconds, **{f"build_{s}": v for s, v in steps.items()})
+    with trace.span("load.tables.upload") as upload:
+        db = DeviceDB(
+            vals_dense=vals_dense, k=k, nt=nt, key_ct=len(keys), hash_table=None, hash_lb=0,
+            keys=keys, vals=vals, offsets=offsets, max_bin=max_bin,
+        )
+        if use_hash:
+            db.hash_table = tuple(_to_device(p, device) for p in host_planes)
+            db.hash_lb, db.pool, db.store_raw = hlb, pool, store_raw
+            _sync(db.hash_table[-1])
+        else:
+            _sync(db.upload_sorted_planes(device)[0])
+    db.timings = {**timings, "upload": upload.seconds}
     return db, built
 
 
@@ -280,51 +280,54 @@ def load_database_dir(
     place of the build, when the kdb, the taxDB, the port's cache version and
     the pool's rows all match; anything else rebuilds and rewrites it. A
     failed write (a read-only directory) is not fatal. DeviceDB.timings
-    says which ("cache": "hit", "miss" or "write_failed")."""
-    t0 = time.perf_counter()
+    says which ("cache": "hit", "miss" or "write_failed"), beside the
+    seconds of the "load.tables.<step>" spans (utils/trace.py): "read",
+    "cache_read" on a hit, "build" (and build_hash_table's steps as
+    "build_<step>") on a miss, "upload" and "cache_write"."""
     db_dir = os.fspath(db_dir)
     taxdb_path = os.path.join(db_dir, "taxDB")
     kdb_path = os.path.join(db_dir, "uid_database.kdb" if uid_database else "database.kdb")
-    if taxonomy is None:
-        taxonomy = Taxonomy.from_taxdb_file(taxdb_path)
-    hdr, keys, vals = read_kdb(kdb_path)
-    _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
-    if uid_database:
-        # set ids, not taxids: no dense mapping and no pool
-        vals_dense, pool = np.zeros(len(vals), np.int32), None
-    elif vals_dense is None:
-        vals_dense = compute_vals_dense(vals, taxonomy)
-    vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
-    if pool == "auto":
-        pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
-    t1 = time.perf_counter()
+    with trace.span("load.tables.read") as read:
+        if taxonomy is None:
+            with trace.span("load.taxonomy"):
+                taxonomy = Taxonomy.from_taxdb_file(taxdb_path)
+        hdr, keys, vals = read_kdb(kdb_path)
+        _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
+        if uid_database:
+            # set ids, not taxids: no dense mapping and no pool
+            vals_dense, pool = np.zeros(len(vals), np.int32), None
+        elif vals_dense is None:
+            vals_dense = compute_vals_dense(vals, taxonomy)
+        vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
+        if pool == "auto":
+            pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     # the cached table's value space must be the pool in use: a joint pool
     # of hierarchical databases differs from the database's own
     ht_path = kdb_path + CACHE_SUFFIX[pool is not None]
-    cached = load_ht_cache(ht_path, kdb_path, taxdb_path, store_raw=uid_database)
-    if cached is not None:
-        c_rows = (cached[2] or {}).get("pool_rows")
-        if (c_rows is None) != (pool is None) or (
-            pool is not None and not np.array_equal(np.asarray(c_rows), pool.rows)
-        ):
-            cached = None
-        else:
-            cached = cached[:2]
-    t2 = time.perf_counter()
+    with trace.span("load.tables.cache_read") as cache_read:
+        cached = load_ht_cache(ht_path, kdb_path, taxdb_path, store_raw=uid_database)
+        if cached is not None:
+            c_rows = (cached[2] or {}).get("pool_rows")
+            if (c_rows is None) != (pool is None) or (
+                pool is not None and not np.array_equal(np.asarray(c_rows), pool.rows)
+            ):
+                cached = None
+            else:
+                cached = cached[:2]
     db, built = _build_device_db(keys, vals, offsets, hdr.k, nt, taxonomy, device, cached, pool, vals_dense,
                                  uid_database)
-    timings = {"read": t1 - t0, **db.timings}
+    timings = {"read": read.seconds, **db.timings}
     if cached is not None:
-        timings.update(cache="hit", cache_read=t2 - t1)
+        timings.update(cache="hit", cache_read=cache_read.seconds)
     else:
         timings["cache"] = "miss"
         if built is not None:
-            t3 = time.perf_counter()
-            host_planes, lb = built
-            extra = {"pool_rows": pool.rows} if db.pool is not None else None
-            if not save_ht_cache(ht_path, host_planes, lb, kdb_path, taxdb_path, extra=extra,
-                                 store_raw=uid_database):
-                timings["cache"] = "write_failed"
-            timings["cache_write"] = time.perf_counter() - t3
+            with trace.span("load.tables.cache_write") as cache_write:
+                host_planes, lb = built
+                extra = {"pool_rows": pool.rows} if db.pool is not None else None
+                if not save_ht_cache(ht_path, host_planes, lb, kdb_path, taxdb_path, extra=extra,
+                                     store_raw=uid_database):
+                    timings["cache"] = "write_failed"
+            timings["cache_write"] = cache_write.seconds
     db.timings = timings
     return db, taxonomy

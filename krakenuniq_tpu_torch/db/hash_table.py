@@ -49,10 +49,9 @@ coincidence (krakenuniq_tpu/db/hash_table.py).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
+from ..utils import trace
 from ..utils.bits import murmur3_finalizer
 
 BUCKET_SLOTS = 2
@@ -458,31 +457,35 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
     values, width)` -> the keys that do not probe back to their value; the
     numpy mirror `_self_check` by default, the table's kernel on the card
     for a card's load: db/device_db.py); every failure raises
-    HashBuildError. `timings`, if given, receives the seconds of each step
-    ("hash", "place", "planes", "check"), summed over retries and layouts."""
+    HashBuildError. Each step is a span (utils/trace.py) under the build's
+    "hash_table": "hash_table.hash", ".place", ".planes" and ".check";
+    `timings`, if given, receives each step's seconds ("hash", "place",
+    "planes", "check"), summed over retries and layouts."""
     if layout not in ("auto", "chd", "fused"):
         raise ValueError(f"layout must be 'auto', 'chd' or 'fused', got {layout!r}")
-    t = timings if timings is not None else {}
-    t.update(hash=0.0, place=0.0, planes=0.0, check=0.0)
-    t0 = time.perf_counter()
+    with trace.span("hash_table") as sp:
+        try:
+            return _build_hash_table(keys, values, self_check, force_lr, layout, store_raw, check)
+        finally:
+            if timings is not None:
+                timings.update({step: sp.child_seconds("hash_table." + step)
+                                for step in ("hash", "place", "planes", "check")})
 
-    def lap(step):
-        nonlocal t0
-        t1 = time.perf_counter()
-        t[step] += t1 - t0
-        t0 = t1
 
+def _build_hash_table(keys, values, self_check, force_lr, layout, store_raw, check):
     n = len(keys)
-    hashes = murmur3_finalizer(np.ascontiguousarray(keys, dtype=np.uint64))
-    values = np.asarray(values).astype(np.uint32)
-    vmax = int(values.max()) if n else 0
-    lap("hash")
+    with trace.span("hash_table.hash"):
+        hashes = murmur3_finalizer(np.ascontiguousarray(keys, dtype=np.uint64))
+        values = np.asarray(values).astype(np.uint32)
+        vmax = int(values.max()) if n else 0
 
-    def checked(host, width):
-        lap("planes")
-        ok = not self_check or n == 0 or (check or _self_check)(host, hashes, values, width) == 0
-        lap("check")
-        return ok
+    def checked(planes, width):
+        """The planes `planes()` builds, or None when they fail the check."""
+        with trace.span("hash_table.planes"):
+            host = planes()
+        with trace.span("hash_table.check"):
+            ok = not self_check or n == 0 or (check or _self_check)(host, hashes, values, width) == 0
+        return host if ok else None
 
     if layout in ("auto", "chd") and not store_raw:
         lr = chd_min_lr(n, vmax) if force_lr is None else force_lr
@@ -491,13 +494,13 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
         lr_max = 30 if force_lr is None else min(force_lr, 30)
         while lr <= lr_max:
             for seed in range(3):
-                out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
-                lap("place")
+                with trace.span("hash_table.place"):
+                    out = _chd_place(hashes, lr, max(2, lr - 2), seed=seed)
                 if out is None:
                     continue
                 row_of, col_of, disp = out
-                host = _host_planes_chd(row_of, col_of, hashes, values, lr, disp)
-                if checked(host, lr):
+                host = checked(lambda: _host_planes_chd(row_of, col_of, hashes, values, lr, disp), lr)
+                if host is not None:
                     return host, lr
             lr += 1
         if layout == "chd":
@@ -518,13 +521,13 @@ def build_hash_table(keys: np.ndarray, values: np.ndarray, self_check: bool = Tr
         raise HashBuildError(f"hash table of 2^{lb} buckets is not supported ({n} keys)")
     while lb <= lb_max:
         for seed in range(3):  # fresh eviction-coin walks before growing
-            assign = _host_place(hashes, lb, seed=seed * 17)
-            lap("place")
+            with trace.span("hash_table.place"):
+                assign = _host_place(hashes, lb, seed=seed * 17)
             if assign is None:
                 continue
-            host = (_host_planes_two(assign, hashes, values, lb) if store_raw
-                    else (_host_planes_fused(assign, hashes, values, lb),))
-            if checked(host, lb):
+            host = checked(lambda: (_host_planes_two(assign, hashes, values, lb) if store_raw
+                                    else (_host_planes_fused(assign, hashes, values, lb),)), lb)
+            if host is not None:
                 return host, lb
         lb += 1
     raise HashBuildError(

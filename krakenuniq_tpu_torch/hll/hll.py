@@ -34,6 +34,10 @@ from ..utils.bits import P_PRIME, M_PRIME, decode_rank, encode_hash_32, murmur3_
 
 _BIAS_PATH = os.path.join(os.path.dirname(__file__), "heule_bias_data.npz")
 _bias_data = None
+# entries of both sparse sets fed to each np.union1d of HLL.merge, over the
+# process: the report's "report.aggregate" span counts the rise over its
+# interval (a plain add a merge, not a recorder call)
+union_entries = 0
 
 
 def _load_bias():
@@ -162,6 +166,7 @@ class HLL:
 
     def merge(self, other: "HLL") -> None:
         """Reference merge semantics (hyperloglogplus.cpp:586-665)."""
+        global union_entries
         if self.p != other.p:
             raise ValueError("precisions must be equal")
         if other.n_observed == 0:
@@ -174,6 +179,7 @@ class HLL:
             return
         self.n_observed += other.n_observed
         if self.sparse and other.sparse:
+            union_entries += len(self.sparse_set) + len(other.sparse_set)
             self.sparse_set = np.union1d(self.sparse_set, other.sparse_set)
         elif other.sparse:
             if len(other.sparse_set):

@@ -52,6 +52,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 # a rank that never reaches a collective fails its peers' calls after this
 COLLECTIVE_TIMEOUT_S = 1800.0
 _LUT_PAD = 1 << 30  # above any dense id: keeps a span dictionary sorted (classify/device_step.py)
@@ -98,8 +100,8 @@ class Mesh:
     backend: str
     db_group: object = None  # the ranks of this data row (None: a row of one rank)
     data_group: object = None  # the ranks of this db column (None: a column of one rank)
-    # host seconds and calls of the db merges (the collective alone: the
-    # card's queue is drained before the clock starts)
+    # host seconds ("mesh.merge" spans) and calls of the db merges (the
+    # collective alone: the card's queue is drained before the span opens)
     merge_seconds: float = 0.0
     merge_calls: int = 0
 
@@ -132,15 +134,15 @@ class Mesh:
         if self.n_db == 1:
             return t
         self._sync()
-        t0 = time.perf_counter()
-        if t.dtype == torch.bool:
-            u = t.to(torch.uint8)
-            dist.all_reduce(u, group=self.db_group)
-            t.copy_(u != 0)
-        else:
-            dist.all_reduce(t, group=self.db_group)
-        self._sync()
-        self.merge_seconds += time.perf_counter() - t0
+        with trace.span("mesh.merge") as sp:
+            if t.dtype == torch.bool:
+                u = t.to(torch.uint8)
+                dist.all_reduce(u, group=self.db_group)
+                t.copy_(u != 0)
+            else:
+                dist.all_reduce(t, group=self.db_group)
+            self._sync()
+        self.merge_seconds += sp.seconds
         self.merge_calls += 1
         return t
 

@@ -20,9 +20,10 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 
 import numpy as np
+
+from ..utils import trace
 
 
 def partition_bins_equal_keys(offsets: np.ndarray, n_shards: int) -> list[tuple[int, int]]:
@@ -269,59 +270,66 @@ def load_sharded_db(db_dir, mesh, taxonomy, pool="auto", vals_dense=None, uid_da
     from ..db.pool import build_value_pool
     from ..formats import read_index, read_kdb
 
-    t0 = time.perf_counter()
     db_dir = os.fspath(db_dir)
     kdb_path = os.path.join(db_dir, "uid_database.kdb" if uid_database else "database.kdb")
     taxdb_path = os.path.join(db_dir, "taxDB")
-    hdr, keys, vals = read_kdb(kdb_path)
-    _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
-    if uid_database:
-        vals_dense, pool = np.zeros(len(vals), np.int32), None
-    elif vals_dense is None:
-        vals_dense = compute_vals_dense(vals, taxonomy)
-    vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
-    if pool == "auto":
-        pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
-    t1 = time.perf_counter()
+    with trace.span("load.tables.read") as read:
+        hdr, keys, vals = read_kdb(kdb_path)
+        _idx_type, nt, offsets = read_index(os.path.join(db_dir, "database.idx"))
+        if uid_database:
+            vals_dense, pool = np.zeros(len(vals), np.int32), None
+        elif vals_dense is None:
+            vals_dense = compute_vals_dense(vals, taxonomy)
+        vals_dense = np.ascontiguousarray(vals_dense, dtype=np.int32)
+        if pool == "auto":
+            pool = build_value_pool([vals_dense], taxonomy)  # None if > u16
     n, j = mesh.n_db, mesh.db_j
     path = shard_cache_path(kdb_path, n, pool is not None)
     timings: dict = {}
     own = None
-    cached = load_ht_cache(path, kdb_path, taxdb_path, store_raw=uid_database)
-    if cached is not None:
-        stacks, lb, extra = cached
-        extra = extra or {}
-        c_rows = extra.get("pool_rows")
-        space_ok = (c_rows is None) == (pool is None) and (
-            pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
-        if space_ok and extra.get("bounds") is not None and all(s.shape[0] == n for s in stacks):
-            own = tuple(np.ascontiguousarray(s[j]) for s in stacks)
-            bounds = [tuple(b) for b in extra["bounds"]]
-            timings.update(cache="hit", cache_read=time.perf_counter() - t1)
-        del stacks
-    if own is None:
-        table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
+    with trace.span("load.tables.cache_read") as cache_read:
+        cached = load_ht_cache(path, kdb_path, taxdb_path, store_raw=uid_database)
+        if cached is not None:
+            stacks, lb, extra = cached
+            extra = extra or {}
+            c_rows = extra.get("pool_rows")
+            space_ok = (c_rows is None) == (pool is None) and (
+                pool is None or np.array_equal(np.asarray(c_rows), pool.rows))
+            if space_ok and extra.get("bounds") is not None and all(s.shape[0] == n for s in stacks):
+                own = tuple(np.ascontiguousarray(s[j]) for s in stacks)
+                bounds = [tuple(b) for b in extra["bounds"]]
+            del stacks
+    # the db group builds together (its collectives): one rank's miss is
+    # every rank's, as when another data row writes the cache in between
+    if mesh.any_db(own is None):
+        own = None
+    if own is not None:
+        timings.update(cache="hit", cache_read=cache_read.seconds)
+    else:
         steps: dict = {}
-        check = _card_self_check(mesh.device) if mesh.device.type == "cuda" else None
-        sp = shard_hash_tables(keys, vals, table_vals, offsets, n, store_raw=uid_database, shards=[j],
-                               any_failed=mesh.any_db, check=check, timings=steps)
-        del table_vals
+        with trace.span("load.tables.build") as build:
+            table_vals = vals if uid_database else pool.pool_index(vals_dense) if pool is not None else vals_dense
+            check = _card_self_check(mesh.device) if mesh.device.type == "cuda" else None
+            sp = shard_hash_tables(keys, vals, table_vals, offsets, n, store_raw=uid_database, shards=[j],
+                                   any_failed=mesh.any_db, check=check, timings=steps)
+            del table_vals
         own, lb, bounds = sp.planes[j], sp.lb, sp.bounds
-        timings.update(build=time.perf_counter() - t1, **{f"build_{s}": v for s, v in steps.items()})
-        t = time.perf_counter()
-        timings["cache"] = _save_shard_cache(mesh, path, own, lb, bounds, kdb_path, taxdb_path, uid_database,
-                                             pool)
-        timings["cache_write"] = time.perf_counter() - t
-    t2 = time.perf_counter()
-    table = tuple(_to_device(p, mesh.device) for p in own)
-    _sync(table[-1])
-    offsets = np.asarray(offsets, dtype=np.int64)
-    lo, hi = bounds[j]
-    db = DeviceDB(
-        vals_dense=vals_dense, k=hdr.k, nt=nt, key_ct=int(offsets[hi] - offsets[lo]), hash_table=table,
-        hash_lb=lb, pool=pool, store_raw=uid_database, offsets=offsets,
-    )
-    db.timings = {"read": t1 - t0, **timings, "upload": time.perf_counter() - t2, "shard_keys": db.key_ct}
+        # the build's wall with the cache read it follows
+        timings.update(build=cache_read.seconds + build.seconds, **{f"build_{s}": v for s, v in steps.items()})
+        with trace.span("load.tables.cache_write") as cache_write:
+            timings["cache"] = _save_shard_cache(mesh, path, own, lb, bounds, kdb_path, taxdb_path, uid_database,
+                                                 pool)
+        timings["cache_write"] = cache_write.seconds
+    with trace.span("load.tables.upload") as upload:
+        table = tuple(_to_device(p, mesh.device) for p in own)
+        _sync(table[-1])
+        offsets = np.asarray(offsets, dtype=np.int64)
+        lo, hi = bounds[j]
+        db = DeviceDB(
+            vals_dense=vals_dense, k=hdr.k, nt=nt, key_ct=int(offsets[hi] - offsets[lo]), hash_table=table,
+            hash_lb=lb, pool=pool, store_raw=uid_database, offsets=offsets,
+        )
+    db.timings = {"read": read.seconds, **timings, "upload": upload.seconds, "shard_keys": db.key_ct}
     print(f"mesh: {db_dir} shard {j} of {n}: {db.key_ct} keys at width 2^{lb} (cache {timings['cache']})",
           file=sys.stderr)
     return db

@@ -21,8 +21,9 @@ import math
 
 import numpy as np
 
-from ..hll import ExactCounter, ReadCounts
+from ..hll import ExactCounter, ReadCounts, hll
 from ..taxonomy import Taxonomy
+from ..utils import trace
 
 DEFAULT_COLS = ["%", "reads", "taxReads", "kmers", "dup", "cov", "taxID", "rank", "taxName"]
 FULL_COLS = [
@@ -84,25 +85,29 @@ class TaxReport:
 
     def _aggregate(self) -> None:
         """Fan each taxon's counts out to itself + all ancestors, then merge
-        per clade (taxdb.hpp:935-973)."""
-        contributions: dict[int, list[ReadCounts]] = {}
-        tax = self.tax
-        for taxid in sorted(self.taxon_counts):
-            rc = self.taxon_counts[taxid]
-            i = int(tax.dense_index(np.asarray([taxid], dtype=np.uint32))[0])
-            if int(tax.taxids[i]) != int(taxid):
-                import sys
+        per clade (taxdb.hpp:935-973). Its "report.aggregate" span counts
+        "union_entries": the entries of the sparse sets HLL.merge united."""
+        with trace.span("report.aggregate"):
+            entries = hll.union_entries
+            contributions: dict[int, list[ReadCounts]] = {}
+            tax = self.tax
+            for taxid in sorted(self.taxon_counts):
+                rc = self.taxon_counts[taxid]
+                i = int(tax.dense_index(np.asarray([taxid], dtype=np.uint32))[0])
+                if int(tax.taxids[i]) != int(taxid):
+                    import sys
 
-                print(f"No entry for {taxid} in database!", file=sys.stderr)
-                continue
-            while True:
-                contributions.setdefault(int(tax.taxids[i]), []).append(rc)
-                p = int(tax.parent[i])
-                if p == i:
-                    break
-                i = p
-        for taxid, rcs in contributions.items():
-            self._clade[taxid] = _clade_counts(rcs)
+                    print(f"No entry for {taxid} in database!", file=sys.stderr)
+                    continue
+                while True:
+                    contributions.setdefault(int(tax.taxids[i]), []).append(rc)
+                    p = int(tax.parent[i])
+                    if p == i:
+                        break
+                    i = p
+            for taxid, rcs in contributions.items():
+                self._clade[taxid] = _clade_counts(rcs)
+            trace.count("union_entries", hll.union_entries - entries)
 
     def set_cols(self, cols: list[str]) -> None:
         self.cols = list(cols)
@@ -117,17 +122,20 @@ class TaxReport:
         return total
 
     def write(self, fh) -> None:
-        total = self.total_reads()
-        if total == 0:
-            import sys
+        """The tree walk, in a "report.write" span: each printed row's
+        estimate and its formatting."""
+        with trace.span("report.write"):
+            total = self.total_reads()
+            if total == 0:
+                import sys
 
-            print("total number of reads is zero - not creating a report!", file=sys.stderr)
-            return
-        fh.write("\t".join(self.cols) + "\n")
-        for t in (0, 1):
-            i = int(self.tax.dense_index(np.asarray([t], dtype=np.uint32))[0])
-            if int(self.tax.taxids[i]) == t:
-                self._print_subtree(i, 0, total, fh)
+                print("total number of reads is zero - not creating a report!", file=sys.stderr)
+                return
+            fh.write("\t".join(self.cols) + "\n")
+            for t in (0, 1):
+                i = int(self.tax.dense_index(np.asarray([t], dtype=np.uint32))[0])
+                if int(self.tax.taxids[i]) == t:
+                    self._print_subtree(i, 0, total, fh)
 
     def _print_subtree(self, dense: int, depth: int, total: int, fh) -> None:
         taxid = int(self.tax.taxids[dense])
